@@ -1,0 +1,124 @@
+"""Builds the port's CUDA kernels and loads them with ``ctypes``.
+
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
+started together) for ``sm_90a`` into an object file; one more ``nvcc``
+call links the objects into a shared library with a plain C interface.
+The build runs at first use, into ``build/repro_torch/<hash>/`` at the
+root of the checkout, keyed by a hash of the sources and flags, so a fresh
+checkout builds everything on its first kernel launch and a later process
+reuses the library.  Nothing outside the checkout is read or written,
+apart from the CUDA toolkit itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+LIB_NAME = "librepro_torch_kernels.so"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+# C entry point -> (argtypes, restype)
+SIGNATURES = {
+    "sdp_subspace_scratch_floats": ([_I, _I], _LL),
+    "sdp_subspace_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _P], _I),
+    "sdp_subspace_bf16": ([_P, _P, _P, _P, _P, _P, _I, _I, _P], _I),
+    "rank_k_update_f32": ([_P, _P, _P, _P, _I, _I, _P], _I),
+    "rank_k_update_bf16": ([_P, _P, _P, _P, _I, _I, _P], _I),
+    "bottleneck_eval_smem_bytes": ([_I, _I], _LL),
+    "bottleneck_eval": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+}
+
+_LIB: ctypes.CDLL | None = None
+BUILD_SECONDS: float | None = None   # wall time of this process's build, if it built
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + CFLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _build(out: Path) -> None:
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        objs = []
+        for src in sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            cmd = [nvcc, *ARCH_FLAGS, *CFLAGS, "-c", str(src), "-o", str(obj)]
+            procs.append((src, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        failed = []
+        for src, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name}:\n{log}")
+        if failed:
+            raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+        lib = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", *map(str, objs), "-o", str(lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed\n" + link.stdout)
+        os.replace(lib, out)   # atomic: a concurrent build never sees half a file
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, building it first if this hash is new."""
+    global _LIB, BUILD_SECONDS
+    if _LIB is not None:
+        return _LIB
+    path = BUILD_ROOT / _digest() / LIB_NAME
+    if not path.exists():
+        t0 = time.perf_counter()
+        _build(path)
+        BUILD_SECONDS = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(path))
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    _LIB = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")
