@@ -10,6 +10,18 @@ Nothing here imports ``repro``: the caller hands over arrays.
 
 A solved ``Y`` passes as the plain array it already is
 (``randomized_rounding(..., Y)``).
+
+The gossip-FL slice keeps ``repro``'s parameter layouts (conv HWIO, fully
+connected ``(in, out)``), so its conversions only lay trees out flat:
+
+  - ``stacked_params_from_arrays(params, num_users)``: one user's CNN tree
+    (a dict of numpy arrays, as ``repro.fl.cnn.init_cnn_params`` returns it)
+    -> the trainer's ``(N_T, L)`` replica buffer, one copy per user;
+  - ``params_from_stacked(stacked, like)``: an ``(N_T, L)`` buffer -> one
+    tree of numpy arrays per user, shaped like ``like``;
+  - ``epoch_perms_from_arrays(perms, num_users, chunk)``: a checked
+    ``(N_T, epochs, chunk)`` int64 table of per-user data permutations for
+    epochs 1, 2, … (``repro``'s ``GossipTrainer._host_epoch_perm``).
 """
 
 from __future__ import annotations
@@ -17,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.graphs import ComputeGraph, TaskGraph
+from repro_torch.train.tree import ParamLayout
 
 
 def instance_from_arrays(p, edges, e, C) -> tuple[TaskGraph, ComputeGraph]:
@@ -33,4 +46,32 @@ def warm_start_from_arrays(state: dict) -> dict:
     out = {"w": np.asarray(state["w"], dtype=np.float64)}
     if state.get("V") is not None:
         out["V"] = np.asarray(state["V"], dtype=np.float64)
+    return out
+
+
+def stacked_params_from_arrays(params: dict, num_users: int) -> np.ndarray:
+    """One user's parameter tree -> (num_users, L) float32, one row per user."""
+    row = ParamLayout(params).flatten(params)
+    return np.ascontiguousarray(np.broadcast_to(row, (num_users, row.size)))
+
+
+def params_from_stacked(stacked, like: dict) -> list[dict]:
+    """(N_T, L) replicas (numpy or a tensor) -> N_T trees shaped like ``like``."""
+    if hasattr(stacked, "detach"):
+        stacked = stacked.detach().to("cpu", copy=True).numpy()
+    layout = ParamLayout(like)
+    stacked = np.asarray(stacked)
+    if stacked.ndim != 2 or stacked.shape[1] != layout.size:
+        raise ValueError(f"need (N_T, {layout.size}) replicas, got {stacked.shape}")
+    return [layout.unflatten(row) for row in stacked]
+
+
+def epoch_perms_from_arrays(perms, num_users: int, chunk: int) -> np.ndarray:
+    """Check an (N_T, epochs, chunk) table of permutations of range(chunk)."""
+    out = np.ascontiguousarray(np.asarray(perms, dtype=np.int64))
+    if out.ndim != 3 or out.shape[0] != num_users or out.shape[2] != chunk:
+        raise ValueError(f"need a ({num_users}, epochs, {chunk}) permutation table, "
+                         f"got {out.shape}")
+    if not np.array_equal(np.sort(out, axis=2), np.broadcast_to(np.arange(chunk), out.shape)):
+        raise ValueError("every row of the table must be a permutation of range(chunk)")
     return out

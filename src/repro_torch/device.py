@@ -4,10 +4,12 @@
 instead of carrying on on the CPU.  The CPU is used only when the caller
 asks for it (``device="cpu"``), as the tests do.
 
-Resolving a CUDA device also pins float32 matrix products to full float32
-(``allow_tf32 = False``, matmul precision "highest"): TF32 in the rounding's
-``z = g @ rootᵀ`` would flip the signs of z near 0 and change which samples
-are drawn.
+Resolving a CUDA device also pins float32 matrix products and cuDNN's
+float32 convolutions to full float32 (``matmul.allow_tf32 = False``, matmul
+precision "highest", ``cudnn.allow_tf32 = False``).  TF32 keeps about three
+decimal digits: in the rounding's ``z = g @ rootᵀ`` it would flip the signs
+of z near 0 and change which samples are drawn, and in the FL CNN's
+convolutions it would move the card's losses away from the CPU's.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             )
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":
         raise RuntimeError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev

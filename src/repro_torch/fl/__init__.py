@@ -1,0 +1,31 @@
+"""Gossip-based federated learning on the device: the stacked engine and
+the scheduler-integrated runner (counterpart of ``repro.fl``)."""
+
+from repro_torch.fl.cnn import (
+    StackedCNN,
+    cnn_accuracy,
+    cnn_forward,
+    cnn_loss,
+    init_cnn_params,
+)
+from repro_torch.fl.gossip import GossipConfig, GossipTrainer, mixing_arrays
+from repro_torch.fl.pilot import ema_update, measure_task_work, stacked_task_work
+from repro_torch.fl.runner import FLExperiment, run_fl
+from repro_torch.fl.simulator import round_time
+
+__all__ = [
+    "FLExperiment",
+    "GossipConfig",
+    "GossipTrainer",
+    "StackedCNN",
+    "cnn_accuracy",
+    "cnn_forward",
+    "cnn_loss",
+    "ema_update",
+    "init_cnn_params",
+    "measure_task_work",
+    "mixing_arrays",
+    "round_time",
+    "run_fl",
+    "stacked_task_work",
+]

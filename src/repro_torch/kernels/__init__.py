@@ -8,9 +8,12 @@ kernels.
 """
 
 from repro_torch.kernels.bottleneck import bottleneck_eval
+from repro_torch.kernels.compress import int8_roundtrip, topk_mask
+from repro_torch.kernels.gossip_mix import gossip_mix_all
 from repro_torch.kernels.sdp_proj import rank_k_update, sdp_subspace
 
-WRAPPERS = (sdp_subspace, rank_k_update, bottleneck_eval)
+WRAPPERS = (sdp_subspace, rank_k_update, bottleneck_eval, gossip_mix_all, topk_mask,
+            int8_roundtrip)
 
 
 def launch_counts() -> dict[str, int]:
@@ -25,8 +28,11 @@ def reset_launch_counts() -> None:
 __all__ = [
     "WRAPPERS",
     "bottleneck_eval",
+    "gossip_mix_all",
+    "int8_roundtrip",
     "launch_counts",
     "rank_k_update",
     "reset_launch_counts",
     "sdp_subspace",
+    "topk_mask",
 ]

@@ -39,7 +39,12 @@ SIGNATURES = {
     "rank_k_update_bf16": ([_P, _P, _P, _P, _I, _I, _P], _I),
     "bottleneck_eval_smem_bytes": ([_I, _I], _LL),
     "bottleneck_eval": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "gossip_mix_all_f32": ([_P, _P, _P, _I, _I, _LL, _P], _I),
+    "gossip_mix_all_bf16": ([_P, _P, _P, _I, _I, _LL, _P], _I),
 }
+for _name in ("topk_mask", "int8_roundtrip"):
+    for _tag in ("f32", "bf16"):
+        SIGNATURES[f"{_name}_{_tag}"] = ([_P, _LL, _P, _P, _LL, _P, _LL, _I, _LL, _P], _I)
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None   # wall time of this process's build, if it built

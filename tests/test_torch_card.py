@@ -9,7 +9,8 @@ it runs on a machine that has only the port's dependencies:
 Each kernel is held against its plain PyTorch version on the same inputs:
 float32 to relative Frobenius error 1e-5, bfloat16 to 0.05 (the tolerance
 of tests/test_kernel_diff.py), the bottleneck kernel exactly against the
-CPU plain version (both sum machine loads in task order).
+CPU plain version (both sum machine loads in task order), the compression
+kernels bit for bit (both round every operation separately).
 """
 
 import numpy as np
@@ -20,6 +21,13 @@ import repro_torch.core as P
 from repro_torch import kernels as tk
 from repro_torch.core.sdp import SDPOptions
 from repro_torch.kernels.bottleneck import bottleneck_eval, bottleneck_eval_plain
+from repro_torch.kernels.compress import (
+    int8_roundtrip,
+    int8_roundtrip_plain,
+    topk_mask,
+    topk_mask_plain,
+)
+from repro_torch.kernels.gossip_mix import gossip_mix_all, gossip_mix_all_plain
 from repro_torch.kernels.sdp_proj import (
     rank_k_update,
     rank_k_update_plain,
@@ -138,3 +146,83 @@ def test_schedule_on_card_reaches_optimum(cuda):
     assert tk.launch_counts()["bottleneck_eval"] == 1
     assert s.bottleneck == pytest.approx(P.brute_force_optimum(tg, cg)[1], rel=1e-6)
     assert s.info["rounding_bottleneck"] == pytest.approx(s.bottleneck, rel=1e-6)
+
+
+def _mix_inputs(m, n, l, dt, dev, seed=0):
+    r = np.random.default_rng(seed)
+    X = torch.from_numpy(r.standard_normal((n, l)).astype(np.float32)).to(TORCH_DT[dt])
+    W = r.random((m, n)).astype(np.float32) * (r.random((m, n)) < 0.5)
+    W[0] = 0.0                                    # an isolated receiver
+    return X.to(dev), torch.from_numpy(W).to(dev)
+
+
+@pytest.mark.parametrize(
+    "m,n,l,dt",
+    [(128, 128, 552714, "f32"), (10, 10, 552714, "f32"), (1, 1, 1, "f32"), (5, 5, 7, "bf16"),
+     (300, 300, 100, "f32"), (40, 300, 1000, "bf16"), (64, 20, 4097, "f32"),
+     (30, 31, 333, "f32")],
+)
+def test_gossip_mix_kernel_on_card(cuda, m, n, l, dt):
+    X, W = _mix_inputs(m, n, l, dt, cuda, seed=m + n + l)
+    before = tk.launch_counts()["gossip_mix_all"]
+    got = gossip_mix_all(X, W)
+    want = gossip_mix_all_plain(X, W)
+    torch.cuda.synchronize()
+    assert got.dtype == X.dtype and got.shape == (m, l)
+    assert _rel(got, want) <= (0.05 if dt == "bf16" else 1e-5)
+    assert torch.all(got[0] == 0)
+    assert tk.launch_counts()["gossip_mix_all"] == before + 1
+    out = torch.full_like(got, float("nan"))
+    assert gossip_mix_all(X, W, out=out) is out and torch.equal(out, got)
+
+
+@pytest.mark.parametrize(
+    "n,l,dt", [(1, 7, "f32"), (8, 100, "bf16"), (8, 64, "f32"), (3, 1, "bf16"),
+               (128, 524288, "f32"), (5, 3000, "bf16")],
+)
+def test_compress_kernels_on_card(cuda, n, l, dt):
+    r = np.random.default_rng(n * l)
+    X = torch.from_numpy(r.standard_normal((n, l)).astype(np.float32)).to(TORCH_DT[dt]).to(cuda)
+    k = max(1, l // 20)
+    thr = torch.topk(X.float().abs(), k, dim=1).values[:, -1].contiguous()
+    scale = torch.clamp_min(X.float().abs().amax(dim=1), 1e-12) / 127.0
+    for fn, plain, stat in ((topk_mask, topk_mask_plain, thr),
+                            (int8_roundtrip, int8_roundtrip_plain, scale)):
+        got, want = fn(X, stat), plain(X, stat)
+        for g, w in zip(got, want):
+            assert g.dtype == X.dtype and torch.equal(g, w), fn.__name__
+    kept = (topk_mask(X, thr)[0] != 0).sum(dim=1)
+    assert torch.all(kept >= k)
+
+
+def test_compress_kernels_in_place_on_strided_rows(cuda):
+    """A leaf's column range of a flat (N, L_total) buffer, compressed in
+    place (msg written over x), as the stacked trainer does."""
+    r = np.random.default_rng(3)
+    flat = torch.from_numpy(r.standard_normal((6, 1001)).astype(np.float32)).to(cuda)
+    resid = torch.zeros_like(flat)
+    a, b = 37, 37 + 555                           # unaligned start and width
+    x = flat[:, a:b]
+    thr = torch.topk(x.abs(), 20, dim=1).values[:, -1].contiguous()
+    want = topk_mask_plain(x.clone(), thr)
+    before = flat.clone()
+    topk_mask(x, thr, out=(x, resid[:, a:b]))
+    assert torch.equal(flat[:, a:b], want[0]) and torch.equal(resid[:, a:b], want[1])
+    assert torch.equal(flat[:, :a], before[:, :a]) and torch.equal(flat[:, b:], before[:, b:])
+    assert torch.all(resid[:, :a] == 0) and torch.all(resid[:, b:] == 0)
+    scale = torch.clamp_min(x.abs().amax(dim=1), 1e-12) / 127.0
+    want = int8_roundtrip_plain(x.clone(), scale)
+    int8_roundtrip(x, scale, out=(x, resid[:, a:b]))
+    assert torch.equal(flat[:, a:b], want[0]) and torch.equal(resid[:, a:b], want[1])
+
+
+def test_fl_wrappers_check_cuda_inputs(cuda):
+    X, W = _mix_inputs(4, 4, 10, "f32", cuda)
+    with pytest.raises(ValueError):
+        gossip_mix_all(X.double(), W.double())       # no float64 kernel
+    with pytest.raises(ValueError):
+        gossip_mix_all(X.T.contiguous().T, W)        # X not contiguous
+    with pytest.raises(ValueError):
+        topk_mask(X, torch.zeros(4, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        int8_roundtrip(X.T, torch.ones(10, device=cuda))  # rows not contiguous

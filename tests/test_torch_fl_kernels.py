@@ -1,0 +1,176 @@
+"""The gossip-FL slice's kernels on the CPU: each plain PyTorch version
+against ``repro``'s oracle (``repro.kernels.ref``) and its Pallas kernel in
+interpret mode, on the same numpy inputs.
+
+The shapes and contracts are those of tests/test_kernel_diff.py (the fused
+compression: block-ragged tails, B ∈ {1, 8}, L = 1, k ∈ {1, small, all};
+top-k bit-equal; int8 messages bit-equal and residuals within 1 ulp of |x|)
+and tests/test_kernels.py (the all-receivers mix, with an isolated receiver,
+against the dense and the segment-sum oracles to 2e-4).  On a CPU tensor
+each wrapper runs its plain version and counts no launch; the kernels
+themselves run on the card (tests/test_torch_card.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as kref
+from repro.kernels.compress import int8_roundtrip_fwd, topk_mask_fwd
+from repro.kernels.gossip_mix import gossip_mix_all_fwd
+from repro_torch import kernels as tk
+from repro_torch.kernels.compress import (
+    int8_roundtrip,
+    int8_roundtrip_plain,
+    topk_mask,
+    topk_mask_plain,
+)
+from repro_torch.kernels.gossip_mix import gossip_mix_all, gossip_mix_all_plain
+from repro_torch.train.compression import int8_scale
+
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _np(x) -> np.ndarray:
+    """A JAX or torch array as float32 numpy (exact for bfloat16)."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.array(jnp.asarray(x, jnp.float32))
+
+
+def _pair(a: np.ndarray, dt: str):
+    """The same values as a JAX and a torch array of dtype ``dt``."""
+    jdt, tdt = DTYPES[dt]
+    j = jnp.asarray(a, jdt)
+    return j, torch.from_numpy(_np(j)).to(tdt)
+
+
+# ---------------------------------------------------------------------------
+# fused delta compression with error feedback (test_kernel_diff.py:151)
+# ---------------------------------------------------------------------------
+
+COMPRESS_SHAPES = [(1, 7, 3), (8, 100, 64), (8, 64, 64), (3, 1, 4)]
+
+
+@pytest.mark.parametrize("n,l,bl", COMPRESS_SHAPES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("kk", ["one", "small", "all"])
+def test_topk_mask_plain_matches_ref_and_pallas(n, l, bl, dt, kk):
+    X, Xt = _pair(np.random.default_rng(n * l + bl).standard_normal((n, l)), dt)
+    k = {"one": 1, "small": max(1, l // 10), "all": l}[kk]
+    thr = jax.lax.top_k(jnp.abs(X.astype(jnp.float32)), k)[0][:, -1]
+    thr_t = torch.topk(Xt.float().abs(), k, dim=1).values[:, -1]
+    np.testing.assert_array_equal(_np(thr_t), _np(thr))
+    got = topk_mask_plain(Xt, thr_t)
+    for want in (kref.topk_mask_ref(X, thr),
+                 topk_mask_fwd(X, thr, block_len=bl, interpret=True)):
+        for g, w in zip(got, want):
+            assert g.dtype == Xt.dtype
+            np.testing.assert_array_equal(_np(g), _np(w))      # bit-equal
+
+
+@pytest.mark.parametrize("n,l,bl", COMPRESS_SHAPES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_int8_roundtrip_plain_matches_ref_and_pallas(n, l, bl, dt):
+    X, Xt = _pair(np.random.default_rng(n * l + bl + 1).standard_normal((n, l)), dt)
+    scale = jnp.maximum(jnp.max(jnp.abs(X.astype(jnp.float32)), axis=1), 1e-12) / 127.0
+    scale_t = int8_scale(Xt)
+    np.testing.assert_array_equal(_np(scale_t), _np(scale))
+    got = int8_roundtrip_plain(Xt, scale_t)
+    atol = 0.05 if dt == "bf16" else 2e-7
+    for want in (kref.int8_roundtrip_ref(X, scale),
+                 int8_roundtrip_fwd(X, scale, block_len=bl, interpret=True)):
+        np.testing.assert_array_equal(_np(got[0]), _np(want[0]))   # msgs bit-equal
+        np.testing.assert_allclose(_np(got[1]), _np(want[1]), atol=atol)
+
+
+def test_compress_degenerate_zero_and_ties():
+    Xt = torch.zeros((4, 10))
+    msg, resid = topk_mask_plain(Xt, torch.zeros(4))
+    assert torch.equal(msg, Xt) and torch.equal(resid, Xt)
+    msg, resid = int8_roundtrip_plain(Xt, torch.full((4,), 1e-12 / 127.0))
+    assert torch.equal(msg, Xt) and torch.equal(resid, Xt)
+    # ties at the k-th magnitude keep every tied entry: at least k survive
+    X = torch.tensor([[3.0, -2.0, 2.0, 1.0, -2.0]])
+    msg, resid = topk_mask_plain(X, torch.tensor([2.0]))
+    assert torch.equal(msg, torch.tensor([[3.0, -2.0, 2.0, 0.0, -2.0]]))
+    assert torch.equal(msg + resid, X)
+
+
+def test_compress_wrappers_on_cpu_run_plain_in_place():
+    """``out=`` writes a leaf's column range of flat buffers; msg may be x."""
+    rng = np.random.default_rng(5)
+    flat = torch.from_numpy(rng.standard_normal((4, 50)).astype(np.float32))
+    resid = torch.zeros_like(flat)
+    a, b = 13, 40
+    x = flat[:, a:b]
+    before = tk.launch_counts()
+    for fn, plain, stat in (
+        (topk_mask, topk_mask_plain, torch.topk(x.abs(), 3, dim=1).values[:, -1]),
+        (int8_roundtrip, int8_roundtrip_plain,
+         torch.clamp_min(x.abs().amax(dim=1), 1e-12) / 127.0),
+    ):
+        want = plain(x.clone(), stat)
+        out = fn(x, stat, out=(x, resid[:, a:b]))
+        assert out[0].data_ptr() == x.data_ptr()
+        assert torch.equal(flat[:, a:b], want[0]) and torch.equal(resid[:, a:b], want[1])
+    assert torch.all(resid[:, :a] == 0) and torch.all(resid[:, b:] == 0)
+    assert tk.launch_counts() == before                   # no kernel on the CPU
+    with pytest.raises(ValueError):
+        topk_mask(x, torch.zeros(3))                       # wrong statistic shape
+    with pytest.raises(ValueError):
+        int8_roundtrip(x, torch.ones(4), out=(torch.empty(4, 5), torch.empty(4, 5)))
+
+
+# ---------------------------------------------------------------------------
+# all-receivers gossip mix (test_kernels.py:88)
+# ---------------------------------------------------------------------------
+
+
+def _mix_case(n, l, seed=7):
+    st = np.random.default_rng(seed + n).standard_normal((n, l)).astype(np.float32)
+    erng = np.random.default_rng(seed)
+    src = np.repeat(np.arange(n), 3).astype(np.int32)
+    dst = erng.integers(0, n, size=n * 3).astype(np.int32)
+    keep = dst != 0                       # receiver 0 stays isolated
+    src, dst = src[keep], dst[keep]
+    w_edge = erng.random(src.size).astype(np.float32)
+    W = np.zeros((n, n), np.float32)
+    np.add.at(W, (dst, src), w_edge)
+    return st, W, src, dst, w_edge
+
+
+@pytest.mark.parametrize("n,l,bl", [(8, 32768, 8192), (16, 16384, 16384), (5, 4096, 4096)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_gossip_mix_all_plain_matches_refs_and_pallas(n, l, bl, dt):
+    st, W, src, dst, w_edge = _mix_case(n, l)
+    X, Xt = _pair(st, dt)
+    got = gossip_mix_all_plain(Xt, torch.from_numpy(W))
+    assert got.dtype == Xt.dtype and got.shape == (n, l)
+    atol = 0.05 if dt == "bf16" else 2e-4
+    wants = [kref.gossip_mix_all_ref(X, jnp.asarray(W)),
+             gossip_mix_all_fwd(X, jnp.asarray(W), block_len=bl, interpret=True)]
+    if dt == "f32":
+        wants.append(kref.gossip_mix_segment_ref(
+            X, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(w_edge), n))
+    for want in wants:
+        np.testing.assert_allclose(_np(got), _np(want), atol=atol)
+    assert np.all(_np(got)[0] == 0.0)          # empty row -> zero mix
+
+
+@pytest.mark.parametrize("m,n,l", [(1, 1, 1), (5, 5, 7), (3, 300, 100), (300, 300, 17)])
+def test_gossip_mix_all_wrapper_on_cpu(m, n, l):
+    rng = np.random.default_rng(m + n + l)
+    X = torch.from_numpy(rng.standard_normal((n, l)).astype(np.float32))
+    W = torch.from_numpy(rng.random((m, n)).astype(np.float32))
+    before = tk.launch_counts()
+    want = np.asarray(kref.gossip_mix_all_ref(jnp.asarray(X.numpy()), jnp.asarray(W.numpy())))
+    out = torch.empty((m, l))
+    assert gossip_mix_all(X, W, out=out) is out
+    np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(gossip_mix_all(X, W), out)
+    assert tk.launch_counts() == before
+    with pytest.raises(ValueError):
+        gossip_mix_all(X, torch.ones(m, n + 1))  # weights for n + 1 senders

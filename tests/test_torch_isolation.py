@@ -19,6 +19,8 @@ import pytest
 import torch
 
 import repro_torch.core as P
+import repro_torch.fl as FL
+from repro_torch.data import image_dataset
 from repro_torch.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -35,6 +37,9 @@ def test_import_loads_no_jax_and_no_repro():
         "import sys\n"
         "import repro_torch.core.scheduler, repro_torch.convert\n"
         "import repro_torch.kernels, repro_torch.kernels.build, repro_torch.sched\n"
+        "import repro_torch.fl, repro_torch.fl.gossip, repro_torch.fl.runner\n"
+        "import repro_torch.train, repro_torch.data, repro_torch.kernels.gossip_mix\n"
+        "import repro_torch.kernels.compress, repro_torch.train.tree\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'repro'"
         " or m.split('.')[0].startswith('jax'))\n"
         "assert not bad, bad\n"
@@ -70,12 +75,23 @@ def _instance():
     return P.random_task_graph(r, 4), P.random_compute_graph(r, 2)
 
 
+def _fl_trainer(tg, cg):
+    shards = image_dataset("mnist", 64, seed=0)[0].split(4, np.random.default_rng(0))
+    return FL.GossipTrainer(tg, lambda g: FL.init_cnn_params(g), shards,
+                            FL.GossipConfig(batch_size=8))
+
+
 ENTRY_POINTS = {
     "schedule": lambda tg, cg: P.schedule(tg, cg, "sdp"),
     "compare_methods": lambda tg, cg: P.compare_methods(tg, cg, ("heft",)),
     "solve_sdp": lambda tg, cg: P.solve_sdp(P.build_bqp(tg, cg)),
     "randomized_rounding": lambda tg, cg: P.randomized_rounding(
         P.build_bqp(tg, cg), tg, cg, np.eye(9)
+    ),
+    "GossipTrainer": _fl_trainer,
+    "run_fl": lambda tg, cg: FL.run_fl(
+        FL.FLExperiment(num_users=4, num_machines=2, rounds=1, num_samples=64),
+        task_graph=tg, compute_graph=cg,
     ),
 }
 

@@ -23,6 +23,8 @@ from repro.kernels.sdp_proj import rank_k_update_fwd, sdp_subspace_fwd
 from repro_torch import kernels as tk
 from repro_torch.kernels import build
 from repro_torch.kernels.bottleneck import bottleneck_eval
+from repro_torch.kernels.compress import int8_roundtrip, topk_mask
+from repro_torch.kernels.gossip_mix import gossip_mix_all
 from repro_torch.kernels.sdp_proj import rank_k_update, sdp_subspace
 
 
@@ -166,8 +168,13 @@ def test_cpu_path_launches_nothing():
     sdp_subspace(Y, V)
     rank_k_update(Y, V, V)
     bottleneck_eval(*(torch.from_numpy(x) for x in _bottleneck_inputs(3, 4, 2, 3)))
+    X = torch.from_numpy(rng.standard_normal((3, 5)).astype(np.float32))
+    gossip_mix_all(X, torch.ones(2, 3))
+    topk_mask(X, torch.ones(3))
+    int8_roundtrip(X, torch.ones(3))
     assert tk.launch_counts() == {
         "sdp_subspace": 0, "rank_k_update": 0, "bottleneck_eval": 0,
+        "gossip_mix_all": 0, "topk_mask": 0, "int8_roundtrip": 0,
     }
 
 
@@ -206,7 +213,9 @@ def test_wrappers_raise_off_cpu_without_a_kernel():
 def test_ctypes_signatures_match_sources():
     """Every C entry point that build.py binds is defined in csrc/, once."""
     text = "\n".join(src.read_text() for src in build.sources())
-    assert {s.name for s in build.sources()} == {"sdp_proj.cu", "bottleneck.cu"}
+    assert {s.name for s in build.sources()} == {
+        "sdp_proj.cu", "bottleneck.cu", "gossip_mix.cu", "compress.cu",
+    }
     for name, (argtypes, _) in build.SIGNATURES.items():
         m = re.findall(rf"\b(?:int|long long) {name}\(([^)]*)\)", text)
         assert len(m) == 1, name
