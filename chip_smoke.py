@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port once on the card: the SDP scheduler and the
-gossip-FL trainer.
+"""Drive the PyTorch/CUDA port once on the card: the SDP scheduler, the
+gossip-FL trainer and the dense LM's serving path.
 
     python3 chip_smoke.py
 
@@ -30,10 +30,27 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      round, its split into local steps, compression and exchange, the
      device's idle share of a round, and exact launch counts;
   9. card against CPU: the same trainer at MNIST width on both, per-round
-     losses to rtol 1e-4.
+     losses to rtol 1e-4;
+ 10. LM kernels: RMSNorm, flash attention and decode attention against their
+     plain versions on the card (float32 and bfloat16, ragged S, windows,
+     g = 1 and 4, valid_len over 1 … 32,768), and their times at the serve
+     path's shapes beside their bounds, the plain versions' and one library
+     call's (``F.rms_norm``, ``F.scaled_dot_product_attention``);
+ 11. LM serve path: qwen3-8b at full width in bfloat16 through
+     ``build_model`` and ``repro_torch.launch.serve``: (a) the launcher's
+     default request, 8 sequences × 32 greedy tokens with a 256-slot cache;
+     (b) 32 tokens for 8 sequences against a 32,768-slot cache filled with
+     seeded values (``decode_32k`` at batch 8); (c) a prefill ``forward``
+     of 32,768 tokens (``prefill_32k`` at batch 1); each with its time,
+     tokens/s, peak memory, idle share of a profiled step and exact launch
+     counts;
+ 12. LM card against CPU: the granite-3-2b and qwen3-8b smoke configs in
+     float32 with the same parameters on both, a forward of 1024 tokens and
+     8 decode steps, logits within 1e-4 of the largest |logit|.
 
-The last lines are the card's ``nvidia-smi`` line, one JSON object with
-every kernel's numbers, and ``{"ok": true, "device": {...}}``.
+Each phase prints its wall time.  The last lines are the card's
+``nvidia-smi`` line, one JSON object with every kernel's numbers, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -51,10 +68,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM float32 rate outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bfloat16 tensor-core rate
 MAX_ITERS = 300                # DR budget of the path phase
 FL_ROUNDS = 3                  # rounds of the FL path and of each population run
 F32_TOL = 1e-5                 # relative Frobenius error, float32 kernels
 BF16_TOL = 0.05                # tests/test_kernel_diff.py's bfloat16 tolerance
+LONG_POS0 = 32736              # LM part (b): sequence b decodes from position 32,736 − 4,096·b
 
 
 def smi() -> str:
@@ -96,8 +115,8 @@ def device_ms(fn, arg_sets, reps: int = 200) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -139,6 +158,13 @@ def ulps(got, want, x) -> float:
     _, e = torch.frexp(x.float().abs())
     ulp = torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - bits)
     return float(torch.max(torch.abs(got.float() - want.float()) / ulp))
+
+
+def print_row(r, what="") -> None:
+    lib = "n/a" if r["library_ms"] is None else "%.2f us" % (r["library_ms"] * 1e3)
+    print(f"kernel {r['name']}{what}: {r['ms'] * 1e3:.2f} us (bound {r['bound_ms'] * 1e3:.2f} us, "
+          f"{r['bound_by']}), plain {r['plain_ms'] * 1e3:.2f} us, library {lib}, "
+          f"max abs err {r['max_abs_err']:.3g}", flush=True)
 
 
 def slice_instance():
@@ -243,10 +269,7 @@ def kernel_phase(dev, gen) -> list[dict]:
         bound_ms=b, bound_by=by, library_ms=None,
     ))
     for r in rows:
-        print(f"kernel {r['name']}: {r['ms'] * 1e3:.2f} us (bound {r['bound_ms'] * 1e3:.2f} us, "
-              f"{r['bound_by']}), plain {r['plain_ms'] * 1e3:.2f} us, library "
-              f"{'n/a' if r['library_ms'] is None else '%.2f us' % (r['library_ms'] * 1e3)}, "
-              f"max abs err {r['max_abs_err']:.3g}", flush=True)
+        print_row(r)
     return rows
 
 
@@ -487,11 +510,7 @@ def fl_kernel_phase(dev, gen) -> tuple[list[dict], list[dict]]:
         print(f"fl kernels N_T={n_users}: the round's top-k thresholds (torch.topk over "
               f"{len(cols)} leaves) {topk_ms * 1e3:.2f} us", flush=True)
         for r in (mix, comp["topk_mask"], comp["int8_roundtrip"]):
-            print(f"kernel {r['name']} N_T={n_users}: {r['ms'] * 1e3:.2f} us (bound "
-                  f"{r['bound_ms'] * 1e3:.2f} us, {r['bound_by']}), plain "
-                  f"{r['plain_ms'] * 1e3:.2f} us, library "
-                  f"{'n/a' if r['library_ms'] is None else '%.2f us' % (r['library_ms'] * 1e3)},"
-                  f" max abs err {r['max_abs_err']:.3g}", flush=True)
+            print_row(r, f" N_T={n_users}")
         out = rows if n_users == 10 else population
         out += [mix, comp["topk_mask"], comp["int8_roundtrip"]]
         del sets, thrs, scales, msg, resid
@@ -635,6 +654,343 @@ def card_vs_cpu_phase(dev) -> None:
     check(rel <= 1e-4, f"card vs cpu losses differ by {rel}")
 
 
+def rmsnorm_ok(got, want) -> bool:
+    """float32: within 2e-5; bfloat16: within one bfloat16 ulp of the plain
+    value (both round the same float32 result once, and the two float32
+    results differ in the last float32 places: sum order, rsqrtf)."""
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        return bool(torch.all(diff <= want.float().abs() * 2.0 ** -7))
+    return float(diff.max()) <= 2e-5
+
+
+def attn_share(got, want) -> float:
+    """The largest share of its bound that an attention output's error takes
+    (at most 1 passes).  float32: 2e-5 (tests/test_kernels.py's atol).
+    bfloat16: one bfloat16 ulp of the plain value plus 2^-10 of the largest
+    |value| of its row over the head dim.  Both versions round a float32
+    result once, and the two float32 results differ only in their last places
+    (sum order, the merge of splits); the second term covers that where a
+    value lies near 0."""
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        w = want.float().abs()
+        return float((diff / (w * 2.0 ** -7 + w.amax(-1, keepdim=True) * 2.0 ** -10)).max())
+    return float(diff.max()) / 2e-5
+
+
+def library_ms(fn, arg_sets, reps: int):
+    """``device_ms`` of a PyTorch library call used only as a yardstick; None
+    (with the reason printed) where this PyTorch does not offer the call."""
+    try:
+        return device_ms(fn, arg_sets, reps)
+    except (RuntimeError, TypeError, AttributeError) as e:
+        print(f"library call not timed: {type(e).__name__}: {str(e)[:200]}", flush=True)
+        return None
+
+
+def lm_kernel_phase(dev, gen) -> list[dict]:
+    """The LM kernels against their plain versions; their times at the serve
+    path's shapes (qwen3-8b: d_model 4096, 32 heads, 8 kv heads, head_dim 128)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+    def randn(*shape, dt=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    for dt in (torch.float32, torch.bfloat16):
+        for R in (1, 7, 256, 32768):
+            for D in (128, 4096):
+                x, s = randn(R, D, dt=dt), randn(D, dt=dt) * 0.5
+                got, want = rmsnorm(x, s), rmsnorm_plain(x, s)
+                check(rmsnorm_ok(got, want),
+                      f"rmsnorm R={R} D={D} {dt}: max abs err {max_abs(got, want)}")
+        print(f"kernel check rmsnorm R in (1, 7, 256, 32768), D in (128, 4096), {dt}: ok",
+              flush=True)
+
+    B, H, D = 1, 32, 128
+    for dt in (torch.float32, torch.bfloat16):
+        worst = 0.0
+        for S, hkv, causal, window in ((4096, 8, True, 0), (1000, 8, True, 0), (4096, 8, True, 512),
+                                       (1000, 8, False, 0), (1000, 32, True, 0),
+                                       (1000, 32, False, 300)):
+            q = randn(B, S, H, D, dt=dt).transpose(1, 2)
+            k, v = (randn(B, S, hkv, D, dt=dt).transpose(1, 2) for _ in range(2))
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_attention_plain(q, k, v, causal=causal, window=window)
+            share = attn_share(got, want)
+            check(share <= 1, f"flash_attention S={S} Hkv={hkv} causal={causal} window={window} "
+                  f"{dt}: max abs err {max_abs(got, want)}, {share:.3f} of its bound")
+            worst = max(worst, share)
+            del q, k, v, got, want
+        print(f"kernel check flash_attention (B, H, D) = (1, 32, 128), S in (4096, 1000), "
+              f"causal/window 512/non-causal, g = 4 and 1, {dt}: ok, at most {worst:.3f} of the "
+              "bound", flush=True)
+
+    Bd, S = 8, 32768
+    lens = torch.linspace(1, S, Bd, device=dev).round().to(torch.int32)
+    for dt, S_, lens_ in ((torch.bfloat16, S, lens), (torch.float32, S, lens),
+                          (torch.float32, 1000, torch.tensor([0, 1, 999, 1000, 513, 7, 512, 2000],
+                                                              dtype=torch.int32, device=dev))):
+        q = randn(Bd, H, D, dt=dt)
+        kc, vc = randn(Bd, S_, 8, D, dt=dt), randn(Bd, S_, 8, D, dt=dt)
+        got, want = decode_attention(q, kc, vc, lens_), decode_attention_plain(q, kc, vc, lens_)
+        share = attn_share(got, want)
+        check(share <= 1, f"decode_attention S={S_} {dt}: max abs err {max_abs(got, want)}, "
+              f"{share:.3f} of its bound")
+        print(f"kernel check decode_attention B=8 S={S_} valid_len {lens_.tolist()} {dt}: ok, "
+              f"{share:.3f} of the bound", flush=True)
+        del q, kc, vc, got, want
+    torch.cuda.empty_cache()
+
+    rows = []
+    # RMSNorm at the path's shapes: ln1/ln2 of the prefill (the JSON row), q_norm, k_norm, decode
+    for R, Dn, label in ((32768, 4096, ""), (32768 * 32, 128, " q_norm"),
+                         (32768 * 8, 128, " k_norm"), (8, 4096, " decode")):
+        sets = copies(lambda: (randn(R, Dn), randn(Dn) * 0.5), R * Dn * 2)
+        x, s = sets[0]
+        got, want = rmsnorm(x, s), rmsnorm_plain(x, s)
+        err = max_abs(got, want)
+        check(rmsnorm_ok(got, want), f"rmsnorm ({R}, {Dn}) bf16: max abs err {err}")
+        del got, want
+        b, by = bound_ms(2 * (2 * R * Dn + Dn), 4 * R * Dn)
+        lib_sets = [(x_, 1.0 + s_.float()) for x_, s_ in sets]
+        row = dict(
+            name="rmsnorm", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm.py:23", max_abs_err=err,
+            ms=device_ms(rmsnorm, sets, 100), plain_ms=device_ms(rmsnorm_plain, sets, 20),
+            bound_ms=b, bound_by=by,
+            library_ms=library_ms(lambda x_, w_: F.rms_norm(x_, (w_.shape[0],), w_, 1e-6),
+                                  lib_sets, 20),
+        )
+        print_row(row, f" ({R}, {Dn}) bf16{label}")
+        if not label:
+            rows.append(row)
+        del sets, lib_sets
+
+    # flash attention at the prefill shape S = 32,768, causal, bf16; the plain version at 4096
+    def flash_inputs(S_):
+        return (randn(1, S_, H, D).transpose(1, 2), randn(1, S_, 8, D).transpose(1, 2),
+                randn(1, S_, 8, D).transpose(1, 2))
+
+    small = [flash_inputs(4096) for _ in range(2)]
+    plain_ms = device_ms(lambda q_, k_, v_: flash_attention_plain(q_, k_, v_), small, 3)
+    small_ms = device_ms(lambda q_, k_, v_: flash_attention(q_, k_, v_), small, 10)
+    print(f"kernel flash_attention S=4096 bf16: {small_ms * 1e3:.2f} us, plain "
+          f"{plain_ms * 1e3:.2f} us", flush=True)
+    del small
+    torch.cuda.empty_cache()
+    S = 32768
+    sets = [flash_inputs(S) for _ in range(2)]
+    q, k, v = sets[0]
+    got = flash_attention(q, k, v)
+    flash_err, share = 0.0, 0.0
+    for h in range(H):          # the plain version one head at a time: 4.3 GB of logits each
+        j = h // (H // 8)
+        want = flash_attention_plain(q[:, h:h + 1], k[:, j:j + 1], v[:, j:j + 1])
+        flash_err = max(flash_err, max_abs(got[:, h:h + 1], want))
+        share = max(share, attn_share(got[:, h:h + 1], want))
+        del want
+    check(share <= 1, f"flash_attention S={S} causal bf16: max abs err {flash_err}, "
+          f"{share:.3f} of its bound")
+    print(f"kernel check flash_attention (1, 32, 8, 128) S={S} causal bf16, every head: ok, "
+          f"{share:.3f} of the bound", flush=True)
+    del got
+    torch.cuda.empty_cache()
+    pairs = S * (S + 1) // 2
+    b, by = bound_ms(2 * (2 * H + 2 * 8) * S * D, 4 * H * D * pairs, BF16_FLOPS)
+    ms = device_ms(lambda q_, k_, v_: flash_attention(q_, k_, v_), sets, 2)
+    row = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:72", max_abs_err=flash_err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b, bound_by=by,
+        library_ms=library_ms(lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_, k_, v_, is_causal=True, enable_gqa=True), sets, 5),
+    )
+    print_row(row, f" S={S} causal bf16 (plain time at S=4096)")
+    print(f"kernel flash_attention S={S}: {4 * H * D * pairs / ms / 1e9:.1f} TFLOP/s", flush=True)
+    rows.append(row)
+    del sets, q, k, v
+    torch.cuda.empty_cache()
+
+    # decode attention at B = 8, S = 32,768, one layer, valid_len of the serve path's part (b)
+    lens = (LONG_POS0 - 4096 * torch.arange(8, device=dev) + 1).to(torch.int32)
+    sets = copies(lambda: (randn(8, H, D), randn(8, S, 8, D), randn(8, S, 8, D), lens),
+                  2 * 8 * S * 8 * D * 2)
+    q, kc, vc, _ = sets[0]
+    got, want = decode_attention(q, kc, vc, lens), decode_attention_plain(q, kc, vc, lens)
+    err, share = max_abs(got, want), attn_share(got, want)
+    check(share <= 1, f"decode_attention B=8 S={S}: max abs err {err}, {share:.3f} of its bound")
+    valid = int(lens.sum())
+    b, by = bound_ms(2 * (2 * valid * 8 * D + 2 * 8 * H * D) + 4 * 8, 4 * H * D * valid,
+                     BF16_FLOPS)
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None])[:, None, None, :]
+    row = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:71", max_abs_err=err,
+        ms=device_ms(decode_attention, sets, 50),
+        plain_ms=device_ms(decode_attention_plain, sets, 5), bound_ms=b, bound_by=by,
+        library_ms=library_ms(lambda q_, k_, v_, l_: F.scaled_dot_product_attention(
+            q_[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True), sets, 5),
+    )
+    print_row(row, f" B=8 S={S} valid {lens.tolist()} bf16")
+    rows.append(row)
+    del sets, q, kc, vc, got, want, mask
+    torch.cuda.empty_cache()
+    return rows
+
+
+def profiled(fn) -> tuple[float, float]:
+    """(wall seconds, device busy seconds) of one call under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, busy_seconds(prof)
+
+
+def idle_line(part: str, wall: float, busy: float) -> str:
+    if busy <= 0:
+        return f"lm serve {part}: profiler recorded no device time: idle share not measured"
+    return (f"lm serve {part}: profiled {wall * 1e3:.2f} ms wall, device busy {busy * 1e3:.2f} ms,"
+            f" idle share {1 - busy / wall:.3f}")
+
+
+def lm_serve_phase(dev) -> dict[str, int]:
+    """qwen3-8b at full width in bfloat16 through the port's serve path."""
+    from repro_torch import kernels as tk
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import build_model
+
+    cfg = get_config("qwen3-8b").replace(param_dtype=torch.bfloat16)   # as the launcher does
+    api = build_model(cfg)
+    L, B, steps = cfg.num_layers, 8, 32
+    norms = 4 * L + 1
+    t0 = time.perf_counter()
+    params = api.init_params(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"lm serve: qwen3-8b, {n_params} parameters in bfloat16 drawn in "
+          f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    total = {}
+
+    def decode_part(part, cache_len, pos0):
+        cache = api.init_cache(B, cache_len, device=dev)
+        if cache_len > 256:      # stand-in for a prompt's keys and values: seeded bfloat16
+            g = torch.Generator(device=dev).manual_seed(1)
+            for buf in (cache["k"], cache["v"]):
+                for i in range(L):
+                    buf[i].normal_(generator=g)
+        tokens = torch.zeros((B,), dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        out, logits, finite = greedy_decode(api, params, cache, tokens, pos0, steps)
+        ok = bool(finite)
+        wall = time.perf_counter() - t0
+        counts = tk.launch_counts()
+        expect = dict.fromkeys(counts, 0)
+        expect.update(rmsnorm=steps * norms, decode_attention=steps * L)
+        print(f"lm serve {part}: {B} seqs x {steps} tokens, cache {cache_len}, positions "
+              f"{pos0.tolist()}: {wall:.3f} s, {wall / steps * 1e3:.2f} ms/step, "
+              f"{B * steps / wall:.1f} tokens/s, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        print(f"lm serve {part}: logits finite {ok}, shape {tuple(logits.shape)}; sequence 0 "
+              f"tokens {out[0].tolist()}", flush=True)
+        print(f"lm serve {part}: launches {counts}, expected {expect}", flush=True)
+        check(ok and logits.shape == (B, cfg.padded_vocab), f"lm serve {part}: logits")
+        check(counts == expect, f"lm serve {part}: launch counts")
+        nxt = {"tokens": out[:, -1], "pos": pos0 + steps}
+        print(idle_line(part, *profiled(lambda: api.decode_step(params, cache, nxt))), flush=True)
+        for k_, v_ in counts.items():
+            total[k_] = total.get(k_, 0) + v_
+        del cache, out, logits
+
+    zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+    decode_part("(a)", 256, zeros)
+    torch.cuda.empty_cache()
+    spec = SHAPES["decode_32k"]
+    decode_part("(b)", spec.seq_len,
+                (LONG_POS0 - 4096 * torch.arange(B, device=dev)).to(torch.int32))
+    torch.cuda.empty_cache()
+
+    S = SHAPES["prefill_32k"].seq_len
+    tokens = torch.randint(0, cfg.vocab_size, (1, S), generator=torch.Generator(
+        device=dev).manual_seed(2), device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = api.forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update(rmsnorm=norms, flash_attention=L)
+    finite = bool(torch.isfinite(logits).all())
+    print(f"lm serve (c): forward of 1 x {S} tokens: {wall:.3f} s, {S / wall:.1f} tokens/s, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    print(f"lm serve (c): logits finite {finite}, shape {tuple(logits.shape)}; next token after "
+          f"the last position {int(logits[0, -1].argmax())}", flush=True)
+    print(f"lm serve (c): launches {counts}, expected {expect}", flush=True)
+    check(finite and logits.shape == (1, S, cfg.padded_vocab), "lm serve (c): logits")
+    check(counts == expect, "lm serve (c): launch counts")
+    for k_, v_ in counts.items():
+        total[k_] = total.get(k_, 0) + v_
+    del logits
+    torch.cuda.empty_cache()
+    print(idle_line("(c)", *profiled(lambda: api.forward(params, {"tokens": tokens}))),
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return total
+
+
+def lm_card_vs_cpu_phase(dev) -> None:
+    """Smoke configs in float32, the same parameters on the card and the CPU."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+
+    for arch in ("granite-3-2b", "qwen3-8b"):
+        cfg = get_smoke_config(arch).replace(dtype=torch.float32)
+        api = build_model(cfg)
+        on_cpu = api.init_params(0, device="cpu")
+        g = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for p in on_cpu.parameters():
+                if p.dim() == 1:                        # non-zero norm scales
+                    p.normal_(0.0, 0.5, generator=g)
+        on_card = copy.deepcopy(on_cpu).to(dev)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 1024), generator=g)
+        want = api.forward(on_cpu, {"tokens": tokens})
+        rel = max_abs(api.forward(on_card, {"tokens": tokens}).cpu(), want) / float(
+            want.abs().max())
+        caches = [api.init_cache(2, 64, device=d) for d in (dev, "cpu")]
+        for t in range(8):
+            batch = {"tokens": tokens[:, t], "pos": torch.tensor([t, t + 5], dtype=torch.int32)}
+            got, _ = api.decode_step(on_card, caches[0], batch)
+            want, _ = api.decode_step(on_cpu, caches[1], batch)
+            rel = max(rel, max_abs(got.cpu(), want) / float(want.abs().max()))
+        print(f"lm card vs cpu: {arch} smoke f32, forward of 2 x 1024 and 8 decode steps: "
+              f"largest |difference| / largest |logit| {rel:.3e}", flush=True)
+        check(rel <= 1e-4, f"lm card vs cpu {arch}: {rel}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -654,15 +1010,25 @@ def main() -> int:
           f"({'built' if build.BUILD_SECONDS is not None else 'cached'})", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = kernel_phase(dev, gen)
-    counts = path_phase(dev)
-    reference_phase(dev)
-    sync_phase(dev)
-    fl_rows, _ = fl_kernel_phase(dev, gen)
-    fl_counts = fl_path_phase(dev)
-    population_phase(dev, n=10, num_samples=4096)    # the FL path's trainer, profiled
-    int8_counts = population_phase(dev)
-    card_vs_cpu_phase(dev)
+
+    def phase(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        print(f"phase {name}: {time.perf_counter() - t0:.2f} s wall", flush=True)
+        return out
+
+    rows = phase("2 kernels", kernel_phase, dev, gen)
+    counts = phase("3 path", path_phase, dev)
+    phase("4 reference", reference_phase, dev)
+    phase("5 host sync", sync_phase, dev)
+    fl_rows, _ = phase("6 FL kernels", fl_kernel_phase, dev, gen)
+    fl_counts = phase("7 FL path", fl_path_phase, dev)
+    phase("8 population N_T=10", population_phase, dev, n=10, num_samples=4096)
+    int8_counts = phase("8 population N_T=128", population_phase, dev)
+    phase("9 card vs cpu", card_vs_cpu_phase, dev)
+    lm_rows = phase("10 LM kernels", lm_kernel_phase, dev, gen)
+    lm_counts = phase("11 LM serve path", lm_serve_phase, dev)
+    phase("12 LM card vs cpu", lm_card_vs_cpu_phase, dev)
 
     for r in rows:
         r["launches"] = counts[r["name"]]
@@ -670,6 +1036,9 @@ def main() -> int:
         # the exchange and top-k from the run_fl path; int8 from the population's Int8 run
         r["launches"] = (int8_counts if r["name"] == "int8_roundtrip" else fl_counts)[r["name"]]
     rows += fl_rows
+    for r in lm_rows:
+        r["launches"] = lm_counts[r["name"]]      # summed over phase 11's three runs
+    rows += lm_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)

@@ -1,0 +1,79 @@
+"""Architecture config registry: ``get_config("qwen3-8b")`` etc.
+
+The dense architectures have their own module with ``config()`` (exact
+published numbers) and ``smoke_config()`` (reduced same-family variant),
+copied from ``repro.configs``.  The other ids of ``repro``'s registry are
+listed (``ARCH_IDS``) and raise ``NotImplementedError``: their model
+families are not ported yet.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.shapes import (
+    SHAPES,
+    SUB_QUADRATIC,
+    ShapeSpec,
+    shape_applicable,
+    smoke_shape,
+)
+from repro_torch.models.common import ModelConfig
+
+_MODULES = {
+    "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "granite-3-2b": "repro_torch.configs.granite_3_2b",
+    "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+}
+_LEFT = "not ported yet (ROADMAP.md Queue 1 item 2, 'LM substrate': what is left)"
+_NOT_PORTED = {
+    "whisper-small": f"the Whisper encoder-decoder is {_LEFT}",
+    "mamba2-1.3b": f"Mamba-2 (ssm) blocks are {_LEFT}",
+    "recurrentgemma-9b": f"RG-LRU and local-attention blocks are {_LEFT}",
+    "mixtral-8x7b": f"mixture-of-experts blocks are {_LEFT}",
+    "olmoe-1b-7b": f"mixture-of-experts blocks are {_LEFT}",
+    "qwen2-vl-72b": f"M-RoPE and the VLM frontend are {_LEFT}",
+}
+
+ARCH_IDS = ("whisper-small", "qwen3-8b", "mistral-nemo-12b", "granite-3-2b",
+            "mistral-large-123b", "mamba2-1.3b", "recurrentgemma-9b", "mixtral-8x7b",
+            "olmoe-1b-7b", "qwen2-vl-72b")
+
+
+def _normalize(arch_id: str) -> str:
+    a = arch_id.lower().replace("_", "-")
+    if a not in ARCH_IDS:
+        # allow python-module style ids like "mamba2_1_3b"
+        for k in ARCH_IDS:
+            if k.replace("-", "").replace(".", "") == a.replace("-", "").replace(".", ""):
+                return k
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+    return a
+
+
+def _module(arch_id: str):
+    a = _normalize(arch_id)
+    if a in _NOT_PORTED:
+        raise NotImplementedError(f"{a}: {_NOT_PORTED[a]}")
+    return importlib.import_module(_MODULES[a])
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).config()
+
+
+def get_smoke_config(arch_id: str) -> ModelConfig:
+    return _module(arch_id).smoke_config()
+
+
+__all__ = [
+    "ARCH_IDS",
+    "SHAPES",
+    "SUB_QUADRATIC",
+    "ShapeSpec",
+    "get_config",
+    "get_smoke_config",
+    "shape_applicable",
+    "smoke_shape",
+]

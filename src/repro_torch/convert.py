@@ -22,13 +22,23 @@ connected ``(in, out)``), so its conversions only lay trees out flat:
   - ``epoch_perms_from_arrays(perms, num_users, chunk)``: a checked
     ``(N_T, epochs, chunk)`` int64 table of per-user data permutations for
     epochs 1, 2, … (``repro``'s ``GossipTrainer._host_epoch_perm``).
+
+The dense LM keeps ``repro``'s parameter names and ``(in, out)`` layouts:
+
+  - ``lm_params_from_numpy(params, cfg, device)``: ``repro``'s LM tree as
+    numpy arrays (``embed``, ``final_norm``, ``lm_head`` and ``groups``,
+    whose one block dict is stacked along a leading layer axis) -> the
+    port's ``DenseLM`` in ``cfg.param_dtype`` on ``device``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from repro_torch.core.graphs import ComputeGraph, TaskGraph
+from repro_torch.models.transformer import DenseLM
 from repro_torch.train.tree import ParamLayout
 
 
@@ -75,3 +85,38 @@ def epoch_perms_from_arrays(perms, num_users: int, chunk: int) -> np.ndarray:
     if not np.array_equal(np.sort(out, axis=2), np.broadcast_to(np.arange(chunk), out.shape)):
         raise ValueError("every row of the table must be a permutation of range(chunk)")
     return out
+
+
+_BLOCK_LEAVES = {"ln1": ("ln1",), "ln2": ("ln2",), "wq": ("attn", "wq"), "wk": ("attn", "wk"),
+                 "wv": ("attn", "wv"), "wo": ("attn", "wo"), "q_norm": ("attn", "q_norm"),
+                 "k_norm": ("attn", "k_norm"), "w_gate": ("mlp", "w_gate"),
+                 "w_up": ("mlp", "w_up"), "w_down": ("mlp", "w_down")}
+
+
+@torch.no_grad()
+def lm_params_from_numpy(params: dict, cfg, device):
+    """``repro``'s dense-LM parameter tree (numpy arrays) -> a ``DenseLM``."""
+    model = DenseLM(cfg, torch.device(device))
+    groups, remainder = params["groups"], params.get("remainder", ())
+    if remainder or groups is None or len(groups) != 1:
+        raise ValueError("need one stacked 'attn' group and no remainder layers")
+    stacked = groups[0]
+
+    def put(dst, arr):
+        arr = np.asarray(arr)
+        if arr.shape != tuple(dst.shape):
+            raise ValueError(f"shape {arr.shape} does not fit {tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+
+    put(model.embed, params["embed"])
+    put(model.final_norm, params["final_norm"])
+    if not cfg.tied_embeddings:
+        put(model.lm_head, params["lm_head"])
+    for i, blk in enumerate(model.blocks):
+        for name, path in _BLOCK_LEAVES.items():
+            if hasattr(blk, name):
+                leaf = stacked
+                for key in path:
+                    leaf = leaf[key]
+                put(getattr(blk, name), np.asarray(leaf)[i])
+    return model

@@ -9,11 +9,14 @@ kernels.
 
 from repro_torch.kernels.bottleneck import bottleneck_eval
 from repro_torch.kernels.compress import int8_roundtrip, topk_mask
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gossip_mix import gossip_mix_all
+from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.sdp_proj import rank_k_update, sdp_subspace
 
 WRAPPERS = (sdp_subspace, rank_k_update, bottleneck_eval, gossip_mix_all, topk_mask,
-            int8_roundtrip)
+            int8_roundtrip, rmsnorm, flash_attention, decode_attention)
 
 
 def launch_counts() -> dict[str, int]:
@@ -28,11 +31,14 @@ def reset_launch_counts() -> None:
 __all__ = [
     "WRAPPERS",
     "bottleneck_eval",
+    "decode_attention",
+    "flash_attention",
     "gossip_mix_all",
     "int8_roundtrip",
     "launch_counts",
     "rank_k_update",
     "reset_launch_counts",
+    "rmsnorm",
     "sdp_subspace",
     "topk_mask",
 ]

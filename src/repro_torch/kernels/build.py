@@ -1,12 +1,13 @@
 """Builds the port's CUDA kernels and loads them with ``ctypes``.
 
-Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all
-started together) for ``sm_90a`` into an object file; one more ``nvcc``
-call links the objects into a shared library with a plain C interface.
-The build runs at first use, into ``build/repro_torch/<hash>/`` at the
-root of the checkout, keyed by a hash of the sources and flags, so a fresh
-checkout builds everything on its first kernel launch and a later process
-reuses the library.  Nothing outside the checkout is read or written,
+Every ``csrc/*.cu`` file (with the ``*.cuh`` headers it includes) is
+compiled by its own ``nvcc`` process (all started together) for
+``sm_90a`` into an object file; one more ``nvcc`` call links the objects
+into a shared library with a plain C interface.  The build runs at first
+use, into ``build/repro_torch/<hash>/`` at the root of the checkout, keyed
+by a hash of the sources, headers and flags, so a fresh checkout builds
+everything on its first kernel launch and a later process reuses the
+library.  Nothing outside the checkout is read or written,
 apart from the CUDA toolkit itself.
 """
 
@@ -30,6 +31,7 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry point -> (argtypes, restype)
 SIGNATURES = {
     "sdp_subspace_scratch_floats": ([_I, _I], _LL),
@@ -42,6 +44,13 @@ SIGNATURES = {
     "gossip_mix_all_f32": ([_P, _P, _P, _I, _I, _LL, _P], _I),
     "gossip_mix_all_bf16": ([_P, _P, _P, _I, _I, _LL, _P], _I),
 }
+SIGNATURES.update({
+    "rmsnorm": ([_P, _P, _P, _LL, _I, _F, _I, _I, _P], _I),
+    "flash_attention": ([_P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                         _P], _I),
+    "decode_attention_splits": ([_I], _I),
+    "decode_attention": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P], _I),
+})
 for _name in ("topk_mask", "int8_roundtrip"):
     for _tag in ("f32", "bf16"):
         SIGNATURES[f"{_name}_{_tag}"] = ([_P, _LL, _P, _P, _LL, _P, _LL, _I, _LL, _P], _I)
@@ -67,7 +76,7 @@ def sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):     # the sources and the headers they include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS + CFLAGS).encode())

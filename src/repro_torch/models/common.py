@@ -1,0 +1,150 @@
+"""Shared model machinery: config, initializers, norms, RoPE.
+
+The port's copy of what the dense LM needs from ``repro.models.common``:
+``ModelConfig`` with torch dtypes, the fan-in initializers drawn from a
+given ``torch.Generator``, ``rms_norm`` (the RMSNorm kernel on a CUDA
+tensor), ``swiglu`` and the half-split rotary embedding.  M-RoPE (VLM)
+and the cross-entropy loss (training) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.rmsnorm import rmsnorm
+
+
+def round_up(x: int, multiple: int) -> int:
+    return ((x + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """``repro``'s config, field for field, with torch dtypes.
+
+    ``block_pattern`` selects the per-layer block type cycle; the port runs
+    ``("attn",)`` (dense transformers) only.
+    """
+
+    name: str = "model"
+    family: str = "dense"            # dense | moe | ssm | hybrid | encdec | vlm | audio
+    num_layers: int = 2
+    d_model: int = 128
+    num_heads: int = 4
+    num_kv_heads: int = 4
+    head_dim: int = 0                # 0 => d_model // num_heads
+    d_ff: int = 512
+    vocab_size: int = 1000
+    vocab_pad_multiple: int = 256
+    tied_embeddings: bool = False   # lm_head = embedᵀ
+    max_seq_len: int = 131072
+    # attention
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    mrope: bool = False              # qwen2-vl 3-axis M-RoPE
+    window: int = 0                  # 0 => full causal; >0 sliding window
+    block_pattern: tuple[str, ...] = ("attn",)
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    capacity_factor: float = 1.25
+    # SSM (mamba2)
+    ssm_state: int = 128
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    conv_width: int = 4
+    # RG-LRU (recurrentgemma)
+    lru_width: int = 0               # 0 => d_model
+    local_window: int = 2048
+    # encoder-decoder (whisper)
+    num_encoder_layers: int = 0
+    encoder_seq_ratio: int = 1
+    # training
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    remat: bool = True
+    scan_layers: bool = True
+    train_microbatches: int = 1
+    cast_params_once: bool = True
+    attn_chunk: int = 1024
+    # frontend stubs
+    frontend: str = "none"           # none | audio | vision
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return round_up(self.vocab_size, self.vocab_pad_multiple)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Initializers (drawn on the generator's device)
+# ---------------------------------------------------------------------------
+
+
+def dense_init(generator: torch.Generator, shape: Sequence[int], in_axis: int = 0,
+               dtype=torch.float32) -> torch.Tensor:
+    """Truncated normal at ±2, std 1/√fan_in, drawn in float32."""
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return t.mul_(1.0 / math.sqrt(shape[in_axis])).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape: Sequence[int], dtype=torch.float32):
+    t = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return t.mul_(0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms / activations
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x · rsqrt(mean(x²) + eps) · (1 + scale) over the last axis, in float32."""
+    return rmsnorm(x, scale, eps)
+
+
+def swiglu(x_gate: torch.Tensor, x_up: torch.Tensor) -> torch.Tensor:
+    return F.silu(x_gate) * x_up
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
+
+
+def rope_angles(positions: torch.Tensor, freqs: torch.Tensor):
+    """(cos, sin) of positions (..., seq) × float32 freqs, shaped (..., seq, 1, hd/2)."""
+    angles = positions.to(torch.float32)[..., None] * freqs
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Half-split rotation of x (..., seq, heads, head_dim), in float32."""
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) integers."""
+    freqs = torch.as_tensor(rope_frequencies(x.shape[-1], theta), dtype=torch.float32,
+                            device=x.device)
+    return rotate(x, *rope_angles(positions, freqs))

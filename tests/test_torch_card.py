@@ -10,8 +10,19 @@ Each kernel is held against its plain PyTorch version on the same inputs:
 float32 to relative Frobenius error 1e-5, bfloat16 to 0.05 (the tolerance
 of tests/test_kernel_diff.py), the bottleneck kernel exactly against the
 CPU plain version (both sum machine loads in task order), the compression
-kernels bit for bit (both round every operation separately).
+kernels bit for bit (both round every operation separately).  The LM
+attentions are held to 2e-5 in float32 (tests/test_kernels.py's atol) and,
+in bfloat16, to one bfloat16 ulp of the plain value plus 2^-10 of the
+largest |value| of its row (both round a float32 result once; the float32
+results differ in their last places, which the second term covers near 0),
+RMSNorm to 2e-5 in float32 and to one bfloat16 ulp of the plain value in
+bfloat16 (its outputs reach |y| ≈ 10), and the dense
+LM on the card to the same model on the CPU (logits within 1e-4 of the
+largest |logit|, float32, TF32 off).
 """
+
+import copy
+
 
 import numpy as np
 import pytest
@@ -27,7 +38,12 @@ from repro_torch.kernels.compress import (
     topk_mask,
     topk_mask_plain,
 )
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.gossip_mix import gossip_mix_all, gossip_mix_all_plain
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.models import build_model
 from repro_torch.kernels.sdp_proj import (
     rank_k_update,
     rank_k_update_plain,
@@ -226,3 +242,129 @@ def test_fl_wrappers_check_cuda_inputs(cuda):
         topk_mask(X, torch.zeros(4, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         int8_roundtrip(X.T, torch.ones(10, device=cuda))  # rows not contiguous
+
+
+def _randn(shape, dt, dev, seed):
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.standard_normal(shape).astype(np.float32)).to(TORCH_DT[dt]).to(dev)
+
+
+def _max_abs(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def _attn_close(got, want) -> bool:
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        w = want.float().abs()
+        return bool(torch.all(diff <= w * 2.0 ** -7 + w.amax(-1, keepdim=True) * 2.0 ** -10))
+    return float(diff.max()) <= 2e-5
+
+
+@pytest.mark.parametrize(
+    "r,d,dt,sdt",
+    [(1, 128, "bf16", "bf16"), (7, 128, "f32", "f32"), (256, 4096, "bf16", "bf16"),
+     (32768, 128, "bf16", "bf16"), (5, 4096, "f32", "bf16"), (3, 16, "f32", "f32"),
+     (9, 12288, "f32", "f32"), (2, 768, "bf16", "f32")],
+)
+def test_rmsnorm_kernel_on_card(cuda, r, d, dt, sdt):
+    x = _randn((r, d), dt, cuda, r + d)
+    s = _randn((d,), sdt, cuda, d) * 0.5
+    before = tk.launch_counts()["rmsnorm"]
+    got, want = rmsnorm(x, s), rmsnorm_plain(x, s)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == x.shape
+    diff = (got.float() - want.float()).abs()
+    if dt == "bf16":
+        assert torch.all(diff <= want.float().abs() * 2.0 ** -7)
+    else:
+        assert float(diff.max()) <= 2e-5
+    assert tk.launch_counts()["rmsnorm"] == before + 1
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hkv,d,causal,window,dt",
+    [(1, 1000, 32, 8, 128, True, 0, "bf16"), (1, 1000, 4, 4, 128, False, 0, "f32"),
+     (2, 300, 8, 2, 64, True, 128, "f32"), (1, 77, 4, 1, 16, True, 0, "bf16"),
+     (1, 2048, 8, 8, 128, True, 512, "bf16"), (2, 129, 6, 2, 32, False, 0, "f32")],
+)
+def test_flash_kernel_on_card(cuda, b, s, h, hkv, d, causal, window, dt):
+    """In the model's layout: (B, S, H, D) activations passed as transposed views."""
+    q = _randn((b, s, h, d), dt, cuda, 1).transpose(1, 2)
+    k = _randn((b, s, hkv, d), dt, cuda, 2).transpose(1, 2)
+    v = _randn((b, s, hkv, d), dt, cuda, 3).transpose(1, 2)
+    before = tk.launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape and got.stride() == q.stride()
+    assert _attn_close(got, want), _max_abs(got, want)
+    assert tk.launch_counts()["flash_attention"] == before + 1
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hkv,d,dt,lens",
+    [(8, 4096, 32, 8, 128, "bf16", "spread"), (2, 1000, 8, 2, 64, "f32", [0, 999]),
+     (3, 513, 12, 4, 32, "f32", [1, 512, 513]), (1, 100, 8, 1, 16, "bf16", [100]),
+     (2, 2048, 4, 4, 128, "f32", [2048, 4000]), (4, 600, 6, 2, 128, "bf16", [-1, 1, 599, 37])],
+)
+def test_decode_kernel_on_card(cuda, b, s, h, hkv, d, dt, lens):
+    q = _randn((b, h, d), dt, cuda, 4)
+    kc, vc = _randn((b, s, hkv, d), dt, cuda, 5), _randn((b, s, hkv, d), dt, cuda, 6)
+    if lens == "spread":
+        lens = np.linspace(1, s, b).astype(int).tolist()
+    vl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = tk.launch_counts()["decode_attention"]
+    got, want = decode_attention(q, kc, vc, vl), decode_attention_plain(q, kc, vc, vl)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert _attn_close(got, want), _max_abs(got, want)
+    assert tk.launch_counts()["decode_attention"] == before + 1
+
+
+def test_lm_wrappers_check_cuda_inputs(cuda):
+    x = _randn((4, 64), "f32", cuda, 0)
+    with pytest.raises(ValueError):
+        rmsnorm(x.T, torch.ones(4, device=cuda))              # not contiguous
+    with pytest.raises(ValueError):
+        rmsnorm(x[:, :62], torch.ones(62, device=cuda))       # D not a multiple of 4
+    q = _randn((1, 2, 8, 48), "f32", cuda, 1)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)                              # no kernel for D = 48
+    q = _randn((1, 2, 8, 16), "f32", cuda, 1)
+    with pytest.raises(ValueError):
+        flash_attention(q.double(), q.double(), q.double())   # no float64 kernel
+    kc = _randn((1, 8, 2, 16), "f32", cuda, 2)
+    with pytest.raises(ValueError):
+        decode_attention(q[:, :, 0], kc.transpose(1, 2).contiguous().transpose(1, 2), kc,
+                         torch.ones(1, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-2b"])
+def test_lm_on_card_matches_cpu(cuda, arch):
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32)
+    api = build_model(cfg)
+    on_cpu = api.init_params(0, device="cpu")
+    with torch.no_grad():
+        for p in on_cpu.parameters():
+            if p.dim() == 1:                                   # non-zero norm scales
+                p.normal_(0.0, 0.5, generator=torch.Generator().manual_seed(p.numel()))
+    on_card = copy.deepcopy(on_cpu).to(cuda)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 256)))
+    tk.reset_launch_counts()
+    got = api.forward(on_card, {"tokens": tokens})
+    want = api.forward(on_cpu, {"tokens": tokens})
+    assert _max_abs(got.cpu(), want) <= 1e-4 * float(want.abs().max())
+    counts = tk.launch_counts()
+    L = cfg.num_layers
+    norms = L * (4 if cfg.qk_norm else 2) + 1
+    assert counts["flash_attention"] == L and counts["rmsnorm"] == norms
+    caches = [api.init_cache(2, 16, device=d) for d in (cuda, "cpu")]
+    tk.reset_launch_counts()
+    for t in range(8):
+        batch = {"tokens": tokens[:, t], "pos": torch.tensor([t, t + 3], dtype=torch.int32)}
+        got, _ = api.decode_step(on_card, caches[0], batch)
+        want, _ = api.decode_step(on_cpu, caches[1], batch)
+        assert _max_abs(got.cpu(), want) <= 1e-4 * float(want.abs().max()), t
+    assert tk.launch_counts()["decode_attention"] == 8 * L
+    assert tk.launch_counts()["rmsnorm"] == 8 * norms

@@ -20,8 +20,11 @@ import torch
 
 import repro_torch.core as P
 import repro_torch.fl as FL
+from repro_torch.configs import get_smoke_config
 from repro_torch.data import image_dataset
 from repro_torch.device import resolve_device
+from repro_torch.launch import serve
+from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -40,6 +43,10 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.fl, repro_torch.fl.gossip, repro_torch.fl.runner\n"
         "import repro_torch.train, repro_torch.data, repro_torch.kernels.gossip_mix\n"
         "import repro_torch.kernels.compress, repro_torch.train.tree\n"
+        "import repro_torch.shapes, repro_torch.models, repro_torch.configs\n"
+        "import repro_torch.models.transformer, repro_torch.launch.serve\n"
+        "import repro_torch.kernels.rmsnorm, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.decode_attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'repro'"
         " or m.split('.')[0].startswith('jax'))\n"
         "assert not bad, bad\n"
@@ -81,6 +88,10 @@ def _fl_trainer(tg, cg):
                             FL.GossipConfig(batch_size=8))
 
 
+def _lm():
+    return build_model(get_smoke_config("qwen3-8b"))
+
+
 ENTRY_POINTS = {
     "schedule": lambda tg, cg: P.schedule(tg, cg, "sdp"),
     "compare_methods": lambda tg, cg: P.compare_methods(tg, cg, ("heft",)),
@@ -93,6 +104,11 @@ ENTRY_POINTS = {
         FL.FLExperiment(num_users=4, num_machines=2, rounds=1, num_samples=64),
         task_graph=tg, compute_graph=cg,
     ),
+    "build_model.init_params": lambda tg, cg: _lm().init_params(0),
+    "build_model.forward": lambda tg, cg: _lm().forward(_lm().init_params(0),
+                                                         {"tokens": np.zeros((1, 4), np.int32)}),
+    "build_model.init_cache": lambda tg, cg: _lm().init_cache(1, 8),
+    "serve.main": lambda tg, cg: serve.main(["--smoke", "--batch", "1", "--tokens", "1"]),
 }
 
 

@@ -24,7 +24,10 @@ from repro_torch import kernels as tk
 from repro_torch.kernels import build
 from repro_torch.kernels.bottleneck import bottleneck_eval
 from repro_torch.kernels.compress import int8_roundtrip, topk_mask
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.gossip_mix import gossip_mix_all
+from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.sdp_proj import rank_k_update, sdp_subspace
 
 
@@ -172,9 +175,15 @@ def test_cpu_path_launches_nothing():
     gossip_mix_all(X, torch.ones(2, 3))
     topk_mask(X, torch.ones(3))
     int8_roundtrip(X, torch.ones(3))
+    rmsnorm(X, torch.ones(5))
+    q = torch.from_numpy(rng.standard_normal((1, 2, 6, 16)).astype(np.float32))
+    flash_attention(q, q, q)
+    decode_attention(q[:, :, 0], q.transpose(1, 2), q.transpose(1, 2).contiguous(),
+                     torch.tensor([3], dtype=torch.int32))
     assert tk.launch_counts() == {
         "sdp_subspace": 0, "rank_k_update": 0, "bottleneck_eval": 0,
         "gossip_mix_all": 0, "topk_mask": 0, "int8_roundtrip": 0,
+        "rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
     }
 
 
@@ -215,6 +224,7 @@ def test_ctypes_signatures_match_sources():
     text = "\n".join(src.read_text() for src in build.sources())
     assert {s.name for s in build.sources()} == {
         "sdp_proj.cu", "bottleneck.cu", "gossip_mix.cu", "compress.cu",
+        "rmsnorm.cu", "flash_attention.cu", "decode_attention.cu",
     }
     for name, (argtypes, _) in build.SIGNATURES.items():
         m = re.findall(rf"\b(?:int|long long) {name}\(([^)]*)\)", text)

@@ -1,0 +1,181 @@
+"""The dense-LM slice's kernels on the CPU: each plain PyTorch version against
+``repro``'s oracle (``repro.kernels.ref``) and its Pallas kernel in interpret
+mode, on the same numpy inputs.
+
+The cases are those of tests/test_kernels.py, plus ragged S (no Pallas
+block divides it: oracle only), group sizes g ∈ {1, 2, 4}, sliding windows,
+and valid_len ∈ {1, S} (and 0, where every logit is −1e30 and both sides
+return the mean of v).  Tolerances are tests/test_kernels.py's: float32
+atol 2e-5; bfloat16 atol 2e-2 (3e-2 for decode attention and RMSNorm).  On
+a CPU tensor each wrapper runs its plain version and counts no launch; the
+kernels themselves run on the card (tests/test_torch_card.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as kref
+from repro.kernels.decode_attention import decode_attention_fwd
+from repro.kernels.flash_attention import flash_attention_fwd
+from repro.kernels.rmsnorm import rmsnorm_fwd
+from repro_torch import kernels as tk
+from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _np(x) -> np.ndarray:
+    """A JAX or torch array as float32 numpy (exact for bfloat16)."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.array(jnp.asarray(x, jnp.float32))
+
+
+def _pair(a: np.ndarray, dt: str):
+    """The same values as a JAX and a torch array of dtype ``dt``."""
+    jdt, tdt = DTYPES[dt]
+    j = jnp.asarray(a, jdt)
+    return j, torch.from_numpy(_np(j)).to(tdt)
+
+
+def _randn(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (test_kernels.py FLASH_CASES, ragged S, g = 1, 2, 4)
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # b, s, h, hkv, d, causal, window, dt, pallas block (0: S is ragged, oracle only)
+    (1, 256, 4, 2, 64, True, 0, "f32", 128),
+    (2, 512, 4, 1, 32, True, 128, "f32", 128),
+    (1, 256, 2, 2, 128, False, 0, "f32", 128),
+    (1, 256, 4, 4, 64, True, 0, "bf16", 128),
+    (2, 128, 8, 2, 64, True, 0, "bf16", 128),
+    (1, 200, 4, 1, 16, True, 0, "f32", 0),
+    (2, 97, 4, 2, 32, False, 0, "bf16", 0),
+    (1, 300, 8, 2, 64, True, 64, "f32", 0),
+    (1, 130, 2, 1, 128, False, 40, "f32", 0),
+]
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,causal,window,dt,block", FLASH_CASES)
+def test_flash_attention_plain_matches_ref_and_pallas(b, s, h, hkv, d, causal, window, dt,
+                                                      block):
+    seed = b * 1000 + s + h + d
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(_randn(seed + i, *shape), dt) for i, shape in
+                                    enumerate([(b, h, s, d), (b, hkv, s, d), (b, hkv, s, d)]))
+    atol = 2e-2 if dt == "bf16" else 2e-5
+    got = flash_attention_plain(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == qt.dtype and got.shape == (b, h, s, d)
+    want = kref.flash_attention_ref(qj, kj, vj, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), atol=atol)
+    if block:
+        pallas = flash_attention_fwd(qj, kj, vj, causal=causal, window=window,
+                                     block_q=block, block_k=block, interpret=True)
+        np.testing.assert_allclose(_np(got), _np(pallas), atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# decode attention (test_kernels.py DECODE_CASES, valid_len 1 and S, g = 1, 2, 4)
+# ---------------------------------------------------------------------------
+
+DECODE_CASES = [
+    (2, 512, 8, 2, 64, "f32"),
+    (1, 1024, 4, 4, 32, "f32"),
+    (2, 256, 4, 1, 128, "bf16"),
+    (3, 384, 4, 2, 16, "f32"),
+    (2, 128, 8, 4, 128, "bf16"),
+]
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,dt", DECODE_CASES)
+@pytest.mark.parametrize("lens", ["random", "ends", "empty"])
+def test_decode_attention_plain_matches_ref_and_pallas(b, s, h, hkv, d, dt, lens):
+    seed = b * 100 + s + h + d
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(_randn(seed + i, *shape), dt) for i, shape in
+                                    enumerate([(b, h, d), (b, s, hkv, d), (b, s, hkv, d)]))
+    vl = {
+        "random": np.random.default_rng(seed).integers(1, s, size=b),
+        "ends": np.array([1, s] * b)[:b],
+        "empty": np.array([0, s - 1] * b)[:b],
+    }[lens].astype(np.int32)
+    atol = 3e-2 if dt == "bf16" else 2e-5
+    got = decode_attention_plain(qt, kt, vt, torch.from_numpy(vl))
+    assert got.dtype == qt.dtype and got.shape == (b, h, d)
+    want = kref.decode_attention_ref(qj, kj, vj, jnp.asarray(vl))
+    np.testing.assert_allclose(_np(got), _np(want), atol=atol)
+    pallas = decode_attention_fwd(qj, kj, vj, jnp.asarray(vl), block_k=128, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=atol)
+    if lens == "empty":   # no valid slot: the mean of v over all S slots
+        mean = _np(vt).reshape(b, s, hkv, 1, d).mean(axis=1)
+        mean = np.broadcast_to(mean, (b, hkv, h // hkv, d)).reshape(b, h, d)
+        np.testing.assert_allclose(_np(got)[0], mean[0], atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm (test_kernels.py shapes and the model's widths)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("r,d,dt", [(256, 768, "f32"), (512, 1024, "bf16"), (128, 4096, "f32"),
+                                    (7, 128, "bf16"), (64, 16, "f32"), (3, 4096, "bf16")])
+@pytest.mark.parametrize("sdt", ["f32", "bf16"])
+def test_rmsnorm_plain_matches_ref_and_pallas(r, d, dt, sdt):
+    xj, xt = _pair(_randn(r + d, r, d), dt)
+    sj, st = _pair(_randn(d, d) * 0.1, sdt)
+    atol = 3e-2 if dt == "bf16" else 2e-5
+    got = rmsnorm_plain(xt, st)
+    assert got.dtype == xt.dtype
+    np.testing.assert_allclose(_np(got), _np(kref.rmsnorm_ref(xj, sj)), atol=atol)
+    block = 64 if r % 64 == 0 else r
+    pallas = rmsnorm_fwd(xj, sj, block_rows=block, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers on CPU tensors
+# ---------------------------------------------------------------------------
+
+
+def test_wrappers_run_plain_versions_on_cpu_and_count_nothing():
+    tk.reset_launch_counts()
+    x = torch.from_numpy(_randn(0, 3, 5, 64))
+    s = torch.from_numpy(_randn(1, 64))
+    assert torch.equal(rmsnorm(x, s), rmsnorm_plain(x, s))
+    q, k, v = (torch.from_numpy(_randn(i, 1, h, 40, 16)) for i, h in ((2, 4), (3, 2), (4, 2)))
+    for causal, window in ((True, 0), (False, 9)):
+        assert torch.equal(flash_attention(q, k, v, causal=causal, window=window),
+                           flash_attention_plain(q, k, v, causal=causal, window=window))
+    qd = torch.from_numpy(_randn(5, 2, 4, 16))
+    kc, vc = (torch.from_numpy(_randn(i, 2, 30, 2, 16)) for i in (6, 7))
+    vl = torch.tensor([30, 3], dtype=torch.int32)
+    assert torch.equal(decode_attention(qd, kc, vc, vl), decode_attention_plain(qd, kc, vc, vl))
+    counts = tk.launch_counts()
+    assert counts["rmsnorm"] == counts["flash_attention"] == counts["decode_attention"] == 0
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: rmsnorm(torch.zeros(4, 8), torch.zeros(7)),
+        lambda: flash_attention(torch.zeros(1, 4, 8, 16), torch.zeros(1, 3, 8, 16),
+                                torch.zeros(1, 3, 8, 16)),
+        lambda: flash_attention(torch.zeros(1, 4, 8, 16), torch.zeros(1, 2, 9, 16),
+                                torch.zeros(1, 2, 9, 16)),
+        lambda: flash_attention(torch.zeros(1, 4, 8, 16), torch.zeros(1, 2, 8, 16),
+                                torch.zeros(1, 2, 8, 16), window=-1),
+        lambda: decode_attention(torch.zeros(2, 4, 16), torch.zeros(2, 8, 2, 16),
+                                 torch.zeros(2, 8, 2, 16), torch.zeros(2, dtype=torch.int64)),
+        lambda: decode_attention(torch.zeros(2, 4, 16), torch.zeros(2, 8, 3, 16),
+                                 torch.zeros(2, 8, 3, 16), torch.zeros(2, dtype=torch.int32)),
+    ],
+)
+def test_wrappers_reject_bad_shapes(call):
+    with pytest.raises(ValueError):
+        call()
