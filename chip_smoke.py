@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port once on the card: the SDP scheduler, the
-gossip-FL trainer and the dense LM's serving path.
+gossip-FL engines (stacked, per-user reference, mesh-sharded) and the dense
+LM's serving path.
 
     python3 chip_smoke.py
 
@@ -46,7 +47,22 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      counts;
  12. LM card against CPU: the granite-3-2b and qwen3-8b smoke configs in
      float32 with the same parameters on both, a forward of 1024 tokens and
-     8 decode steps, logits within 1e-4 of the largest |logit|.
+     8 decode steps, logits within 1e-4 of the largest |logit|;
+ 13. shard kernels: the sharded exchange ``gossip_mix_block`` and the
+     one-receiver ``gossip_mix`` against their plain versions (ragged
+     shapes, float32 and bfloat16, the H = 0 hand-off), and their times at
+     the sharded path's shape (m = 128, H = 16, L = 552,714), a heavy halo
+     (m = 125, H = 472) and the reference path's receivers (5–10 rows);
+ 14. reference path: ``run_fl(backend="reference")`` on phase 7's instance
+     and schedules, exact launch counts, losses within relative 1e-4 of
+     phase 7's stacked run;
+ 15. sharded population: N_T = 1024 users of the CIFAR-10 CNN in 16
+     clusters of 64, 8 shards on this one card (``UserMesh.build(8,
+     devices=[dev] * 8)``, run one after another), mesh 1 and the stacked
+     trainer with TopK(0.05), mesh 8 with Int8(): wall per round, its split
+     into local / compress / halo / mix, the halo's size, peak memory, the
+     idle share of a profiled mesh-8 round, exact launch counts, and mesh 8
+     against mesh 1 and the stacked trainer to relative 1e-4.
 
 Each phase prints its wall time.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object with every kernel's numbers, and
@@ -518,22 +534,29 @@ def fl_kernel_phase(dev, gen) -> tuple[list[dict], list[dict]]:
     return rows, population
 
 
-def fl_path_phase(dev) -> dict[str, int]:
+def fl_path_experiment(backend: str):
+    """The §4.2 run of phases 7 and 14: 10 users of the CIFAR-10 CNN, TopK(0.05)."""
+    from repro_torch.fl import FLExperiment, GossipConfig
+    from repro_torch.train import TopK
+
+    return FLExperiment(dataset="cifar10", num_users=10, num_machines=4, rounds=FL_ROUNDS,
+                        num_samples=4096, seed=0, backend=backend,
+                        gossip=GossipConfig(local_steps=4, batch_size=64, compressor=TopK(0.05)))
+
+
+def fl_path_phase(dev) -> tuple[dict[str, int], dict, list[float]]:
     """``run_fl`` on the §4.2 instance at CIFAR-10 width, given the port's
     schedules from ``compare_methods`` on the card."""
     from repro_torch import kernels as tk
     from repro_torch.core import SDPOptions, bottleneck_time, compare_methods
-    from repro_torch.fl import FLExperiment, GossipConfig, run_fl
-    from repro_torch.train import TopK
+    from repro_torch.fl import run_fl
 
     tg, cg = fl_instance(10)
     t0 = time.perf_counter()
     schedules = compare_methods(tg, cg, sdp_options=SDPOptions(max_iters=MAX_ITERS),
                                 warm_start=True, device=dev)
     sched_s = time.perf_counter() - t0
-    exp = FLExperiment(dataset="cifar10", num_users=10, num_machines=4, rounds=FL_ROUNDS,
-                       num_samples=4096, seed=0,
-                       gossip=GossipConfig(local_steps=4, batch_size=64, compressor=TopK(0.05)))
+    exp = fl_path_experiment("stacked")
     tk.reset_launch_counts()
     t0 = time.perf_counter()
     out = run_fl(exp, task_graph=tg, compute_graph=cg, schedules=schedules, device=dev)
@@ -557,7 +580,7 @@ def fl_path_phase(dev) -> dict[str, int]:
         host = bottleneck_time(tg, cg, s.assignment)
         check(out["bottleneck_per_round"][m] == host, f"{m}: run_fl round time == host Eq. 2")
         check(abs(s.bottleneck - host) <= 1e-9 * host, f"{m}: schedule bottleneck == host Eq. 2")
-    return counts
+    return counts, schedules, [h["mean_loss"] for h in out["history"]]
 
 
 def population_phase(dev, n: int = 128, num_samples: int = 16384) -> dict[str, int]:
@@ -991,6 +1014,234 @@ def lm_card_vs_cpu_phase(dev) -> None:
         check(rel <= 1e-4, f"lm card vs cpu {arch}: {rel}")
 
 
+def cluster_instance(num_users: int, clusters: int):
+    """``benchmarks/fig6_gossip_fl.py``'s sharded topology: clusters of ~64
+    users wired by 3 random inner neighbours each, heads on a ring."""
+    from repro_torch.core import cluster_task_graph
+
+    return cluster_task_graph(np.random.default_rng(0), num_users, clusters=clusters,
+                              inner_topology="gossip", inner_degree=3, head_topology="ring")
+
+
+def shard_blocks(tg, num_shards: int):
+    """(Wb, Wh, halo_stats) of shard 0 of ``tg`` on ``num_shards`` shards."""
+    from repro_torch.fl import mixing_arrays, shard_edge_arrays
+    from repro_torch.launch.sharding import FLSharding, UserMesh
+
+    _, src, dst, w, _ = mixing_arrays(tg, 0.5)
+    fls = FLSharding(UserMesh.build(num_shards, devices=["cpu"] * num_shards), tg.num_tasks)
+    ec, stats = shard_edge_arrays(src, dst, w, fls)
+    return torch.from_numpy(ec["Wb"][0]), torch.from_numpy(ec["Wh"][0]), stats
+
+
+def shard_kernel_phase(dev, gen) -> list[dict]:
+    """The sharded exchange and the one-receiver mix against their plain
+    versions; their times at the sharded path's shape (m = 128, H = 16), a
+    heavy halo (m = 125, H = 472) and the reference path's receivers."""
+    from repro_torch.kernels.gossip_mix import (
+        gossip_mix,
+        gossip_mix_block,
+        gossip_mix_block_plain,
+        gossip_mix_plain,
+    )
+
+    def randn(*shape, dt=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    def weights(*shape):
+        return torch.rand(*shape, generator=gen, device=dev) * (
+            torch.rand(*shape, generator=gen, device=dev) < 0.5)
+
+    for dt in (torch.float32, torch.bfloat16):
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        for m in (1, 5, 130):
+            for h in (0, 1, 40):
+                for l in (1, 7, 1001):
+                    local, halo = randn(m, l, dt=dt), randn(h, l, dt=dt)
+                    wb, wh = weights(m, m), weights(m, h)
+                    wb[0], wh[0] = 0.0, 0.0
+                    got = gossip_mix_block(local, wb, halo, wh)
+                    err = rel_err(got, gossip_mix_block_plain(local, wb, halo, wh))
+                    check(got.dtype == dt and err <= tol and bool(torch.all(got[0] == 0)),
+                          f"gossip_mix_block m={m} H={h} L={l} {dt}: rel error {err}")
+        for n in (1, 5, 10):
+            for l in (1, 7, 1001, 4096):
+                X, w = randn(n, l, dt=dt), torch.rand(n, generator=gen, device=dev)
+                got = gossip_mix(X, w)
+                err = rel_err(got, gossip_mix_plain(X, w))
+                check(got.dtype == dt and err <= tol, f"gossip_mix N={n} L={l} {dt}: rel error {err}")
+        print(f"kernel check gossip_mix_block m in (1, 5, 130), H in (0, 1, 40), L in (1, 7, 1001), "
+              f"and gossip_mix N in (1, 5, 10), L in (1, 7, 1001, 4096), {dt}: ok", flush=True)
+
+    L = cnn_columns()[-1][1]
+    rows = []
+    for n_users, clusters, label in ((1024, 16, ""), (1000, 15, " heavy halo")):
+        wb, wh, stats = shard_blocks(cluster_instance(n_users, clusters), 8)
+        wb, wh = wb.to(dev), wh.to(dev)
+        m, h = wh.shape
+        sets = copies(lambda: (randn(m, L), wb, randn(h, L), wh), (m + h) * L * 4)
+        got = gossip_mix_block(*sets[0])
+        want = gossip_mix_block_plain(*sets[0])
+        err = rel_err(got, want)
+        check(err <= F32_TOL, f"gossip_mix_block m={m} H={h} L={L}: rel error {err}")
+        b, by = bound_ms(4 * (2 * m * L + h * L + m * m + m * h), 2 * m * (m + h) * L)
+        row = dict(
+            name="gossip_mix_block", route="cuda",
+            source="src/repro_torch/kernels/csrc/gossip_mix.cu",
+            replaces="src/repro/kernels/gossip_mix.py:72", max_abs_err=max_abs(got, want),
+            rel_err=err, ms=device_ms(gossip_mix_block, sets, 50),
+            plain_ms=device_ms(gossip_mix_block_plain, sets, 20), bound_ms=b, bound_by=by,
+            library_ms=None,
+        )
+        del got, want
+        mm_ms = device_ms(lambda x, wb_, hx, wh_: torch.addmm(torch.mm(wb_, x), wh_, hx), sets, 20)
+        print(f"kernel gossip_mix_block{label} m={m} H={h} L={L}: torch.mm + torch.addmm "
+              f"{mm_ms * 1e3:.2f} us (two calls: a yardstick, not a library time); shard 0 of "
+              f"{n_users} cluster users on 8 shards, halo {stats}", flush=True)
+        print_row(row, f"{label} m={m} H={h}")
+        if not label:
+            rows.append(row)
+        del sets
+        torch.cuda.empty_cache()
+
+    # the reference path's receivers: own model + in-degree messages, (indeg + 1, L) each
+    tg, _ = fl_instance(10)
+    indeg = np.bincount([j for _, j in tg.edges], minlength=10)
+    sets = [(randn(int(d) + 1, L), torch.rand(int(d) + 1, generator=gen, device=dev))
+            for d in indeg]
+    err = worst = 0.0
+    for X, w in sets:
+        got, want = gossip_mix(X, w), gossip_mix_plain(X, w)
+        err, worst = max(err, rel_err(got, want)), max(worst, max_abs(got, want))
+        check(err <= F32_TOL, f"gossip_mix N={X.shape[0]} L={L}: rel error {err}")
+    nbytes = sum(4 * (X.shape[0] * L + X.shape[0] + L) for X, _ in sets) / len(sets)
+    b, by = bound_ms(nbytes, sum(2 * X.shape[0] * L for X, _ in sets) / len(sets))
+    row = dict(
+        name="gossip_mix", route="cuda", source="src/repro_torch/kernels/csrc/gossip_mix.cu",
+        replaces="src/repro/kernels/gossip_mix.py:41", max_abs_err=worst,
+        rel_err=err, ms=device_ms(gossip_mix, sets, 100),
+        plain_ms=device_ms(gossip_mix_plain, sets, 50), bound_ms=b, bound_by=by,
+        library_ms=device_ms(lambda X, w: torch.matmul(w, X), sets, 50),
+    )
+    print_row(row, f" N = indeg + 1 in {sorted(set((indeg + 1).tolist()))}, L={L} "
+                   "(mean over the 10 receivers)")
+    rows.append(row)
+    del sets
+    torch.cuda.empty_cache()
+    return rows
+
+
+def reference_path_phase(dev, schedules, stacked_losses) -> dict[str, int]:
+    """``run_fl(backend="reference")`` on phase 7's instance and schedules."""
+    from repro_torch import kernels as tk
+    from repro_torch.fl import run_fl
+
+    tg, cg = fl_instance(10)
+    receivers = int(np.count_nonzero(np.bincount([j for _, j in tg.edges], minlength=10)))
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run_fl(fl_path_experiment("reference"), task_graph=tg, compute_graph=cg,
+                 schedules=schedules, device=dev)
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update(gossip_mix=receivers * FL_ROUNDS, topk_mask=10 * len(cnn_columns()) * FL_ROUNDS)
+    losses = [h["mean_loss"] for h in out["history"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, stacked_losses))
+    print(f"reference path: run_fl {wall:.3f} s, round seconds "
+          f"{[round(x, 4) for x in out['round_seconds']]}, losses {losses}, stacked (phase 7) "
+          f"{stacked_losses}, largest relative difference {rel:.3e}", flush=True)
+    print(f"reference path: launches {counts}, expected {expect}", flush=True)
+    check(out["backend"] == "reference" and counts == expect, "reference path launch counts")
+    check(rel <= 1e-4, f"reference path losses differ from the stacked run's by {rel}")
+    return counts
+
+
+def sharded_population_phase(dev, n: int = 1024, clusters: int = 16, chunk: int = 128,
+                             batch: int = 64) -> dict[str, int]:
+    """The sharded engine at N_T = ``n`` users of the CIFAR-10 CNN in
+    ``clusters`` clusters on a mesh of 8 shards on this one card (run one
+    after another), against mesh 1 and the stacked trainer; returns the
+    mesh-8 TopK run's launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as tk
+    from repro_torch.data import image_dataset
+    from repro_torch.fl import GossipConfig, GossipTrainer, init_cnn_params
+    from repro_torch.launch.sharding import UserMesh
+    from repro_torch.train import Int8, TopK
+
+    tg = cluster_instance(n, clusters)
+    t0 = time.perf_counter()
+    train, _ = image_dataset("cifar10", n * chunk, seed=0)
+    shards = train.split(n, np.random.default_rng(1))
+    del train
+    print(f"sharded: {n} users, {len(tg.edges)} edges, {n * chunk} CIFAR-10 images drawn in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    leaves = len(cnn_columns())
+    losses, counts = {}, {}
+    for label, backend, shards_, comp in (("mesh8 TopK", "sharded", 8, TopK(0.05)),
+                                          ("mesh1 TopK", "sharded", 1, TopK(0.05)),
+                                          ("stacked TopK", "stacked", None, TopK(0.05)),
+                                          ("mesh8 Int8", "sharded", 8, Int8())):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mesh = None if shards_ is None else UserMesh.build(shards_, devices=[dev] * shards_)
+        trainer = GossipTrainer(tg, lambda g: init_cnn_params(g, (32, 32, 3)), shards,
+                                GossipConfig(local_steps=4, batch_size=batch, compressor=comp),
+                                seed=0, backend=backend, device=dev, user_mesh=mesh)
+        torch.cuda.synchronize()
+        print(f"sharded {label}: set-up {time.perf_counter() - t0:.2f} s, device memory "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; halo "
+              f"{getattr(trainer, 'halo_stats', None)}", flush=True)
+        tk.reset_launch_counts()
+        losses[label] = []
+        for _ in range(FL_ROUNDS):
+            trainer.stage_events = []
+            t0 = time.perf_counter()
+            info = trainer.step_round()
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            ev = trainer.stage_events
+            split = " ".join(f"{b[0]} {a[1].elapsed_time(b[1]):.3f}" for a, b in zip(ev, ev[1:]))
+            print(f"sharded {label}: round {info['round']} wall {wall * 1e3:.2f} ms, device "
+                  f"split (ms) {split}; mean loss {info['mean_loss']:.6f}", flush=True)
+            check(np.isfinite(info["mean_loss"]), f"sharded {label} loss finite")
+            losses[label].append(info["mean_loss"])
+        counts[label] = tk.launch_counts()
+        expect = dict.fromkeys(counts[label], 0)
+        kernel = "topk_mask" if isinstance(comp, TopK) else "int8_roundtrip"
+        blocks = 1 if shards_ is None else shards_
+        expect[kernel] = blocks * leaves * FL_ROUNDS
+        expect["gossip_mix_block" if blocks > 1 else "gossip_mix_all"] = blocks * FL_ROUNDS
+        print(f"sharded {label}: launches {counts[label]}, expected {expect}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        check(counts[label] == expect, f"sharded {label} launch counts")
+        if label == "mesh8 TopK":
+            check(trainer.halo_stats["halo_rows_per_shard"] == 16, "mesh 8 halo of 16 rows")
+            trainer.stage_events = None
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                trainer.step_round()
+                wall = time.perf_counter() - t0
+            busy = busy_seconds(prof)
+            if busy > 0:
+                print(f"sharded {label}: profiled round {wall * 1e3:.2f} ms wall, device busy "
+                      f"{busy * 1e3:.2f} ms, idle share {1 - busy / wall:.3f}", flush=True)
+            else:
+                print(f"sharded {label}: profiler recorded no device time: idle share not "
+                      "measured", flush=True)
+        del trainer
+    for label in ("mesh1 TopK", "stacked TopK"):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh8 TopK"], losses[label]))
+        print(f"sharded: mesh8 TopK against {label}: largest relative loss difference "
+              f"{rel:.3e}", flush=True)
+        check(rel <= 1e-4, f"sharded mesh8 against {label}: losses differ by {rel}")
+    torch.cuda.empty_cache()
+    return counts["mesh8 TopK"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1022,13 +1273,16 @@ def main() -> int:
     phase("4 reference", reference_phase, dev)
     phase("5 host sync", sync_phase, dev)
     fl_rows, _ = phase("6 FL kernels", fl_kernel_phase, dev, gen)
-    fl_counts = phase("7 FL path", fl_path_phase, dev)
+    fl_counts, fl_schedules, fl_losses = phase("7 FL path", fl_path_phase, dev)
     phase("8 population N_T=10", population_phase, dev, n=10, num_samples=4096)
     int8_counts = phase("8 population N_T=128", population_phase, dev)
     phase("9 card vs cpu", card_vs_cpu_phase, dev)
     lm_rows = phase("10 LM kernels", lm_kernel_phase, dev, gen)
     lm_counts = phase("11 LM serve path", lm_serve_phase, dev)
     phase("12 LM card vs cpu", lm_card_vs_cpu_phase, dev)
+    shard_rows = phase("13 shard kernels", shard_kernel_phase, dev, gen)
+    ref_counts = phase("14 reference path", reference_path_phase, dev, fl_schedules, fl_losses)
+    shard_counts = phase("15 sharded population", sharded_population_phase, dev)
 
     for r in rows:
         r["launches"] = counts[r["name"]]
@@ -1039,6 +1293,9 @@ def main() -> int:
     for r in lm_rows:
         r["launches"] = lm_counts[r["name"]]      # summed over phase 11's three runs
     rows += lm_rows
+    for r in shard_rows:
+        r["launches"] = (shard_counts if r["name"] == "gossip_mix_block" else ref_counts)[r["name"]]
+    rows += shard_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)

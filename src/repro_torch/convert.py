@@ -23,6 +23,14 @@ connected ``(in, out)``), so its conversions only lay trees out flat:
     ``(N_T, epochs, chunk)`` int64 table of per-user data permutations for
     epochs 1, 2, … (``repro``'s ``GossipTrainer._host_epoch_perm``).
 
+All three gossip engines (stacked, sharded, reference) take the same
+``init_params`` tree and ``epoch_perms`` table, so none needs a converter
+of its own.  ``repro``'s sharded engine pads the population to a multiple
+of the shard count with inert users whose reshuffle keys continue the
+``fold_in`` stream past N_T; the port's pads the same slots but takes only
+the N_T real rows from the table (padding users walk their zero data in
+order), so the table of the stacked engine serves every shard count.
+
 The dense LM keeps ``repro``'s parameter names and ``(in, out)`` layouts:
 
   - ``lm_params_from_numpy(params, cfg, device)``: ``repro``'s LM tree as

@@ -1,8 +1,10 @@
 """Task and compute graphs for distributed iterative processes.
 
 A copy of the instance containers and random generators of
-``repro.core.graphs``, so the port builds the same instance from the same
-seed without importing the JAX package.
+``repro.core.graphs`` (the paper's random and gossip graphs, the
+hierarchical cluster family) and of its graph-partition utilities for the
+sharded FL engine, so the port builds the same instance from the same seed
+without importing the JAX package.
 
 The paper models an iterative process as a *general directed graph* (cycles
 allowed) of tasks, executed on a complete graph of networked machines.
@@ -18,7 +20,7 @@ allowed) of tasks, executed on a complete graph of networked machines.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -221,4 +223,185 @@ def gossip_task_graph(
         rng, num_users, degree_low=degree_low, degree_high=degree_high
     )
     return TaskGraph(p=np.asarray(p, dtype=np.float64), edges=g.edges)
+
+
+def _with_work(edges: Iterable[Edge], num_tasks: int, p) -> TaskGraph:
+    if p is None:
+        p = np.ones(num_tasks)
+    return TaskGraph(p=np.asarray(p, dtype=np.float64), edges=tuple(sorted(set(edges))))
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical (cluster) topology: dense-ish clusters, a sparse head graph.
+# The sharded FL engine maps clusters onto shards, so the only cross-shard
+# (halo) edges are head-to-head links.
+# ---------------------------------------------------------------------------
+
+CLUSTER_INNER_TOPOLOGIES = ("dense", "ring", "gossip")
+CLUSTER_HEAD_TOPOLOGIES = ("ring", "dense")
+
+
+def cluster_assignment(num_tasks: int, clusters: int) -> np.ndarray:
+    """(num_tasks,) cluster id per vertex: the contiguous balanced split
+    ``cluster_task_graph`` uses (cluster sizes differ by at most one)."""
+    if not (1 <= clusters <= num_tasks):
+        raise ValueError(
+            f"need 1 <= clusters <= num_tasks, got clusters={clusters}, "
+            f"num_tasks={num_tasks}"
+        )
+    out = np.empty(num_tasks, dtype=np.int64)
+    for c, block in enumerate(np.array_split(np.arange(num_tasks), clusters)):
+        out[block] = c
+    return out
+
+
+def cluster_task_graph(
+    rng: np.random.Generator,
+    num_tasks: int,
+    *,
+    clusters: int = 4,
+    inner_topology: str = "dense",
+    head_topology: str = "ring",
+    heads_per_cluster: int = 1,
+    inner_degree: int = 3,
+    p: np.ndarray | None = None,
+) -> TaskGraph:
+    """Hierarchical gossip: dense intra-cluster exchange, sparse head graph.
+
+    Vertices are split into ``clusters`` contiguous groups
+    (``cluster_assignment``).  Within each cluster the ``inner_topology``
+    family wires the members (``dense`` = complete digraph, ``ring``, or
+    ``gossip`` = ``inner_degree`` random undirected neighbors per member);
+    the first ``heads_per_cluster`` vertices of each cluster are its heads,
+    and corresponding heads of neighboring clusters exchange on the
+    ``head_topology`` graph over clusters (``ring`` or ``dense``).  Every
+    link is undirected: both edge directions are emitted.
+    """
+    if inner_topology not in CLUSTER_INNER_TOPOLOGIES:
+        raise ValueError(
+            f"unknown inner topology {inner_topology!r}; "
+            f"choose from {CLUSTER_INNER_TOPOLOGIES}"
+        )
+    if head_topology not in CLUSTER_HEAD_TOPOLOGIES:
+        raise ValueError(
+            f"unknown head topology {head_topology!r}; "
+            f"choose from {CLUSTER_HEAD_TOPOLOGIES}"
+        )
+    if clusters < 2:
+        raise ValueError(f"need >= 2 clusters, got {clusters}")
+    if num_tasks < 2 * clusters:
+        raise ValueError(
+            f"need >= 2 members per cluster: num_tasks={num_tasks} < "
+            f"2 * clusters={2 * clusters}"
+        )
+    cluster_of = cluster_assignment(num_tasks, clusters)
+    members = [np.nonzero(cluster_of == c)[0] for c in range(clusters)]
+    min_size = min(len(m) for m in members)
+    if not (1 <= heads_per_cluster <= min_size):
+        raise ValueError(
+            f"heads_per_cluster={heads_per_cluster} must be in "
+            f"[1, {min_size}] (the smallest cluster size)"
+        )
+    if inner_topology == "gossip" and inner_degree < 1:
+        raise ValueError(f"inner_degree must be >= 1, got {inner_degree}")
+
+    und: set[tuple[int, int]] = set()
+
+    def link(a: int, b: int) -> None:
+        if a != b:
+            und.add((min(a, b), max(a, b)))
+
+    for mem in members:
+        k = len(mem)
+        if inner_topology == "dense":
+            for x in range(k):
+                for y in range(x + 1, k):
+                    link(int(mem[x]), int(mem[y]))
+        elif inner_topology == "ring":
+            for x in range(k):
+                link(int(mem[x]), int(mem[(x + 1) % k]))
+        else:  # gossip: inner_degree random undirected neighbors per member
+            deg = min(inner_degree, k - 1)
+            for x in range(k):
+                others = np.concatenate([mem[:x], mem[x + 1 :]])
+                for t in rng.choice(others, size=deg, replace=False):
+                    link(int(mem[x]), int(t))
+
+    # head h of cluster c links to head h of each neighboring cluster (ring)
+    # or of every other cluster (dense)
+    for c in range(clusters):
+        peers = (
+            [(c + 1) % clusters] if head_topology == "ring"
+            else [d for d in range(clusters) if d != c]
+        )
+        for d in peers:
+            for h in range(heads_per_cluster):
+                link(int(members[c][h]), int(members[d][h]))
+
+    edges = [(a, b) for (a, b) in und] + [(b, a) for (a, b) in und]
+    return _with_work(edges, num_tasks, p)
+
+
+# ---------------------------------------------------------------------------
+# Graph-partition utilities of the user-mesh sharding
+# ---------------------------------------------------------------------------
+#
+# The sharded FL engine splits users into ``num_shards`` CONTIGUOUS blocks
+# of equal (padded) size; every task-graph edge crossing a block boundary
+# becomes halo traffic.  These helpers relabel users so that clusters land
+# whole on shards, minimizing those boundary edges.
+
+
+def contiguous_shard_of(num_tasks: int, num_shards: int) -> np.ndarray:
+    """(num_tasks,) shard id under the engine's contiguous block layout:
+    user ``u`` lives on shard ``u // ceil(num_tasks / num_shards)``."""
+    if num_shards < 1:
+        raise ValueError(f"need >= 1 shard, got {num_shards}")
+    block = -(-num_tasks // num_shards)
+    return np.arange(num_tasks) // block
+
+
+def halo_edge_count(task_graph: TaskGraph, shard_of: np.ndarray) -> int:
+    """Number of task-graph edges whose endpoints live on different shards
+    (each such edge ships one boundary row per round)."""
+    shard_of = np.asarray(shard_of)
+    if shard_of.shape != (task_graph.num_tasks,):
+        raise ValueError(
+            f"shard_of shape {shard_of.shape} != ({task_graph.num_tasks},)"
+        )
+    return int(
+        sum(1 for (i, j) in task_graph.edges if shard_of[i] != shard_of[j])
+    )
+
+
+def cluster_shard_permutation(cluster_of: np.ndarray, num_shards: int) -> np.ndarray:
+    """User permutation packing whole clusters onto contiguous shard blocks.
+
+    Lists users cluster by cluster in cluster-index order (a stable sort),
+    so relabeling with ``permute_task_graph(tg, perm)`` makes the engine's
+    contiguous ``ceil(n / num_shards)`` blocks respect cluster boundaries
+    wherever cluster sizes allow, and keeps ring-adjacent clusters next to
+    each other.  ``perm[new] = old``: new user ``k`` is old user ``perm[k]``.
+    """
+    cluster_of = np.asarray(cluster_of)
+    if num_shards < 1:
+        raise ValueError(f"need >= 1 shard, got {num_shards}")
+    return np.argsort(cluster_of, kind="stable").astype(np.int64)
+
+
+def permute_task_graph(task_graph: TaskGraph, perm: np.ndarray) -> TaskGraph:
+    """Relabel tasks by ``perm`` (``perm[new] = old``): work and edges move
+    with their task, so the relabeled graph is isomorphic to the input."""
+    perm = np.asarray(perm)
+    n = task_graph.num_tasks
+    if sorted(perm.tolist()) != list(range(n)):
+        raise ValueError(f"perm must be a permutation of range({n})")
+    inv = np.empty(n, dtype=np.int64)
+    inv[perm] = np.arange(n)
+    return TaskGraph(
+        p=task_graph.p[perm],
+        edges=tuple(
+            sorted((int(inv[i]), int(inv[j])) for (i, j) in task_graph.edges)
+        ),
+    )
 

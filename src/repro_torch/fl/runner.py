@@ -5,7 +5,9 @@ Builds a gossip instance (users, topology, data shards), schedules it on a
 machine set with every method, trains for R rounds on the device, and
 reports both the learning curve (loss and user 0's accuracy per round) and
 each schedule's bottleneck time per round, which multiply out to accuracy
-against wall-clock.  ``repro``'s barrier-free ``run_fl_async`` needs its
+against wall-clock.  ``exp.backend`` (or ``exp.gossip.backend``) picks the
+engine: stacked, mesh-sharded (``exp.gossip.num_shards`` shards) or the
+per-user reference.  ``repro``'s barrier-free ``run_fl_async`` needs its
 event engine and is not ported yet.
 """
 
@@ -38,7 +40,8 @@ class FLExperiment:
     rounds: int = 8
     num_samples: int = 2048
     seed: int = 0
-    # Gossip engine override: None defers to gossip.backend ("auto" = stacked).
+    # Gossip engine override ("reference" | "stacked" | "sharded"): None
+    # defers to gossip.backend ("auto" = stacked).
     backend: str | None = None
     gossip: GossipConfig = dataclasses.field(default_factory=GossipConfig)
 
@@ -116,7 +119,7 @@ def run_fl(
         t0 = time.perf_counter()
         info = trainer.step_round()          # ends in a host read of the loss
         round_seconds.append(time.perf_counter() - t0)
-        user0 = trainer.layout.unflatten(trainer.model.flat[0].detach())
+        user0 = trainer.layout.unflatten(trainer.user_flat(0))
         info["accuracy_user0"] = cnn_accuracy(user0, test.x, test.y)
         history.append(info)
 

@@ -11,12 +11,12 @@ from repro_torch.kernels.bottleneck import bottleneck_eval
 from repro_torch.kernels.compress import int8_roundtrip, topk_mask
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.gossip_mix import gossip_mix_all
+from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_all, gossip_mix_block
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.sdp_proj import rank_k_update, sdp_subspace
 
-WRAPPERS = (sdp_subspace, rank_k_update, bottleneck_eval, gossip_mix_all, topk_mask,
-            int8_roundtrip, rmsnorm, flash_attention, decode_attention)
+WRAPPERS = (sdp_subspace, rank_k_update, bottleneck_eval, gossip_mix_all, gossip_mix_block,
+            gossip_mix, topk_mask, int8_roundtrip, rmsnorm, flash_attention, decode_attention)
 
 
 def launch_counts() -> dict[str, int]:
@@ -33,7 +33,9 @@ __all__ = [
     "bottleneck_eval",
     "decode_attention",
     "flash_attention",
+    "gossip_mix",
     "gossip_mix_all",
+    "gossip_mix_block",
     "int8_roundtrip",
     "launch_counts",
     "rank_k_update",

@@ -43,6 +43,10 @@ SIGNATURES = {
     "bottleneck_eval": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "gossip_mix_all_f32": ([_P, _P, _P, _I, _I, _LL, _P], _I),
     "gossip_mix_all_bf16": ([_P, _P, _P, _I, _I, _LL, _P], _I),
+    "gossip_mix_block_f32": ([_P, _P, _P, _P, _P, _I, _I, _LL, _P], _I),
+    "gossip_mix_block_bf16": ([_P, _P, _P, _P, _P, _I, _I, _LL, _P], _I),
+    "gossip_mix_f32": ([_P, _P, _P, _I, _LL, _P], _I),
+    "gossip_mix_bf16": ([_P, _P, _P, _I, _LL, _P], _I),
 }
 SIGNATURES.update({
     "rmsnorm": ([_P, _P, _P, _LL, _I, _F, _I, _I, _P], _I),

@@ -41,7 +41,14 @@ from repro_torch.kernels.compress import (
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-from repro_torch.kernels.gossip_mix import gossip_mix_all, gossip_mix_all_plain
+from repro_torch.kernels.gossip_mix import (
+    gossip_mix,
+    gossip_mix_all,
+    gossip_mix_all_plain,
+    gossip_mix_block,
+    gossip_mix_block_plain,
+    gossip_mix_plain,
+)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 from repro_torch.models import build_model
 from repro_torch.kernels.sdp_proj import (
@@ -242,6 +249,75 @@ def test_fl_wrappers_check_cuda_inputs(cuda):
         topk_mask(X, torch.zeros(4, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         int8_roundtrip(X.T, torch.ones(10, device=cuda))  # rows not contiguous
+
+
+@pytest.mark.parametrize(
+    "m,h,l,dt",
+    [(128, 16, 552714, "f32"), (125, 472, 4097, "f32"), (1, 1, 1, "f32"), (5, 3, 7, "bf16"),
+     (16, 40, 1000, "bf16"), (130, 7, 100, "f32"), (7, 0, 333, "f32"), (33, 9, 2049, "bf16")],
+)
+def test_gossip_mix_block_kernel_on_card(cuda, m, h, l, dt):
+    """One shard's exchange against its plain version; H = 0 hands off to
+    the all-receivers kernel."""
+    r = np.random.default_rng(m + h + l)
+    local, halo = (torch.from_numpy(r.standard_normal(s).astype(np.float32)).to(TORCH_DT[dt])
+                   .to(cuda) for s in ((m, l), (h, l)))
+    wb = r.random((m, m)).astype(np.float32) * (r.random((m, m)) < 0.5)
+    wh = r.random((m, h)).astype(np.float32) * (r.random((m, h)) < 0.3)
+    wb[0], wh[0] = 0.0, 0.0                       # an isolated receiver
+    wb, wh = torch.from_numpy(wb).to(cuda), torch.from_numpy(wh).to(cuda)
+    before = tk.launch_counts()
+    got = gossip_mix_block(local, wb, halo, wh)
+    want = gossip_mix_block_plain(local, wb, halo, wh)
+    torch.cuda.synchronize()
+    assert got.dtype == local.dtype and got.shape == (m, l)
+    assert _rel(got, want) <= (0.05 if dt == "bf16" else 1e-5)
+    assert torch.all(got[0] == 0)
+    after = tk.launch_counts()
+    kernel = "gossip_mix_block" if h else "gossip_mix_all"
+    assert after[kernel] == before[kernel] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    out = torch.full_like(got, float("nan"))
+    assert gossip_mix_block(local, wb, halo, wh, out=out) is out and torch.equal(out, got)
+
+
+@pytest.mark.parametrize(
+    "n,l,dt,offset",
+    [(10, 552714, "f32", 0), (5, 552714, "f32", 0), (1, 1, "f32", 0), (3, 7, "bf16", 0),
+     (8, 4097, "f32", 0), (6, 1000, "bf16", 0), (4, 4096, "f32", 1), (2, 4096, "bf16", 1)],
+)
+def test_gossip_mix_one_kernel_on_card(cuda, n, l, dt, offset):
+    """One receiver's average against its plain version; ``offset`` starts
+    the senders one element into a buffer, so the rows are not 16-byte
+    aligned."""
+    r = np.random.default_rng(n * l + offset)
+    buf = torch.from_numpy(r.standard_normal(n * l + offset).astype(np.float32))
+    X = buf.to(TORCH_DT[dt]).to(cuda)[offset:].view(n, l)
+    w = torch.from_numpy(r.random(n).astype(np.float32)).to(cuda)
+    before = tk.launch_counts()["gossip_mix"]
+    got, want = gossip_mix(X, w), gossip_mix_plain(X, w)
+    torch.cuda.synchronize()
+    assert got.dtype == X.dtype and got.shape == (l,)
+    assert _rel(got, want) <= (0.05 if dt == "bf16" else 1e-5)
+    assert tk.launch_counts()["gossip_mix"] == before + 1
+    out = torch.full_like(got, float("nan"))
+    assert gossip_mix(X, w, out=out) is out and torch.equal(out, got)
+
+
+def test_mix_wrappers_check_cuda_inputs(cuda):
+    X = torch.zeros(4, 10, device=cuda)
+    w, W = torch.ones(4, device=cuda), torch.ones(4, 4, device=cuda)
+    with pytest.raises(ValueError):
+        gossip_mix(X.double(), w.double())            # no float64 kernel
+    with pytest.raises(ValueError):
+        gossip_mix(X.T.contiguous().T, w)             # X not contiguous
+    with pytest.raises(ValueError):
+        gossip_mix(X, w.cpu())                        # two devices
+    halo = torch.zeros(2, 10, device=cuda)
+    with pytest.raises(ValueError):
+        gossip_mix_block(X, W, halo, torch.ones(4, 2, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        gossip_mix_block(X, W, halo.cpu(), torch.ones(4, 2))
 
 
 def _randn(shape, dt, dev, seed):

@@ -408,14 +408,20 @@ def test_trainer_draws_its_own_permutations_from_the_seed():
 
 
 def test_trainer_rejects_what_is_not_ported():
+    """Unknown backends raise ``ValueError``; reference and sharded construct."""
     rng = np.random.default_rng(0)
     tg = t_gossip_task_graph(rng, 3, degree_low=1, degree_high=2)
     shards = image_dataset("mnist", 96, seed=0)[0].split(3, rng)
     init = lambda g: F.init_cnn_params(g, (28, 28, 1))   # noqa: E731
-    for backend, err in (("reference", NotImplementedError), ("sharded", NotImplementedError),
-                         ("pallas", ValueError)):
-        with pytest.raises(err, match="ROADMAP" if err is NotImplementedError else backend):
-            F.GossipTrainer(tg, init, shards, backend=backend, device="cpu")
+    assert F.BACKENDS == ("auto", "reference", "stacked", "sharded")
+    for backend in ("pallas", "meshed", "segment_sum"):
+        with pytest.raises(ValueError, match=backend):
+            F.GossipTrainer(tg, init, shards, F.GossipConfig(batch_size=16), backend=backend,
+                            device="cpu")
+    for backend in ("reference", "sharded", "auto"):
+        tr = F.GossipTrainer(tg, init, shards, F.GossipConfig(batch_size=16, num_shards=2),
+                             backend=backend, device="cpu")
+        assert tr.backend == ("stacked" if backend == "auto" else backend)
     with pytest.raises(ValueError):
         F.GossipTrainer(tg, init, shards, F.GossipConfig(batch_size=64), device="cpu")
     with pytest.raises(ValueError):
@@ -431,4 +437,4 @@ def test_trainer_rejects_what_is_not_ported():
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="permutation table"):
         tr.step_round()                               # epoch 2 of a 1-epoch table
-    assert dataclasses.fields(F.GossipConfig)[-1].name == "backend"
+    assert [f.name for f in dataclasses.fields(F.GossipConfig)][-2:] == ["backend", "num_shards"]

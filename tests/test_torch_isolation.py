@@ -20,6 +20,7 @@ import torch
 
 import repro_torch.core as P
 import repro_torch.fl as FL
+from repro_torch.launch.sharding import UserMesh
 from repro_torch.configs import get_smoke_config
 from repro_torch.data import image_dataset
 from repro_torch.device import resolve_device
@@ -46,7 +47,7 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.shapes, repro_torch.models, repro_torch.configs\n"
         "import repro_torch.models.transformer, repro_torch.launch.serve\n"
         "import repro_torch.kernels.rmsnorm, repro_torch.kernels.flash_attention\n"
-        "import repro_torch.kernels.decode_attention\n"
+        "import repro_torch.kernels.decode_attention, repro_torch.launch.sharding\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'repro'"
         " or m.split('.')[0].startswith('jax'))\n"
         "assert not bad, bad\n"
@@ -88,6 +89,12 @@ def _fl_trainer(tg, cg):
                             FL.GossipConfig(batch_size=8))
 
 
+def _sharded_trainer(tg, cg):
+    shards = image_dataset("mnist", 64, seed=0)[0].split(4, np.random.default_rng(0))
+    return FL.GossipTrainer(tg, lambda g: FL.init_cnn_params(g), shards,
+                            FL.GossipConfig(batch_size=8, num_shards=2), backend="sharded")
+
+
 def _lm():
     return build_model(get_smoke_config("qwen3-8b"))
 
@@ -100,6 +107,8 @@ ENTRY_POINTS = {
         P.build_bqp(tg, cg), tg, cg, np.eye(9)
     ),
     "GossipTrainer": _fl_trainer,
+    "GossipTrainer(sharded)": _sharded_trainer,
+    "UserMesh.build": lambda tg, cg: UserMesh.build(),
     "run_fl": lambda tg, cg: FL.run_fl(
         FL.FLExperiment(num_users=4, num_machines=2, rounds=1, num_samples=64),
         task_graph=tg, compute_graph=cg,

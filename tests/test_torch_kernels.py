@@ -26,7 +26,7 @@ from repro_torch.kernels.bottleneck import bottleneck_eval
 from repro_torch.kernels.compress import int8_roundtrip, topk_mask
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.gossip_mix import gossip_mix_all
+from repro_torch.kernels.gossip_mix import gossip_mix, gossip_mix_all, gossip_mix_block
 from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.sdp_proj import rank_k_update, sdp_subspace
 
@@ -173,6 +173,8 @@ def test_cpu_path_launches_nothing():
     bottleneck_eval(*(torch.from_numpy(x) for x in _bottleneck_inputs(3, 4, 2, 3)))
     X = torch.from_numpy(rng.standard_normal((3, 5)).astype(np.float32))
     gossip_mix_all(X, torch.ones(2, 3))
+    gossip_mix_block(X, torch.ones(3, 3), X[:2], torch.ones(3, 2))
+    gossip_mix(X, torch.ones(3))
     topk_mask(X, torch.ones(3))
     int8_roundtrip(X, torch.ones(3))
     rmsnorm(X, torch.ones(5))
@@ -182,7 +184,8 @@ def test_cpu_path_launches_nothing():
                      torch.tensor([3], dtype=torch.int32))
     assert tk.launch_counts() == {
         "sdp_subspace": 0, "rank_k_update": 0, "bottleneck_eval": 0,
-        "gossip_mix_all": 0, "topk_mask": 0, "int8_roundtrip": 0,
+        "gossip_mix_all": 0, "gossip_mix_block": 0, "gossip_mix": 0,
+        "topk_mask": 0, "int8_roundtrip": 0,
         "rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
     }
 
