@@ -36,7 +36,10 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      plain versions on the card (float32 and bfloat16, ragged S, windows,
      g = 1 and 4, valid_len over 1 … 32,768), and their times at the serve
      path's shapes beside their bounds, the plain versions' and one library
-     call's (``F.rms_norm``, ``F.scaled_dot_product_attention``);
+     call's (``F.rms_norm``, ``F.scaled_dot_product_attention``); the bfloat16
+     flash kernels' registers and spills (``ptxas -v``), a check that their
+     SASS holds wgmma (HGMMA) and TMA loads (UTMALDG), and flash's TFLOP/s
+     on the counted work and on the tensor cores' (1.5×);
  11. LM serve path: qwen3-8b at full width in bfloat16 through
      ``build_model`` and ``repro_torch.launch.serve``: (a) the launcher's
      default request, 8 sequences × 32 greedy tokens with a 256-slot cache;
@@ -702,6 +705,15 @@ def attn_share(got, want) -> float:
     return float(diff.max()) / 2e-5
 
 
+def flash_tflops(S: int, ms: float, H: int = 32, D: int = 128) -> str:
+    """Achieved rates of a causal bfloat16 flash call: on the counted work
+    (4·H·D·S(S+1)/2) and on the tensor cores' work, 1.5× that (the kernel
+    multiplies p·v twice, by p's two bfloat16 halves)."""
+    flops = 4 * H * D * (S * (S + 1) // 2)
+    return (f"{flops / ms / 1e9:.1f} TFLOP/s counted, {1.5 * flops / ms / 1e9:.1f} TFLOP/s on the "
+            f"tensor cores ({1.5 * flops / ms / 1e9 / (BF16_FLOPS / 1e12):.3f} of {BF16_FLOPS / 1e12:.0f})")
+
+
 def library_ms(fn, arg_sets, reps: int):
     """``device_ms`` of a PyTorch library call used only as a yardstick; None
     (with the reason printed) where this PyTorch does not offer the call."""
@@ -712,10 +724,47 @@ def library_ms(fn, arg_sets, reps: int):
         return None
 
 
+def flash_build_lines() -> None:
+    """What the build made of the bfloat16 flash kernels: ``ptxas -v``'s
+    registers, stack and spills, and the SASS opcodes that show the tensor
+    cores (HGMMA, i.e. wgmma) and the TMA loads (UTMALDG) in every one."""
+    import re
+
+    from repro_torch.kernels import build
+
+    cur = None
+    for line in build.ptxas_log("flash_attention").splitlines():
+        m = re.search(r"entry function '(\S*flash_bf16_kernelILi(\d+)E\S*)'", line)
+        if m:
+            cur, spills = f"flash_bf16_kernel<{m.group(2)}>", ""
+        elif "flash_bf16_kernel" in line and "C75" in line:
+            print(f"ptxas flash_attention: {line.split(':', 1)[-1].strip()[:160]}", flush=True)
+        elif cur and "spill" in line:
+            spills = line.strip()
+        elif cur and "Used" in line:
+            print(f"ptxas {cur}: {line.split(':', 1)[-1].strip()} (at launch; the consumer "
+                  f"warpgroups raise theirs to 240 with setmaxnreg); {spills}", flush=True)
+            cur = None
+    sass = subprocess.run([build.tool("cuobjdump"), "-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    found = {}
+    for block in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*flash_bf16_kernelILi(\d+)E", block)
+        if m:
+            found[int(m.group(1))] = {op: len(re.findall(rf"\b{op}\b", block))
+                                      for op in ("HGMMA", "UTMALDG")}
+    print(f"sass flash_bf16_kernel<D>: {found}", flush=True)
+    check(sorted(found) == [16, 32, 64, 128] and all(c["HGMMA"] and c["UTMALDG"]
+                                                     for c in found.values()),
+          f"the bfloat16 flash kernels lack wgmma (HGMMA) or TMA loads (UTMALDG): {found}")
+
+
 def lm_kernel_phase(dev, gen) -> list[dict]:
     """The LM kernels against their plain versions; their times at the serve
     path's shapes (qwen3-8b: d_model 4096, 32 heads, 8 kv heads, head_dim 128)."""
     import torch.nn.functional as F
+
+    flash_build_lines()
 
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
@@ -803,7 +852,7 @@ def lm_kernel_phase(dev, gen) -> list[dict]:
     plain_ms = device_ms(lambda q_, k_, v_: flash_attention_plain(q_, k_, v_), small, 3)
     small_ms = device_ms(lambda q_, k_, v_: flash_attention(q_, k_, v_), small, 10)
     print(f"kernel flash_attention S=4096 bf16: {small_ms * 1e3:.2f} us, plain "
-          f"{plain_ms * 1e3:.2f} us", flush=True)
+          f"{plain_ms * 1e3:.2f} us, {flash_tflops(4096, small_ms)}", flush=True)
     del small
     torch.cuda.empty_cache()
     S = 32768
@@ -835,7 +884,7 @@ def lm_kernel_phase(dev, gen) -> list[dict]:
             q_, k_, v_, is_causal=True, enable_gqa=True), sets, 5),
     )
     print_row(row, f" S={S} causal bf16 (plain time at S=4096)")
-    print(f"kernel flash_attention S={S}: {4 * H * D * pairs / ms / 1e9:.1f} TFLOP/s", flush=True)
+    print(f"kernel flash_attention S={S}: {flash_tflops(S, ms)}", flush=True)
     rows.append(row)
     del sets, q, k, v
     torch.cuda.empty_cache()

@@ -7,8 +7,11 @@ into a shared library with a plain C interface.  The build runs at first
 use, into ``build/repro_torch/<hash>/`` at the root of the checkout, keyed
 by a hash of the sources, headers and flags, so a fresh checkout builds
 everything on its first kernel launch and a later process reuses the
-library.  Nothing outside the checkout is read or written,
-apart from the CUDA toolkit itself.
+library.  ``ptxas -v`` reports each kernel's registers, shared memory and
+spills; the build keeps it beside the library (``ptxas_log``).  Nothing
+outside the checkout is read or written, apart from the CUDA toolkit itself.
+The bfloat16 flash-attention kernel looks up ``cuTensorMapEncodeTiled`` at
+run time (``cudaGetDriverEntryPoint``), so the link needs no ``-lcuda``.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "librepro_torch_kernels.so"
 
 _P = ctypes.c_void_p
@@ -63,15 +66,16 @@ _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None   # wall time of this process's build, if it built
 
 
-def _nvcc() -> str:
+def tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     for cand in (
-        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", name),
+        shutil.which(name),
+        f"/usr/local/cuda/bin/{name}",
     ):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise RuntimeError(f"{name} not found: the CUDA kernels cannot be built or inspected")
 
 
 def sources() -> list[Path]:
@@ -88,7 +92,7 @@ def _digest() -> str:
 
 
 def _build(out: Path) -> None:
-    nvcc = _nvcc()
+    nvcc = tool()
     out.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         procs = []
@@ -105,6 +109,7 @@ def _build(out: Path) -> None:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"{src.name}:\n{log}")
+            (out.parent / f"{src.stem}.ptxas.txt").write_text(log)
         if failed:
             raise RuntimeError("nvcc failed\n" + "\n".join(failed))
         lib = Path(tmp) / LIB_NAME
@@ -117,12 +122,21 @@ def _build(out: Path) -> None:
         os.replace(lib, out)   # atomic: a concurrent build never sees half a file
 
 
+def library_path() -> Path:
+    return BUILD_ROOT / _digest() / LIB_NAME
+
+
+def ptxas_log(stem: str) -> str:
+    """What ``nvcc -Xptxas -v`` printed for ``csrc/<stem>.cu`` in the last build."""
+    return (library_path().parent / f"{stem}.ptxas.txt").read_text()
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, building it first if this hash is new."""
     global _LIB, BUILD_SECONDS
     if _LIB is not None:
         return _LIB
-    path = BUILD_ROOT / _digest() / LIB_NAME
+    path = library_path()
     if not path.exists():
         t0 = time.perf_counter()
         _build(path)

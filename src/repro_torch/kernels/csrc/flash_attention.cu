@@ -15,25 +15,56 @@
 //
 // Bound on an H100: operations.  A causal prefill of S = 32,768 tokens at
 // H = 32, D = 128 is 4·H·D·S²/2 = 8.8 TFLOP a layer for 67 MB of q, k, v and
-// out: 8.9 ms at the card's 989 TFLOP/s of bfloat16 tensor-core work.  This
-// first version multiplies with float32 FMAs (67 TFLOP/s at best, 131 ms a
-// layer), on the tensor cores' inputs converted to float32; the gap to the
-// bound is recorded, and wgmma is later work.
+// out: 8.9 ms at the card's 989 TFLOP/s of bfloat16 tensor-core work.
 //
-// Design: the TPU kernel's kv axis is a sequential grid dimension that
-// carries (m, l, acc) in VMEM between steps.  Blocks on the H100 run in no
-// order, so the kv loop runs inside a block.  Grid (query tiles, B·H), 128
-// threads, tiles of 64 queries × 64 keys; the last query tiles (the most
-// keys under a causal mask) start first.  The block stages its q tile (scaled
-// by 1/√D in float32) and each k and v tile in shared memory as float32,
-// rows padded by 4 floats so that the 16-byte reads of 8 neighbouring rows
-// fall in distinct banks.  Thread (ty, tx) owns query rows 4ty … 4ty+3: it
-// computes their logits against keys tx, tx+8, …, tx+56, reduces the row max
-// and sum over the 8 threads of the row with warp shuffles, and accumulates
-// output columns 4tx … 4tx+3 (+32 j) from v, taking the probabilities of the
-// other 7 threads of its row by shuffle (no shared-memory round trip).  Key
-// tiles wholly above the causal diagonal or outside the window are skipped
-// (their probabilities are exactly 0).  Ragged S is masked, not padded.
+// Two kernels, one per dtype:
+//
+// * bfloat16 (the serving path) runs flash_bf16_kernel on the tensor cores.
+//   A block owns 128 query rows of one (b, h): warpgroups 0 and 1 each take
+//   64 rows and compute, warpgroup 2 loads (one thread issues every copy;
+//   setmaxnreg moves its registers to the other two).  The loader brings the
+//   q tile once and tiles of 64 keys (D = 128) or 128 keys (D ≤ 64) of k and
+//   v into a ring of two stages with TMA (cp.async.bulk.tensor over a 4-D
+//   map (D, S, heads, B) with the view's own strides, 128-byte swizzle, rows
+//   past S read as zeros), each copy completing an mbarrier; consumers hand
+//   a stage back through an "empty" mbarrier.  (At D = 128 a 128-key tile
+//   needs more registers than a consumer has: ptxas spills and serializes
+//   every wgmma.)  Logits s = q kᵀ come from wgmma m64nNk16 with both
+//   operands K-major in shared memory; the 1/√D scale (times log2 e, for ex2) is
+//   applied to the float32 logits.  The online softmax runs on the wgmma
+//   accumulator layout (a row's values sit in the 4 threads of a quad: two
+//   shuffles reduce it); l sums the float32 p.  For p·v the tensor cores need
+//   p in bfloat16, and one rounding of p costs 2.6× the check's bound
+//   (tests/test_torch_lm_kernels.py): so p = p_hi + p_lo with p_hi = bf16(p)
+//   and p_lo = bf16(p − p_hi), both passed as register A fragments (the
+//   accumulator layout is the A-fragment layout, pair by pair) to two wgmma
+//   m64nDk16 against the same v tile, v MN-major through the transpose bit.
+//   The p·v work runs twice: 1.5× the counted operations on the tensor
+//   cores.  Only tiles on the diagonal, at a window's edge or past S
+//   evaluate the mask; tiles wholly above the diagonal or outside the window
+//   are not loaded.  D < 64 is padded to 64 columns in shared memory (the
+//   TMA fills the columns past D with zeros); the q kᵀ loop stops at D.  The
+//   epilogue stages out through shared memory (the block's q tile) and
+//   writes rows < S with 16-byte stores.
+// * float32 runs flash_fwd_kernel, a SIMT kernel of float32 FMAs (67 TFLOP/s
+//   at best).  On the tensor cores float32 would be TF32, about 3 decimal
+//   digits, outside the 2e-5 of the float32 contract; float32 is not the
+//   serving path.  Grid (query tiles, B·H), 128 threads, tiles of 64
+//   queries × 64 keys; the last query tiles (the most keys under a causal
+//   mask) start first.  The block stages its q tile (scaled by 1/√D) and
+//   each k and v tile in shared memory as float32, rows padded by 4 floats
+//   so that the 16-byte reads of 8 neighbouring rows fall in distinct banks.
+//   Thread (ty, tx) owns query rows 4ty … 4ty+3: it computes their logits
+//   against keys tx, tx+8, …, tx+56, reduces the row max and sum over the 8
+//   threads of the row with warp shuffles, and accumulates output columns
+//   4tx … 4tx+3 (+32 j) from v, taking the probabilities of the other 7
+//   threads of its row by shuffle.  Key tiles wholly above the causal
+//   diagonal or outside the window are skipped.  Ragged S is masked, not
+//   padded.
+//
+// Both kernels walk the query tiles heaviest-first under a causal mask.
+
+#include <cuda.h>   // CUtensorMap and its enums (the encoder is found at run time)
 
 #include "lm_common.cuh"
 
@@ -238,15 +269,500 @@ int launch(const void* q, const void* k, const void* v, void* o, const Strides& 
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, const Strides& st, int B,
-             int H, int Hkv, int S, int D, int causal, int window, float scale,
-             cudaStream_t stream) {
+int dispatch_f32(const void* q, const void* k, const void* v, void* o, const Strides& st, int B,
+                 int H, int Hkv, int S, int D, int causal, int window, float scale,
+                 cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 16: return launch<float, 16>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 32: return launch<float, 32>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 64: return launch<float, 64>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 128: return launch<float, 128>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma, TMA and mbarriers
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 128;           // query rows of a block
+constexpr int kStages = 2;           // k/v tiles in flight
+constexpr int kWgThreads = 128;
+constexpr int kLoaderThreads = kWgThreads;     // the loader warpgroup; one thread issues
+constexpr int kBf16Threads = 2 * kWgThreads + kLoaderThreads;
+constexpr int kConsumerRegs = 240;
+constexpr int kLoaderRegs = 24;
+// setmaxnreg moves registers inside the block's allocation: the launch must
+// give each thread at least this many, or the consumers' increase never ends.
+constexpr int kLaunchRegs = (kLoaderThreads * kLoaderRegs + 2 * kWgThreads * kConsumerRegs +
+                             kBf16Threads - 1) / kBf16Threads;
+constexpr long long kWaitCycles = 1ll << 35;    // ~17 s: a wait this long is a fault
+
+// Shared memory: the q tile, then kStages k tiles and kStages v tiles, each
+// stored as NCH slices of 64 columns (128-byte rows, 128-byte swizzle).
+template <int D>
+struct Layout {
+  static constexpr int DP = D < 64 ? 64 : D;   // head dim in shared memory
+  static constexpr int NCH = DP / 64;          // 128-byte column slices of a row
+  static constexpr int BN = D == 128 ? 64 : 128;   // keys of a tile (what the registers hold)
+  static constexpr uint32_t kQSlice = kRows * 128, kKVSlice = BN * 128;
+  static constexpr uint32_t kQTile = NCH * kQSlice, kKVTile = NCH * kKVSlice;
+  static constexpr uint32_t kQ = 0, kK = kQTile, kV = kK + kStages * kKVTile;
+  static constexpr uint32_t kBytes = kV + kStages * kKVTile;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// Wait for the phase of parity `parity` to complete; trap instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > kWaitCycles) __trap();
+}
+
+// One box of a 4-D tensor map -> shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`
+// (byte offsets: lbo between 64-column slices, sbo between 8-row groups).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFFu) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFFu) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Pin the order of register accesses around the asynchronous wgmma: the
+// compiler may not move reads or writes of r across this point.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// p = hi + lo + r with hi = bf16(p), lo = bf16(p − hi), |r| ≤ 2^-17 |p|
+// (kernels/flash_attention.py split_bf16).
+__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
+}
+
+// d (+)= a · bᵀ, m64n64k16: a (64 × 16) and b (64 × 16) K-major in shared memory
+// (descriptors), accumulate unless scale_d is 0.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a · bᵀ, m64n128k16: a (64 × 16) and b (128 × 16) K-major in shared memory
+// (descriptors), accumulate unless scale_d is 0.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += a · b, m64n64k16: a (64 × 16) from registers (the accumulator's own layout,
+// bfloat16 pairs), b (16 × 64) MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+// d += a · b, m64n128k16: a (64 × 16) from registers (the accumulator's own layout,
+// bfloat16 pairs), b (16 × 128) MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+// One row's step of the online softmax over a tile's logits x (log2 units):
+// row I's values are x[4j + 2I + c], spread over the 4 threads of a quad.
+// Updates the running max m and this thread's share l of the row sum; x
+// becomes p = 2^(x − m); returns the factor that rescales the earlier sums.
+template <int BN, int I>
+__device__ __forceinline__ float row_softmax(float (&x)[BN / 2], float& m, float& l) {
+  float mx = kNegInf;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) mx = fmaxf(mx, fmaxf(x[4 * j + 2 * I], x[4 * j + 2 * I + 1]));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+  const float mn = fmaxf(m, mx);
+  const float corr = ex2(m - mn);
+  m = mn;
+  float rs = 0.0f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const float p = ex2(x[4 * j + 2 * I + c] - mn);
+      x[4 * j + 2 * I + c] = p;
+      rs += p;
+    }
+  l = l * corr + rs;
+  return corr;
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 128) wgmma_ss_n128(d, da, db, scale_d);
+  else wgmma_ss_n64(d, da, db, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t db) {
+  if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  else wgmma_rs_n64(d, a, db);
+}
+
+struct OutView {        // out in elements: base pointer and (batch, head, sequence) strides
+  __nv_bfloat16* o;
+  long long ob, oh, os;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, OutView out, int H, int Hkv, int S,
+                  int causal, int window, float scale_log2) {
+  using L = Layout<D>;
+  constexpr int DP = L::DP, BN = L::BN;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];    // q, full k, full v, empty
+  // The swizzled tiles need 1024-byte alignment (the launch adds the slack).
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+  const uint32_t sm = raw + pad;
+  uint8_t* smem = smem_raw + pad;
+  const uint32_t bar_q = (uint32_t)__cvta_generic_to_shared(bars);
+  const uint32_t bar_k = bar_q + 8, bar_v = bar_k + 8 * kStages, bar_e = bar_v + 8 * kStages;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;     // heaviest causal tiles first
+  const int hi = causal ? min(S, q0 + kRows) : S;
+  const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int kt0 = lo / BN, nt = (hi + BN - 1) / BN - kt0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, 2 * kWgThreads / 32);    // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 2 * kWgThreads) {
+    // ---- loader warpgroup: one thread issues every copy ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kLoaderRegs));
+    if (threadIdx.x == 2 * kWgThreads) {
+      mbar_expect_tx(bar_q, L::kQTile);
+#pragma unroll
+      for (int c = 0; c < L::NCH; ++c)
+        tma_load(sm + L::kQ + c * L::kQSlice, &tm_q, bar_q, 64 * c, q0, h, b);
+      for (int it = 0; it < nt; ++it) {
+        const int s = it % kStages;
+        const uint32_t phase = (it / kStages) & 1;
+        const int k0 = (kt0 + it) * BN;
+        const uint32_t kb = sm + L::kK + s * L::kKVTile, vb = sm + L::kV + s * L::kKVTile;
+        mbar_wait(bar_e + 8 * s, phase ^ 1);             // the stage's last use is done
+        mbar_expect_tx(bar_k + 8 * s, L::kKVTile);
+#pragma unroll
+        for (int c = 0; c < L::NCH; ++c)
+          tma_load(kb + c * L::kKVSlice, &tm_k, bar_k + 8 * s, 64 * c, k0, hk, b);
+        mbar_expect_tx(bar_v + 8 * s, L::kKVTile);
+#pragma unroll
+        for (int c = 0; c < L::NCH; ++c)
+          tma_load(vb + c * L::kKVSlice, &tm_v, bar_v + 8 * s, 64 * c, k0, hk, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int wg = threadIdx.x / kWgThreads;
+    const int t = threadIdx.x % kWgThreads, warp = t / 32, lane = t % 32;
+    const int qw0 = q0 + 64 * wg;                     // the warpgroup's first row
+    const int rb = 64 * wg + 16 * warp + lane / 4;    // block row of acc rows i = 0 (and +8)
+    const int cq = 2 * (lane % 4);                    // acc column within each 8-column group
+    const uint32_t qa = sm + L::kQ + 64 * wg * 128;
+
+    float o[DP / 2];
+#pragma unroll
+    for (int e = 0; e < DP / 2; ++e) o[e] = 0.0f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;    // rows rb and rb + 8
+
+    mbar_wait(bar_q, 0);
+    for (int it = 0; it < nt; ++it) {
+      const int s = it % kStages;
+      const uint32_t phase = (it / kStages) & 1;
+      const int k0 = (kt0 + it) * BN;
+      const uint32_t kb = sm + L::kK + s * L::kKVTile, vb = sm + L::kV + s * L::kKVTile;
+
+      // x = q kᵀ over D (K-major operands; a k16 step advances 32 bytes in a slice)
+      float x[BN / 2];
+      mbar_wait(bar_k + 8 * s, phase);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t off = (ks % 4) * 32;
+        wgmma_ss<BN>(x, sw128_desc(qa + (ks / 4) * L::kQSlice + off, 16, 1024),
+                     sw128_desc(kb + (ks / 4) * L::kKVSlice + off, 16, 1024), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(x);
+
+      // online softmax on the accumulator layout: x[4j + 2i + c] is row rb + 8i,
+      // key k0 + 8j + cq + c
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) x[e] *= scale_log2;
+      const bool edge = k0 + BN > S || (causal && k0 + BN - 1 > qw0) ||
+                        (window > 0 && qw0 + 63 - k0 >= window);
+      if (edge) {
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) {
+          const int qpos = q0 + rb + 8 * ((e / 2) % 2);
+          const int kpos = k0 + 8 * (e / 4) + cq + e % 2;
+          const bool keep = kpos < S && (!causal || qpos >= kpos) &&
+                            (window <= 0 || qpos - kpos < window);
+          if (!keep) x[e] = kNegInf;
+        }
+      }
+      const float c0 = row_softmax<BN, 0>(x, m0, l0), c1 = row_softmax<BN, 1>(x, m1, l1);
+#pragma unroll
+      for (int e = 0; e < DP / 2; ++e) o[e] *= (e / 2) % 2 ? c1 : c0;
+
+      // p in bfloat16 halves: A fragment of k-step kk is x[8kk … 8kk+7] in pairs
+      uint32_t ph[BN / 4], pl[BN / 4];
+#pragma unroll
+      for (int e = 0; e < BN / 4; ++e) split_bf16(x[2 * e], x[2 * e + 1], ph[e], pl[e]);
+
+      // o += p_hi v + p_lo v (v MN-major: a k16 step is 16 key rows, 2048 bytes)
+      mbar_wait(bar_v + 8 * s, phase);
+      pin(o);
+      pin(ph);
+      pin(pl);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint64_t dv = sw128_desc(vb + kk * 2048, L::kKVSlice, 1024);
+        wgmma_rs<DP>(o, ph + 4 * kk, dv);
+        wgmma_rs<DP>(o, pl + 4 * kk, dv);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_e + 8 * s);
+    }
+
+    // out = o / max(l, 1e-30) in bfloat16, staged through the warpgroup's own
+    // rows of the q tile (same swizzle), then written row by row in 16 bytes
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+    for (int e = 0; e < DP / 2; e += 2) {
+      const int r = rb + 8 * ((e / 2) % 2), col = 8 * (e / 4) + cq;
+      const uint32_t off = (col / 64) * L::kQSlice + r * 128 +
+                           ((((col % 64) / 8) ^ (r % 8)) * 16) + (col % 8) * 2;
+      const float den = (e / 2) % 2 ? den1 : den0;
+      *reinterpret_cast<uint32_t*>(smem + L::kQ + off) = pack_bf16(o[e] / den, o[e + 1] / den);
+    }
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(kWgThreads) : "memory");
+    __nv_bfloat16* og = out.o + b * out.ob + h * out.oh;
+    constexpr int VPR = D / 8;                        // 16-byte vectors of an output row
+    for (int idx = t; idx < 64 * VPR; idx += kWgThreads) {
+      const int r = 64 * wg + idx / VPR, col = 8 * (idx % VPR);
+      if (q0 + r >= S) continue;
+      const uint32_t off = (col / 64) * L::kQSlice + r * 128 + ((((col % 64) / 8) ^ (r % 8)) * 16);
+      *reinterpret_cast<uint4*>(og + (long long)(q0 + r) * out.os + col) =
+          *reinterpret_cast<const uint4*>(smem + L::kQ + off);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// 4-D map (D, S, heads, B) of a bfloat16 view with element strides
+// (sequence, head, batch); boxes of 64 columns × `rows` rows, 128-byte swizzle.
+bool encode_map(CUtensorMap* map, EncodeTiled encode, const void* base, int D, int S, int heads,
+                int B, long long ss, long long hs, long long bs, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)hs * 2, (cuuint64_t)bs * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, const Strides& st, int B,
+                int H, int Hkv, int S, int causal, int window, float scale, cudaStream_t stream) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tq, tk, tv;
+  constexpr int BN = Layout<D>::BN;
+  if (!encode_map(&tq, encode, q, D, S, H, B, st.qs, st.qh, st.qb, kRows) ||
+      !encode_map(&tk, encode, k, D, S, Hkv, B, st.ks, st.kh, st.kb, BN) ||
+      !encode_map(&tv, encode, v, D, S, Hkv, B, st.vs, st.vh, st.vb, BN))
+    return (int)cudaErrorInvalidValue;
+  constexpr int bytes = (int)Layout<D>::kBytes + 1024;
+  cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, flash_bf16_kernel<D>);
+  if (err != cudaSuccess) return (int)err;
+  if (attr.numRegs < kLaunchRegs) return (int)cudaErrorLaunchOutOfResources;
+  const dim3 grid((unsigned)(B * H), (unsigned)((S + kRows - 1) / kRows));
+  const OutView out{static_cast<__nv_bfloat16*>(o), st.ob, st.oh, st.os};
+  flash_bf16_kernel<D><<<grid, kBf16Threads, bytes, stream>>>(
+      tq, tk, tv, out, H, Hkv, S, causal, window, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_bf16(const void* q, const void* k, const void* v, void* o, const Strides& st, int B,
+                  int H, int Hkv, int S, int D, int causal, int window, float scale,
+                  cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_bf16<16>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 32: return launch_bf16<32>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 64: return launch_bf16<64>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 128: return launch_bf16<128>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -262,8 +778,8 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
                    strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, st, B, H, Hkv, S, D, causal, window, scale, s)
-              : dispatch<float>(q, k, v, o, st, B, H, Hkv, S, D, causal, window, scale, s);
+  return bf16 ? dispatch_bf16(q, k, v, o, st, B, H, Hkv, S, D, causal, window, scale, s)
+              : dispatch_f32(q, k, v, o, st, B, H, Hkv, S, D, causal, window, scale, s);
 }
 
 }  // extern "C"

@@ -9,10 +9,16 @@ is ``(B, H, S, D)`` in q's dtype.
 
 ``flash_attention`` chooses by the tensor's device: on a CUDA tensor it
 launches the hand-written kernel (``csrc/flash_attention.cu``) or raises; on
-a CPU tensor it runs ``flash_attention_plain``.  On the card q, k and v may
-be views with any strides along B, H and S (the model passes its
-``(B, S, H, D)`` activations transposed, without a copy) and the result has
-q's strides.  ``flash_attention.launches`` counts kernel launches.
+a CPU tensor it runs ``flash_attention_plain``.  bfloat16 runs on the tensor
+cores (wgmma, with q, k and v brought in by TMA), float32 on a kernel of
+float32 FMAs.  On the card q, k and v may be views with any strides along
+B, H and S (the model passes its ``(B, S, H, D)`` activations transposed,
+without a copy) and the result has q's strides.
+``flash_attention.launches`` counts kernel launches.
+
+The bfloat16 kernel multiplies the float32 probabilities p by v as two
+bfloat16 halves, ``split_bf16(p)``: one rounding of p to bfloat16 would
+exceed the card checks' bound on the output (tests/test_torch_lm_kernels.py).
 """
 
 from __future__ import annotations
@@ -48,6 +54,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
     return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def split_bf16(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 p as bfloat16 ``hi = bf16(p)`` and ``lo = bf16(p - hi)``, so that
+    ``hi + lo`` is p to within 2^-17 |p|: the two A operands of the bfloat16
+    kernel's p·v products (``split_bf16`` in ``csrc/flash_attention.cu``)."""
+    hi = p.to(torch.bfloat16)
+    return hi, (p - hi.float()).to(torch.bfloat16)
 
 
 def _check(q, k, v, window):

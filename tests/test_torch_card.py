@@ -362,7 +362,12 @@ def test_rmsnorm_kernel_on_card(cuda, r, d, dt, sdt):
     "b,s,h,hkv,d,causal,window,dt",
     [(1, 1000, 32, 8, 128, True, 0, "bf16"), (1, 1000, 4, 4, 128, False, 0, "f32"),
      (2, 300, 8, 2, 64, True, 128, "f32"), (1, 77, 4, 1, 16, True, 0, "bf16"),
-     (1, 2048, 8, 8, 128, True, 512, "bf16"), (2, 129, 6, 2, 32, False, 0, "f32")],
+     (1, 2048, 8, 8, 128, True, 512, "bf16"), (2, 129, 6, 2, 32, False, 0, "f32"),
+     # the bfloat16 tensor-core kernel: every head dim, windows, ragged S, Hkv = 1, B = 2
+     (2, 1000, 8, 2, 64, True, 128, "bf16"), (1, 300, 4, 1, 32, True, 0, "bf16"),
+     (2, 129, 6, 2, 32, False, 0, "bf16"), (1, 1000, 4, 4, 128, False, 300, "bf16"),
+     (2, 77, 4, 1, 64, False, 0, "bf16"), (2, 1000, 8, 1, 128, True, 0, "bf16"),
+     (1, 640, 2, 1, 16, False, 100, "bf16")],
 )
 def test_flash_kernel_on_card(cuda, b, s, h, hkv, d, causal, window, dt):
     """In the model's layout: (B, S, H, D) activations passed as transposed views."""

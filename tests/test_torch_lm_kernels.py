@@ -22,7 +22,11 @@ from repro.kernels.flash_attention import flash_attention_fwd
 from repro.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch import kernels as tk
 from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_plain,
+    split_bf16,
+)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -79,6 +83,52 @@ def test_flash_attention_plain_matches_ref_and_pallas(b, s, h, hkv, d, causal, w
         pallas = flash_attention_fwd(qj, kj, vj, causal=causal, window=window,
                                      block_q=block, block_k=block, interpret=True)
         np.testing.assert_allclose(_np(got), _np(pallas), atol=atol)
+
+
+def _attn_share(got, want) -> float:
+    """chip_smoke.py's bfloat16 measure: the largest share of one bfloat16 ulp
+    of the plain value plus 2^-10 of its row's largest |value| (at most 1 passes)."""
+    diff = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    return float((diff / (w * 2.0 ** -7 + w.amax(-1, keepdim=True) * 2.0 ** -10)).max())
+
+
+def _flash_tiles(q, k, v, split: bool, block: int = 128) -> torch.Tensor:
+    """Causal attention as the bfloat16 card kernel computes it: 128-key tiles,
+    float32 logits scaled by log2(e)/√D, an online softmax in base 2, l summed
+    from the float32 p, and p·v from p in bfloat16 (``split_bf16``'s two halves,
+    or p rounded once)."""
+    s, d = q.shape[-2:]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    m = torch.full((*q.shape[:-1], 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape)
+    qpos = torch.arange(s)[:, None]
+    for k0 in range(0, s, block):
+        x = qf @ kf[..., k0:k0 + block, :].transpose(-1, -2) * (np.log2(np.e) / np.sqrt(d))
+        x = torch.where(qpos >= torch.arange(k0, min(s, k0 + block))[None], x, -1e30)
+        mn = torch.maximum(m, x.amax(-1, keepdim=True))
+        corr, m = torch.exp2(m - mn), mn
+        p = torch.exp2(x - mn)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi, lo = split_bf16(p)
+        vt = vf[..., k0:k0 + block, :]
+        acc = acc * corr + hi.float() @ vt + (lo.float() @ vt if split else 0.0)
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def test_flash_split_p_stays_within_the_card_bound():
+    """Why the bfloat16 kernel splits p: with p = hi + lo its result stays within
+    the card checks' bound of the plain version; with p rounded once it does not."""
+    q, k, v = (torch.from_numpy(_randn(50 + i, 1, 2, 2048, 128)).to(torch.bfloat16)
+               for i in range(3))
+    want = flash_attention_plain(q, k, v, causal=True)
+    p = torch.from_numpy(_randn(53, 4, 64)).softmax(-1)
+    hi, lo = split_bf16(p)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert float((p - hi.float() - lo.float()).abs().max()) <= 2.0 ** -17 * float(p.max())
+    assert _attn_share(_flash_tiles(q, k, v, split=True), want) <= 1
+    assert _attn_share(_flash_tiles(q, k, v, split=False), want) > 1
 
 
 # ---------------------------------------------------------------------------
