@@ -12,6 +12,8 @@ exits non-zero without one.  Phases, each of which fails the run on error:
   2. kernels: each CUDA kernel against its plain PyTorch version on the card
      at the scheduler's shapes (and small ragged/bfloat16 ones), with its
      time, its bound, the plain version's time and one library call's time;
+     ``sdp_subspace`` also warm (one Y in L2, as the DR loop's 5 calls an
+     iteration find it) and twice on the same inputs (bit-equal);
   3. path: ``compare_methods`` on the paper's §4.1.2 instance (N_T = 104
      tasks, N_K = 16 machines, n = 1664) through the port's entry points,
      with the launch counters zeroed just before and read just after, and
@@ -19,10 +21,17 @@ exits non-zero without one.  Phases, each of which fails the run on error:
   4. reference: the 6×3 instance solved on the card against the same solve
      on the CPU and against the exact optimum;
   5. host sync: the device's busy share of a short solve, from a profile;
-  6. FL kernels: the exchange and the two compression kernels against their
-     plain versions at small ragged shapes and at the FL shapes (N_T = 10 and
-     128 users of the CIFAR-10 CNN, L = 552,714), with times and bounds, and
-     the time of the top-k thresholds;
+  6. FL kernels: the float32 exchange's tensor-core kernel's registers and
+     spills (``ptxas -v``) and a check that its SASS holds wgmma (HGMMA);
+     the exchange and the two compression kernels against their plain
+     versions at small ragged shapes and at the FL shapes (N_T = 10 and 128
+     users of the CIFAR-10 CNN, L = 552,714: the exchange also bit-equal on
+     a second call and with an isolated receiver's row exactly zero), with
+     times and bounds (the exchange's at the TF32 tensor-core rate, which
+     leaves it bound by bytes), and the time of the top-k thresholds; then
+     the exchange at phase 15's shape (M = N = 1024, L = 552,714, W streamed)
+     under phase 15's mixing matrix and under dense weights, checked the
+     same way, the dense one also against the float64 product, and timed;
   7. FL path: ``run_fl`` on the paper's §4.2 instance (N_T = 10 users,
      N_K = 4 machines, the CIFAR-10 CNN, TopK(0.05), 3 rounds), given the
      port's ``compare_methods`` schedules, with exact launch counts;
@@ -56,6 +65,7 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      shapes, float32 and bfloat16, the H = 0 hand-off), and their times at
      the sharded path's shape (m = 128, H = 16, L = 552,714), a heavy halo
      (m = 125, H = 472) and the reference path's receivers (5–10 rows);
+     ``gossip_mix_block``'s bound at the TF32 tensor-core rate, as row 4's;
  14. reference path: ``run_fl(backend="reference")`` on phase 7's instance
      and schedules, exact launch counts, losses within relative 1e-4 of
      phase 7's stacked run;
@@ -87,6 +97,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOPS = 67e12              # H100 SXM float32 rate outside the tensor cores
+TF32_FLOPS = 495e12            # H100 SXM dense TF32 tensor-core rate
 BF16_FLOPS = 989e12            # H100 SXM dense bfloat16 tensor-core rate
 MAX_ITERS = 300                # DR budget of the path phase
 FL_ROUNDS = 3                  # rounds of the FL path and of each population run
@@ -213,7 +224,8 @@ def kernel_phase(dev, gen) -> list[dict]:
 
     # correctness at small, ragged and multi-tile shapes, f32 and bf16
     for n, k, dt, tol in [(33, 4, torch.bfloat16, BF16_TOL), (5, 1, torch.bfloat16, BF16_TOL),
-                          (37, 37, torch.float32, F32_TOL), (19, 16, torch.float32, F32_TOL)]:
+                          (37, 37, torch.float32, F32_TOL), (19, 16, torch.float32, F32_TOL),
+                          (257, 17, torch.float32, F32_TOL)]:
         Y, V = sym(n, dt), basis(n, k, dt)
         for g, w in zip(sdp_subspace(Y, V), sdp_subspace_plain(Y, V)):
             check(rel_err(g, w) <= tol, f"sdp_subspace n={n} k={k} {dt}")
@@ -229,6 +241,8 @@ def kernel_phase(dev, gen) -> list[dict]:
     got, want = sdp_subspace(Y, V), sdp_subspace_plain(Y, V)
     errs = [rel_err(g, w) for g, w in zip(got, want)]
     check(max(errs) <= F32_TOL, f"sdp_subspace at n={n}, k={k}: rel errors {errs}")
+    check(all(torch.equal(g, a) for g, a in zip(got, sdp_subspace(Y, V))),
+          f"sdp_subspace at n={n}, k={k}: a second call gives another result")
     b, by = bound_ms(4 * (n * n + n * k) + 4 * (n * k + k * k + 1),
                      2 * n * n * k + 2 * n * k * k + 2 * n * n)
     rows.append(dict(
@@ -239,6 +253,9 @@ def kernel_phase(dev, gen) -> list[dict]:
         ms=device_ms(sdp_subspace, sets), plain_ms=device_ms(sdp_subspace_plain, sets, 50),
         bound_ms=b, bound_by=by, library_ms=None,
     ))
+    warm = device_ms(sdp_subspace, sets[:1])
+    print(f"kernel sdp_subspace n={n} k={k} warm (one Y, in L2): {warm * 1e3:.2f} us; cold "
+          f"{rows[-1]['ms'] * 1e3:.2f} us; bit-equal on a second call", flush=True)
 
     sets = copies(lambda: (sym(n), torch.randn(n, k, generator=gen, device=dev),
                            torch.randn(n, k, generator=gen, device=dev)), n * n * 4)
@@ -417,6 +434,37 @@ def cnn_columns(shape=(32, 32, 3)) -> list[tuple[int, int]]:
     return ParamLayout(init_cnn_params(torch.Generator(), shape)).columns()
 
 
+def mix_build_lines() -> None:
+    """What the build made of the float32 exchange's tensor-core kernel
+    (``mix_tf32_kernel<TM, KS>``, every tile shape): ``ptxas -v``'s registers
+    and spills, and the count of wgmma instructions (HGMMA) in its SASS."""
+    import re
+
+    from repro_torch.kernels import build
+
+    pat = r"mix_tf32_kernelILi(\d+)ELi(\d+)E"
+    cur = spills = None
+    for line in build.ptxas_log("gossip_mix").splitlines():
+        m = re.search(r"entry function '\S*" + pat, line)
+        if m:
+            cur, spills = f"mix_tf32_kernel<{m.group(1)}, {m.group(2)}>", ""
+        elif cur and "spill" in line:
+            spills = line.strip()
+        elif cur and "Used" in line:
+            print(f"ptxas {cur}: {line.split(':', 1)[-1].strip()}; {spills}", flush=True)
+            cur = None
+    sass = subprocess.run([build.tool("cuobjdump"), "-sass", str(build.library_path())],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    found = {}
+    for block in sass.split("Function : ")[1:]:
+        m = re.match(r"\S*" + pat, block)
+        if m:
+            found[(int(m.group(1)), int(m.group(2)))] = len(re.findall(r"\bHGMMA\b", block))
+    print(f"sass mix_tf32_kernel<TM, KS> HGMMA: {found}", flush=True)
+    check(sorted(found) == [(tm, ks) for tm in (16, 32, 64, 128) for ks in (2, 4)] and
+          all(found.values()), f"the float32 exchange kernels lack wgmma (HGMMA): {found}")
+
+
 def fl_kernel_phase(dev, gen) -> tuple[list[dict], list[dict]]:
     """The FL kernels against their plain versions; their times at N_T = 10
     (the path's shapes, for the JSON line) and N_T = 128 (printed)."""
@@ -429,6 +477,8 @@ def fl_kernel_phase(dev, gen) -> tuple[list[dict], list[dict]]:
     from repro_torch.fl.gossip import mixing_arrays
     from repro_torch.kernels.gossip_mix import gossip_mix_all, gossip_mix_all_plain
     from repro_torch.train.compression import int8_scale, topk_count
+
+    mix_build_lines()
 
     def randn(*shape, dt=torch.float32):
         return torch.randn(*shape, generator=gen, device=dev).to(dt)
@@ -445,7 +495,7 @@ def fl_kernel_phase(dev, gen) -> tuple[list[dict], list[dict]]:
 
     for dt in (torch.float32, torch.bfloat16):
         tol = F32_TOL if dt == torch.float32 else BF16_TOL
-        for n in (1, 5, 300):
+        for n in (1, 5, 37, 300):
             for l in (1, 7, 100):
                 X = randn(n, l, dt=dt)
                 W = torch.rand(n, n, generator=gen, device=dev) * (
@@ -456,7 +506,8 @@ def fl_kernel_phase(dev, gen) -> tuple[list[dict], list[dict]]:
                 check(got.dtype == dt and err <= tol and bool(torch.all(got[0] == 0)),
                       f"gossip_mix_all N={n} L={l} {dt}: rel error {err}")
                 check_compress(X, max(1, l // 20), f"N={n} L={l} {dt}")
-        print(f"kernel check FL kernels, N in (1, 5, 300), L in (1, 7, 100), {dt}: ok", flush=True)
+        print(f"kernel check FL kernels, N in (1, 5, 37, 300), L in (1, 7, 100), {dt}: ok",
+              flush=True)
 
     cols = cnn_columns()
     L = cols[-1][1]
@@ -469,7 +520,22 @@ def fl_kernel_phase(dev, gen) -> tuple[list[dict], list[dict]]:
         got, want = gossip_mix_all(X, W), gossip_mix_all_plain(X, W)
         err = rel_err(got, want)
         check(err <= F32_TOL, f"gossip_mix_all at N_T={n_users}: rel error {err}")
-        b, by = bound_ms(4 * (2 * n_users * L + n_users * n_users), 2 * n_users * n_users * L)
+        check(torch.equal(gossip_mix_all(X, W), got),
+              f"gossip_mix_all at N_T={n_users}: a second call gives another result")
+        W0 = W.clone()
+        W0[0] = 0.0                               # an isolated receiver
+        got0 = gossip_mix_all(X, W0)
+        err0 = rel_err(got0, gossip_mix_all_plain(X, W0))
+        check(err0 <= F32_TOL and bool(torch.all(got0[0] == 0)),
+              f"gossip_mix_all at N_T={n_users}, receiver 0 isolated: rel error {err0}")
+        del got0, W0
+        nbytes, flops = 4 * (2 * n_users * L + n_users * n_users), 2 * n_users * n_users * L
+        b, by = bound_ms(nbytes, flops, TF32_FLOPS)
+        b_simt, by_simt = bound_ms(nbytes, flops)
+        print(f"kernel gossip_mix_all N_T={n_users}: bound {b * 1e3:.2f} us ({by}, on the tensor "
+              f"cores), {b_simt * 1e3:.2f} us ({by_simt}, at {F32_FLOPS / 1e12:.0f} TFLOP/s of "
+              "float32 FMA); bit-equal on a second call; an isolated receiver's row is zero",
+              flush=True)
         mix = dict(
             name="gossip_mix_all", route="cuda", source="src/repro_torch/kernels/csrc/gossip_mix.cu",
             replaces="src/repro/kernels/gossip_mix.py:123", max_abs_err=max_abs(got, want),
@@ -534,7 +600,54 @@ def fl_kernel_phase(dev, gen) -> tuple[list[dict], list[dict]]:
         out += [mix, comp["topk_mask"], comp["int8_roundtrip"]]
         del sets, thrs, scales, msg, resid
         torch.cuda.empty_cache()
+    mix_streamed_check(dev, gen, L)
     return rows, population
+
+
+def mix_streamed_check(dev, gen, L: int, n: int = 1024, clusters: int = 16) -> None:
+    """The float32 exchange at phase 15's mesh-1 and stacked shape (M = N =
+    1024, L = 552,714), the one where W streams through the ring beside X
+    (split first by ``split_w_kernel``): against its plain version under
+    phase 15's mixing matrix and under dense weights (every sender in every
+    sum), bit-equal on a second call, an isolated receiver's row exactly zero,
+    and under the dense weights both against the float64 product."""
+    from repro_torch.fl import mixing_arrays
+    from repro_torch.kernels.gossip_mix import gossip_mix_all, gossip_mix_all_plain
+
+    X = torch.randn(n, L, generator=gen, device=dev)
+    sparse = torch.from_numpy(mixing_arrays(cluster_instance(n, clusters), 0.5)[4]).to(dev)
+    dense = torch.rand(n, n, generator=gen, device=dev)
+    dense /= dense.sum(dim=1, keepdim=True)
+    for label, W in (("phase 15's mixing matrix", sparse), ("dense weights", dense)):
+        got, want = gossip_mix_all(X, W), gossip_mix_all_plain(X, W)
+        err, worst = rel_err(got, want), max_abs(got, want)
+        check(err <= F32_TOL, f"gossip_mix_all M=N={n} L={L}, {label}: rel error {err}")
+        check(torch.equal(gossip_mix_all(X, W), got),
+              f"gossip_mix_all M=N={n} L={L}, {label}: a second call gives another result")
+        exact = ""
+        if W is dense:
+            want64 = W.double() @ X.double()
+            exact = (f"; against the float64 product: kernel {rel_err(got, want64):.3e}, plain "
+                     f"{rel_err(want, want64):.3e}")
+            del want64
+        del got, want
+        W0 = W.clone()
+        W0[0] = 0.0                               # an isolated receiver
+        got0 = gossip_mix_all(X, W0)
+        err0 = rel_err(got0, gossip_mix_all_plain(X, W0))
+        check(err0 <= F32_TOL and bool(torch.all(got0[0] == 0)),
+              f"gossip_mix_all M=N={n} L={L}, {label}, receiver 0 isolated: rel error {err0}")
+        del got0, W0
+        torch.cuda.empty_cache()
+        print(f"kernel check gossip_mix_all M=N={n} L={L} (W streamed), {label}: rel error "
+              f"{err:.3e}, max abs err {worst:.3e} (receiver 0 isolated: {err0:.3e}); bit-equal "
+              f"on a second call; the isolated receiver's row is zero{exact}", flush=True)
+    b, by = bound_ms(4 * (2 * n * L + n * n), 2 * n * n * L, TF32_FLOPS)
+    print(f"kernel gossip_mix_all N_T={n}: {device_ms(gossip_mix_all, [(X, sparse)], 5) * 1e3:.2f} "
+          f"us (bound {b * 1e3:.2f} us, {by}), plain "
+          f"{device_ms(gossip_mix_all_plain, [(X, sparse)], 5) * 1e3:.2f} us", flush=True)
+    del X
+    torch.cuda.empty_cache()
 
 
 def fl_path_experiment(backend: str):
@@ -1133,7 +1246,8 @@ def shard_kernel_phase(dev, gen) -> list[dict]:
         want = gossip_mix_block_plain(*sets[0])
         err = rel_err(got, want)
         check(err <= F32_TOL, f"gossip_mix_block m={m} H={h} L={L}: rel error {err}")
-        b, by = bound_ms(4 * (2 * m * L + h * L + m * m + m * h), 2 * m * (m + h) * L)
+        b, by = bound_ms(4 * (2 * m * L + h * L + m * m + m * h), 2 * m * (m + h) * L,
+                         TF32_FLOPS)
         row = dict(
             name="gossip_mix_block", route="cuda",
             source="src/repro_torch/kernels/csrc/gossip_mix.cu",

@@ -44,7 +44,8 @@ SIGNATURES = {
     "rank_k_update_bf16": ([_P, _P, _P, _P, _I, _I, _P], _I),
     "bottleneck_eval_smem_bytes": ([_I, _I], _LL),
     "bottleneck_eval": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "gossip_mix_all_f32": ([_P, _P, _P, _I, _I, _LL, _P], _I),
+    "gossip_mix_all_scratch_floats": ([_I, _I], _LL),
+    "gossip_mix_all_f32": ([_P, _P, _P, _P, _I, _I, _LL, _P], _I),
     "gossip_mix_all_bf16": ([_P, _P, _P, _I, _I, _LL, _P], _I),
     "gossip_mix_block_f32": ([_P, _P, _P, _P, _P, _I, _I, _LL, _P], _I),
     "gossip_mix_block_bf16": ([_P, _P, _P, _P, _P, _I, _I, _LL, _P], _I),

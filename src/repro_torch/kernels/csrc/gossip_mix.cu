@@ -2,7 +2,8 @@
 //
 // 1. gossip_mix_all:   out (M, L) = W (M, N) @ X (N, L)
 //    Replaces src/repro/kernels/gossip_mix.py::gossip_mix_all_fwd (Pallas),
-//    the exchange of every stacked gossip-FL round.
+//    the exchange of every stacked gossip-FL round (and of the sharded
+//    engine's one-shard mesh).
 // 2. gossip_mix_block: out (m, L) = Wb (m, m) @ local (m, L) + Wh (m, H) @ halo (H, L)
 //    Replaces gossip_mix.py::gossip_mix_block_fwd, one shard's exchange in
 //    the mesh-sharded engine: its own slab under the intra-shard block and
@@ -16,34 +17,79 @@
 // float32 and out has the senders' dtype.
 //
 // Bounds on an H100: at the paper's population scale (N = M = 128 users,
-// L = 552,714 CIFAR-10 CNN parameters) kernel 1 is 18.1 GFLOP of float32
-// FMA, 270 us at the card's 67 TFLOP/s outside the tensor cores, against
-// 566 MB moved (169 us at 3.35 TB/s): bound by operations.  Kernel 2 at the
-// sharded path's shape (m = 128, H = 16) is 20.4 GFLOP (304 us) against
-// 601 MB (179 us): bound by operations.  Kernel 3 does 2 flops per 4-byte
-// element: bound by bytes (24 MB, 7 us at N = 10).  The tensor cores are
-// not used: TF32 keeps about three digits, and the exchange must agree with
-// the plain float32 product.
+// L = 552,714 CIFAR-10 CNN parameters) kernel 1 moves 566 MB (169 us at
+// 3.35 TB/s) and does 18.1 GFLOP: on the tensor cores, in three TF32
+// products (54.3 GFLOP at 495 TFLOP/s, 110 us), it is bound by bytes.
+// Kernel 2 at the sharded path's shape (m = 128, H = 16) moves 601 MB (179
+// us) for 20.4 GFLOP (304 us at 67 TFLOP/s of float32 FMA outside the tensor
+// cores).  Kernel 3 does 2 flops per 4-byte element: bound by bytes (24 MB,
+// 7 us at N = 10).
 //
-// Design of kernels 1 and 2: a register-tiled product.  A CTA owns TM
-// receivers × TL columns.  It walks a list of senders, first the N1 rows of
-// X1 under W1's columns and then the N2 rows of X2 under W2's (kernel 1 has
-// N2 = 0; kernel 2 has X1 = local, X2 = halo), KC sender rows at a time,
-// staging each (KC, TL) slab and the matching (TM, KC) block of weights in
-// shared memory, in two buffers: the asynchronous copies (cp.async) of the
-// next chunk are in flight while the current one is multiplied.  So each
-// element of the senders is read from device memory once for all TM
-// receivers, local and halo slab alike (the TPU kernel's one read of each
-// slab per L block; with M > TM the slabs are read once per receiver tile).
-// Each of the 256 threads keeps kRm × RL sums in registers: receivers
-// ty·kRm … ty·kRm + kRm − 1 (weights read as float4 from shared memory),
-// columns tx, tx + TX, … (conflict-free shared-memory reads, coalesced
-// stores).  Any N1, N2 works (the last chunk is zero-filled); the ragged L
-// and M tails are masked, not padded.  The tile shape follows M: small
-// populations take short, wide tiles so that no thread computes only rows
-// that do not exist.  Each sum runs over the sender list in order, one FMA
-// at a time, so the result is the same on every run.  A receiver whose
-// weights are all zero gets a row of zeros.
+// Kernel 1 on float32 senders (mix_tf32_kernel): 3×TF32 on the tensor cores.
+// One TF32 product keeps about three digits (relative error 2.9e-4 against
+// the float32 product, 29× the 1e-5 the exchange is held to); with x = x_hi +
+// x_lo and w = w_hi + w_lo, each half rounded to TF32 (cvt.rna), the three
+// products x_lo·w_hi + x_hi·w_lo + x_hi·w_hi drop only terms below 2^-22 of
+// each product (tests/test_torch_fl_kernels.py models the arithmetic).  The
+// tensor cores' float32 sums do not round to nearest: one accumulator chained
+// over all N senders drifts in proportion to N (relative error against the
+// float64 product 9.1e-7 at N = 128, 7.2e-6 at 1024, 1.4e-5 at 2048, dense
+// weights, on an H100; scripts/mix_variants.py).  So each chunk of 32 senders
+// is summed on the tensor cores from zero, at most 12 chained products, and
+// the chunk sums are added in order with float32 adds, which round to
+// nearest: 2.4e-7–2.8e-7 for N = 128–2048, where the plain float32 product
+// reads 2.0e-7–8.1e-7, at a cost of 0–1.5 % in time.  TF32 wgmma takes B from
+// shared memory only K-major, and X is (N, L) with L contiguous, so the
+// kernel computes the transposed tile outᵀ (TL × TM) = Xᵀ · Wᵀ: A = Xᵀ comes
+// from registers (each thread reads its fragment out of the X slab staged in
+// shared memory and splits it there), B = W's receiver rows is K-major (W is
+// row-major), in the 128-byte swizzled layout that the wgmma descriptors
+// read.  A CTA of two warpgroups owns tiles of TL = 128 columns (64 per
+// warpgroup, wgmma m64nTMk8) × TM receivers (TM = 16, 32, 64 or 128,
+// following M); it walks the senders in chunks of 32 (one 128-byte row of W),
+// each k-step of 8 issuing x_lo·w_hi, x_hi·w_lo, then x_hi·w_hi into the
+// chunk's float32 accumulators (N ≤ 16 takes 2 k-steps a chunk, not 4). wgmma
+// reads W through the async proxy, so every thread fences its writes of W to
+// that proxy (fence.proxy.async) before the barrier that precedes the wgmma:
+// after the split's stores, and after each streamed chunk's cp.async copies
+// (2.4 % of the time at N_T = 128 if issued every chunk). X cannot be loaded
+// by TMA (a row pitch of 4·L bytes is not a multiple of 16 at L = 552,714),
+// so all 256 threads bring X slabs with cp.async (8-byte copies where L is
+// even and X 8-byte aligned, else 4) into a ring of 4 stages, rows padded to
+// 136 floats so that the fragment reads of a warp hit 32 distinct banks.  With
+// M ≤ 128 and N ≤ 128 (N_T = 10 and 128) all of W stays in shared memory (128
+// KB at N = M = 128): each CTA splits it into W_hi and W_lo once, while its
+// first slabs are in flight. Otherwise (N_T = 1024) a first small kernel
+// splits W into the wrapper's scratch, padded with zeros to a multiple of TM
+// rows and 32 columns (the pair counts as one gossip_mix_all launch), and
+// each stage carries its chunk of W_hi and W_lo (16-byte cp.async) beside its
+// slab.  CTAs are persistent: tile t = (column tile t / mt, receiver tile t %
+// mt), CTA b takes tiles b, b + G, …, so the mt CTAs that read one slab run
+// together and L2 serves the repeats.  Every receiver's sum runs over the
+// senders in order, 8 at a time, with no split over senders and no atomics,
+// and the chunk sums in order: the result is the same on every run.  A
+// receiver whose weights are all zero gets exact zeros; ragged L, M and N
+// tails are masked or zero-filled.  Each thread stores its accumulators
+// straight from the wgmma layout (a warp writes 4 rows × 32 contiguous bytes
+// per store).
+//
+// Kernel 1 on bfloat16 senders and kernel 2 (mix_all_kernel): a register-
+// tiled SIMT product.  A CTA owns TM receivers × TL columns.  It walks a
+// list of senders, first the N1 rows of X1 under W1's columns and then the
+// N2 rows of X2 under W2's (kernel 1 has N2 = 0; kernel 2 has X1 = local,
+// X2 = halo), KC sender rows at a time, staging each (KC, TL) slab and the
+// matching (TM, KC) block of weights in shared memory, in two buffers: the
+// asynchronous copies (cp.async) of the next chunk are in flight while the
+// current one is multiplied.  So each element of the senders is read from
+// device memory once for all TM receivers, local and halo slab alike (with
+// M > TM the slabs are read once per receiver tile).  Each of the 256
+// threads keeps kRm × RL sums in registers: receivers ty·kRm … ty·kRm + kRm
+// − 1 (weights read as float4 from shared memory), columns tx, tx + TX, …
+// (conflict-free shared-memory reads, coalesced stores).  Any N1, N2 works
+// (the last chunk is zero-filled); the ragged L and M tails are masked, not
+// padded.  Each sum runs over the sender list in order, one FMA at a time,
+// so the result is the same on every run.  A receiver whose weights are all
+// zero gets a row of zeros.
 //
 // Design of kernel 3: M = 1 would leave most threads of the tiled product
 // idle, so it is a stream of its own.  Each thread owns 4 neighbouring
@@ -55,6 +101,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
 
 namespace {
@@ -215,6 +262,416 @@ int launch_mix(const void* X1, const void* W1, int N1, const void* X2, const voi
   return launch_tile<T, 128, 8, 16>(x1, w1, N1, x2, w2, N2, o, M, L, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 1 on float32 senders: 3×TF32 wgmma (see the note at the top).
+
+namespace tc {
+
+constexpr int kThreads = 256;               // two warpgroups
+constexpr int kKC = 32;                     // senders per chunk: one 128-byte row of W
+constexpr int kTL = 128;                    // columns of X per tile, 64 per warpgroup
+constexpr int kXPitch = kTL + 8;            // floats; ≡ 8 (mod 32): conflict-free fragment reads
+constexpr int kStages = 4;                  // ring of X slabs (and of W chunks when W streams)
+constexpr int kMaxDevices = 64;
+
+// KS k-steps of 8 senders per chunk: 4, or 2 where N ≤ 16 (the slabs are
+// then 16 rows, and the wgmma descriptors read the first 64 bytes of W's rows).
+template <int TM, int KS>
+struct Smem {                               // byte offsets from a 1024-aligned base
+  static constexpr int kWTile = TM * kKC * 4;   // one chunk of W_hi (or W_lo): TM rows × 128 bytes
+  static constexpr int kWSlot = 2 * kWTile;     // W_hi, then W_lo
+  static constexpr int kX = kStages * kWSlot;   // kStages W slots: the ring, or ≤ kStages resident chunks
+  static constexpr int kXStage = 8 * KS * kXPitch * 4;   // bytes of one slab
+  static constexpr int kBytes = kX + kStages * kXStage;
+};
+
+int tile_m(int M) { return M <= 16 ? 16 : M <= 32 ? 32 : M <= 64 ? 64 : 128; }
+int chunks(int N) { return N > kKC ? (N + kKC - 1) / kKC : 1; }
+// All of W for one receiver tile stays in shared memory, split by the kernel itself.
+bool resident(int M, int N) { return M <= 128 && chunks(N) <= kStages; }
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + r, hi and lo TF32 (low 13 bits zero), |r| ≤ 2^-22 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// W (M, N) -> W_hi, W_lo (Mp, Np), zeros outside W.
+__global__ void split_w_kernel(const float* __restrict__ W, float* __restrict__ hi,
+                               float* __restrict__ lo, int M, int N, int Np, long long count) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const int m = (int)(i / Np), n = (int)(i % Np);
+  uint32_t h, l;
+  split_tf32(m < M && n < N ? W[(size_t)m * N + n] : 0.0f, h, l);
+  hi[i] = __uint_as_float(h);
+  lo[i] = __uint_as_float(l);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+// 4- or 8-byte copy; zero-fills when !pred.
+template <int B>
+__device__ __forceinline__ void cp_async_small(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(B),
+               "r"(pred ? B : 0));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Senders n0 … n0 + R − 1 at columns l0 … l0 + 127 -> one slab (rows of kXPitch floats).
+template <int R>
+__device__ __forceinline__ void load_x(uint32_t xs, const float* X, int N, long long L, int n0,
+                                       long long l0, bool vec, int tid) {
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < R * kTL / 2 / kThreads; ++j) {
+      const int e = tid + j * kThreads;
+      const int r = e / (kTL / 2), c = 2 * (e % (kTL / 2));
+      const bool ok = n0 + r < N && l0 + c < L;      // L even: the pair is whole
+      cp_async_small<8>(xs + 4 * (r * kXPitch + c), ok ? X + (size_t)(n0 + r) * L + l0 + c : X,
+                        ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int j = 0; j < R * kTL / kThreads; ++j) {
+      const int e = tid + j * kThreads;
+      const int r = e / kTL, c = e % kTL;
+      const bool ok = n0 + r < N && l0 + c < L;
+      cp_async_small<4>(xs + 4 * (r * kXPitch + c), ok ? X + (size_t)(n0 + r) * L + l0 + c : X,
+                        ok);
+    }
+  }
+}
+
+// Byte offset of W[r][q] (q < 32) in a chunk tile: each row's 128 bytes in the
+// 128-byte swizzle, 16-byte piece q / 4 of row r at (q / 4) ^ (r % 8).
+__device__ __forceinline__ uint32_t w_offset(int r, int q) {
+  return r * 128 + (((q >> 2) ^ (r & 7)) << 4) + 4 * (q & 3);
+}
+
+// Chunk c of the split W_hi and W_lo (scratch, pitch Np) for receivers m0 …
+// m0 + TM − 1 -> one slot.
+template <int TM>
+__device__ __forceinline__ void load_w(uint32_t slot, const float* Whi, const float* Wlo, int Np,
+                                       int m0, int c, int tid) {
+#pragma unroll
+  for (int j = 0; j < (2 * TM * 8 + kThreads - 1) / kThreads; ++j) {
+    const int e = tid + j * kThreads;
+    if (e < 2 * TM * 8) {
+      const int part = e / (TM * 8), r = (e / 8) % TM, q = e % 8;
+      cp_async16(slot + part * TM * kKC * 4 + w_offset(r, 4 * q),
+                 (part ? Wlo : Whi) + (size_t)(m0 + r) * Np + c * kKC + 4 * q);
+    }
+  }
+}
+
+// All nc chunks of W (M ≤ TM receivers) split into TF32 halves -> slots 0 …
+// nc − 1, zeros outside W.
+template <int TM>
+__device__ __forceinline__ void split_w_resident(uint8_t* wsm, const float* W, int M, int N,
+                                                 int nc, int tid) {
+  for (int e = tid; e < nc * TM * kKC; e += kThreads) {
+    const int c = e / (TM * kKC), r = (e / kKC) % TM, q = e % kKC, n = c * kKC + q;
+    uint32_t h, l;
+    split_tf32(r < M && n < N ? __ldg(W + (size_t)r * N + n) : 0.0f, h, l);
+    uint8_t* at = wsm + c * 2 * TM * kKC * 4 + w_offset(r, q);
+    *reinterpret_cast<uint32_t*>(at) = h;
+    *reinterpret_cast<uint32_t*>(at + TM * kKC * 4) = l;
+  }
+}
+
+// wgmma shared-memory descriptor of a K-major, 128-byte-swizzled operand at
+// `addr` (8-row groups 1024 bytes apart).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
+         1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Pin the order of register accesses around the asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d = a · b (add = 0) or d += a · b (add = 1), m64nNk8 in TF32: a (64 × 8)
+// from registers (thread (warp w, lane 4g + t) holds rows 16w + g, 16w + g +
+// 8 at columns t and t + 4), b (8 × N) K-major in shared memory.
+
+__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                               int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(add));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                               int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(add));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                               int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(add));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                               int add) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(add));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                           int add) {
+  if constexpr (N == 16) wgmma_tf32_n16(d, a, b, add);
+  else if constexpr (N == 32) wgmma_tf32_n32(d, a, b, add);
+  else if constexpr (N == 64) wgmma_tf32_n64(d, a, b, add);
+  else wgmma_tf32_n128(d, a, b, add);
+}
+
+template <int TM, int KS>
+__global__ void __launch_bounds__(kThreads, 1)
+mix_tf32_kernel(const float* __restrict__ X, const float* __restrict__ W,
+                const float* __restrict__ Whi, const float* __restrict__ Wlo,
+                float* __restrict__ out, int M, int N, long long L, int Np, int vec,
+                int resident) {
+  using S = Smem<TM, KS>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* sm = smem_raw + (base - raw);
+  const float* xsm = reinterpret_cast<const float*>(sm + S::kX);
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int t = lane % 4;
+  const int lrow = 64 * wg + 16 * warp + lane / 4;   // this thread's columns: lrow, lrow + 8
+
+  const int nc = (Np + kKC - 1) / kKC;
+  const int mt = (M + TM - 1) / TM;
+  const long long ntiles = (L + kTL - 1) / kTL * mt;
+  if (blockIdx.x >= ntiles) return;
+  const long long total = ((ntiles - 1 - blockIdx.x) / gridDim.x + 1) * nc;
+
+  // The loader runs kStages − 1 iterations ahead of the multiply.
+  long long ld_tile = blockIdx.x, ld_it = 0;
+  int ld_c = 0, ld_s = 0;
+  auto load_next = [&]() {
+    if (ld_it < total) {
+      load_x<8 * KS>(base + S::kX + ld_s * S::kXStage, X, N, L, ld_c * kKC, ld_tile / mt * kTL,
+                     vec != 0, tid);
+      if (!resident)
+        load_w<TM>(base + ld_s * S::kWSlot, Whi, Wlo, Np, (int)(ld_tile % mt) * TM, ld_c, tid);
+      if (++ld_c == nc) {
+        ld_c = 0;
+        ld_tile += gridDim.x;
+      }
+      ld_s = ld_s + 1 == kStages ? 0 : ld_s + 1;
+    }
+    ++ld_it;
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  for (int s = 0; s < kStages - 1; ++s) load_next();
+  // one receiver tile, nc ≤ kStages: all of W, split here once (the first
+  // iteration's proxy fence and barrier publish it to wgmma)
+  if (resident) split_w_resident<TM>(sm, W, M, N, nc, tid);
+
+  float acc[TM / 2], part[TM / 2];           // the tile's sum; one chunk's, on the tensor cores
+#pragma unroll
+  for (int i = 0; i < TM / 2; ++i) acc[i] = part[i] = 0.0f;
+  long long tile = blockIdx.x;
+  int c = 0, s = 0;
+  for (long long it = 0; it < total; ++it) {
+    cp_async_wait<kStages - 2>();            // this thread's copies of iteration it have landed
+    // wgmma reads W through the async proxy: order this thread's generic
+    // writes of it (the cp.async copies of a streamed chunk, or
+    // split_w_resident's stores before the first iteration) ahead of those
+    // reads.  X goes to registers by ordinary loads and needs no fence.
+    if (!resident || it == 0)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();                         // everyone's; and stage it − 1 is no longer read
+    load_next();
+
+    // A fragments of the chunk's KS k-steps, split into TF32 halves
+    const float* xs = xsm + s * (S::kXStage / 4) + lrow;
+    uint32_t ah[KS][4], al[KS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const float* r0 = xs + (8 * ks + t) * kXPitch;
+      const float* r1 = r0 + 4 * kXPitch;
+      split_tf32(r0[0], ah[ks][0], al[ks][0]);
+      split_tf32(r0[8], ah[ks][1], al[ks][1]);
+      split_tf32(r1[0], ah[ks][2], al[ks][2]);
+      split_tf32(r1[8], ah[ks][3], al[ks][3]);
+    }
+    const uint32_t wslot = base + (resident ? c : s) * S::kWSlot;
+    pin(part);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {        // a k-step is 8 senders, 32 bytes of a W row
+      const uint64_t bh = sw128_desc(wslot + 32 * ks);
+      const uint64_t bl = sw128_desc(wslot + S::kWTile + 32 * ks);
+      wgmma_tf32<TM>(part, al[ks], bh, ks > 0);   // x_lo · w_hi (the chunk's first: part =)
+      wgmma_tf32<TM>(part, ah[ks], bl, 1);        // x_hi · w_lo
+      wgmma_tf32<TM>(part, ah[ks], bh, 1);        // x_hi · w_hi
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    pin(part);
+#pragma unroll
+    for (int i = 0; i < TM / 2; ++i) acc[i] += part[i];   // chunk by chunk, in order
+
+    if (++c == nc) {                         // the tile's last chunk: store, start the next
+      // acc[4j + 2i + h] is column lrow + 8i, receiver 8j + 2t + h of the tile
+      const long long l = tile / mt * kTL + lrow;
+      const int m0 = (int)(tile % mt) * TM + 2 * t;
+#pragma unroll
+      for (int j = 0; j < TM / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = m0 + 8 * j + h;
+            if (m < M && l + 8 * i < L) out[(size_t)m * L + l + 8 * i] = acc[4 * j + 2 * i + h];
+          }
+#pragma unroll
+      for (int i = 0; i < TM / 2; ++i) acc[i] = 0.0f;
+      c = 0;
+      tile += gridDim.x;
+    }
+    s = s + 1 == kStages ? 0 : s + 1;
+  }
+  cp_async_wait<0>();
+}
+
+template <int TM, int KS>
+int launch_tm(const float* X, const float* W, float* out, float* scratch, int M, int N,
+              long long L, cudaStream_t stream) {
+  constexpr int kSmem = Smem<TM, KS>::kBytes + 1024;   // + slack for the 1024-byte alignment
+  static int occupancy[kMaxDevices];                   // CTAs per SM, per device; 0 = not asked
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (occupancy[dev] == 0) {
+    err = cudaFuncSetAttribute(mix_tf32_kernel<TM, KS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[dev], mix_tf32_kernel<TM, KS>,
+                                                          kThreads, kSmem);
+    if (err != cudaSuccess) return (int)err;
+    if (occupancy[dev] < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+
+  const int mt = (M + TM - 1) / TM, nc = chunks(N), Np = nc * kKC;
+  const bool res = resident(M, N);
+  float* hi = scratch;
+  float* lo = scratch + (long long)mt * TM * Np;
+  if (!res) {                                // W streams: split it once into the scratch
+    const long long count = (long long)mt * TM * Np;
+    split_w_kernel<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(W, hi, lo, M, N, Np,
+                                                                        count);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+
+  const long long ntiles = (L + kTL - 1) / kTL * mt;
+  const long long slots = (long long)sms * occupancy[dev];
+  const unsigned grid = (unsigned)(ntiles < slots ? ntiles : slots);
+  const int vec = L % 2 == 0 && (size_t)X % 8 == 0;
+  mix_tf32_kernel<TM, KS><<<grid, kThreads, kSmem, stream>>>(X, W, hi, lo, out, M, N, L, Np, vec,
+                                                             res);
+  return (int)cudaGetLastError();
+}
+
+long long scratch_floats(int M, int N) {
+  const int TM = tile_m(M);
+  return resident(M, N) ? 0 : 2LL * ((M + TM - 1) / TM) * TM * chunks(N) * kKC;
+}
+
+template <int KS>
+int launch_ks(const float* x, const float* w, float* o, float* sc, int M, int N, long long L,
+              cudaStream_t s) {
+  switch (tile_m(M)) {
+    case 16: return launch_tm<16, KS>(x, w, o, sc, M, N, L, s);
+    case 32: return launch_tm<32, KS>(x, w, o, sc, M, N, L, s);
+    case 64: return launch_tm<64, KS>(x, w, o, sc, M, N, L, s);
+    default: return launch_tm<128, KS>(x, w, o, sc, M, N, L, s);
+  }
+}
+
+int launch(const void* X, const void* W, void* out, void* scratch, int M, int N, long long L,
+           void* stream) {
+  const float* x = static_cast<const float*>(X);
+  const float* w = static_cast<const float*>(W);
+  float* o = static_cast<float*>(out);
+  float* sc = static_cast<float*>(scratch);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return N <= 16 ? launch_ks<2>(x, w, o, sc, M, N, L, s) : launch_ks<4>(x, w, o, sc, M, N, L, s);
+}
+
+}  // namespace tc
+
 constexpr int kColsPerThread = 4;
 
 template <typename T> struct Vec4;
@@ -278,9 +735,13 @@ int launch_one(const void* X, const void* w, void* out, int N, long long L, void
 
 extern "C" {
 
-int gossip_mix_all_f32(const void* X, const void* W, void* out, int M, int N, long long L,
-                       void* stream) {
-  return launch_mix<float>(X, W, N, X, W, 0, out, M, L, stream);
+// Float32 words of scratch that gossip_mix_all_f32 needs: W_hi and W_lo,
+// padded to whole receiver tiles and 32-sender chunks.
+long long gossip_mix_all_scratch_floats(int M, int N) { return tc::scratch_floats(M, N); }
+
+int gossip_mix_all_f32(const void* X, const void* W, void* out, void* scratch, int M, int N,
+                       long long L, void* stream) {
+  return tc::launch(X, W, out, scratch, M, N, L, stream);
 }
 
 int gossip_mix_all_bf16(const void* X, const void* W, void* out, int M, int N, long long L,

@@ -6,15 +6,36 @@
 // sdp_subspace: one stream of the symmetric iterate Y (n, n) gives
 //   YV = Y V (n, k), G = Vᵀ Y V (k, k) and ss = ΣY².
 //   Bound on an H100: bytes.  At the solver's shapes (n = 1665, k = 16) it
-//   must read Y once (11.1 MB, ~3.3 us at 3.35 TB/s) and does ~2nk flops per
-//   byte pair, far below the card's balance.  Design: each CTA owns kRows
-//   rows of Y and streams them once in kChunk-column slabs through shared
-//   memory; V's matching slab (k <= kCols: all of V, read from L2) sits beside
-//   it.  The CTA writes its YV rows, a partial G (its V rows ᵀ · its YV rows)
-//   and a partial ΣY² to scratch; a second small kernel sums the partials in
-//   block order.  No float atomics, so the result is the same on every run.
-//   k > kCols tiles the V columns over blockIdx.y (Y is then read once per
-//   tile: the solver's k = 16 is one tile).
+//   must read Y once (11.1 MB, ~3.3 us at 3.35 TB/s); 2·n²·k = 88.7 MFLOP is
+//   1.3 us at 67 TFLOP/s, so float32 FMAs (not the tensor cores) are the
+//   right unit.  Design: two kernels, no float atomics.
+//   * subspace_part_kernel splits Y over row blocks of 32 rows AND column
+//     splits of 256 columns (grid: 7 splits × 53 row blocks = 371 CTAs at n =
+//     1665, one wave at 3 CTAs an SM), so that every SM has many loads in
+//     flight.  Each CTA issues all its copies up front with cp.async (4-byte
+//     copies: n is odd, so rows are only 4-byte aligned, which rules out
+//     vector loads and TMA; the copies hold no registers), in two commit
+//     groups: the split's 256 × 16 slab of V with rows 0-15 of its Y tile,
+//     then rows 16-31, and multiplies the first while the second is in
+//     flight.  Warp w takes rows 2w and 2w + 1 of a group; lane j reads
+//     columns j, j + 32, …, j + 224 of the tile and V's rows there (rows
+//     padded to 20 floats: a quarter-warp's 16-byte reads hit distinct banks)
+//     and accumulates its 2 × 16 partial dot products in order; a butterfly
+//     over the warp (16 + 8 + 4 + 2 + 1 shuffles) leaves lane q with the sum
+//     for row q / 16, column q % 16.  The CTA writes its partial YV rows and
+//     its partial ΣY² to scratch.  (Row blocks of 16 to 64 rows, 2 or 4 rows
+//     a warp, all take 18.5-21.5 us for the pair of kernels on an H100: the
+//     time is latency, not bytes or FMAs.)
+//   * subspace_finish_kernel, one CTA per 64 rows: sums the splits' partial YV
+//     in split order (YV) and forms its rows' partial G = V[rows]ᵀ YV[rows] in
+//     shared memory; the last CTA to arrive (a ticket counter that the first
+//     kernel zeroes, __threadfence before the ticket) sums the partial G in
+//     block order, and ΣY² over the first kernel's blocks.  Each of these sums
+//     keeps 8-32 loads in flight: they are chains of L2 round trips.
+//   Every sum runs in a fixed order, so the result is the same on every run.
+//   k > 16 tiles the V columns over blockIdx.z of the first kernel (Y is then
+//   read once per tile: the solver's k = 16 is one tile) and over a loop in
+//   the second.
 //
 // rank_k_update: out = Y − A Bᵀ without building the (n, n) outer product.
 //   Bound: bytes (read Y and write out: 22.2 MB at n = 1665, ~6.6 us).
@@ -33,10 +54,19 @@
 
 namespace {
 
-constexpr int kRows = 16;              // rows of Y per CTA
-constexpr int kCols = 16;              // columns of V per CTA
-constexpr int kChunk = 64;             // columns of Y per shared-memory slab
-constexpr int kThreads = kRows * kCols;
+constexpr int kRows = 16;              // rows of Y per group: 2 per warp
+constexpr int kCols = 16;              // columns of V per tile
+constexpr int kLanes = 32;
+constexpr int kPerLane = 8;            // columns of Y per lane and row
+constexpr int kSplit = kLanes * kPerLane;   // columns of Y per CTA
+constexpr int kVPitch = kCols + 4;     // floats per V row in shared memory
+constexpr int kThreads = 256;
+constexpr int kGroups = 2;             // groups of kRows rows per CTA, each its own copy group
+static_assert(kGroups == 2, "subspace_part_kernel waits for two copy groups");
+constexpr int kPartRows = kRows * kGroups;
+constexpr int kPartSmem = (kSplit * kVPitch + kPartRows * kSplit) * 4;   // V slab, Y tile
+constexpr int kFinRows = 64;           // rows per block of the finishing kernel
+constexpr int kMaxDevices = 64;
 
 constexpr int kTileR = 32;             // rank-k output tile rows
 constexpr int kTileC = 64;             // rank-k output tile columns
@@ -54,83 +84,228 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);
 }
 
+// One butterfly level over the warp: 2H sums per lane -> H, the lanes with
+// bit `o` set keeping the upper half.
+template <int H>
+__device__ __forceinline__ void fold(float (&a)[2 * kCols], int lane, int o) {
+  const bool up = lane & o;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float give = up ? a[i] : a[i + H];
+    a[i] = (up ? a[i + H] : a[i]) + __shfl_xor_sync(0xffffffffu, give, o);
+  }
+}
+
+// 4-byte asynchronous copy global -> shared; zero-fills when !pred.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+// dst = src[i] (0 where !ok): an asynchronous copy for float32, a load and
+// a conversion for bfloat16.
+__device__ __forceinline__ void stage(float* dst, const float* src, size_t i, bool ok) {
+  cp_async4(dst, ok ? src + i : src, ok);
+}
+__device__ __forceinline__ void stage(float* dst, const __nv_bfloat16* src, size_t i, bool ok) {
+  *dst = ok ? __bfloat162float(src[i]) : 0.f;
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Partial YV of rows r0 … r0 + 31 over columns c0 … c0 + kSplit − 1 (one
+// split) for V columns j0 … j0 + 15, and (blockIdx.z == 0) the block's ΣY².
+// Every copy is issued up front: the V slab with the first 16 rows of Y, then
+// rows 16-31, groups that are waited for in turn.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-subspace_rows_kernel(const T* __restrict__ Y, const T* __restrict__ V,
-                     float* __restrict__ YV, float* __restrict__ Gp,
-                     float* __restrict__ ssp, int n, int k) {
-  __shared__ float ys[kRows][kChunk + 1];
-  __shared__ float vs[kChunk][kCols + 1];
-  __shared__ float yvs[kRows][kCols];
-  __shared__ float red[kThreads];
+subspace_part_kernel(const T* __restrict__ Y, const T* __restrict__ V, float* __restrict__ YVp,
+                     float* __restrict__ ssp, unsigned* __restrict__ ticket, int n, int k) {
+  extern __shared__ float4 part_smem[];
+  auto vs = reinterpret_cast<float (*)[kVPitch]>(part_smem);
+  auto ys = reinterpret_cast<float (*)[kSplit]>(reinterpret_cast<float*>(part_smem) +
+                                                kSplit * kVPitch);
+  __shared__ float wss[kThreads / kLanes];
 
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * kRows;
-  const int j0 = blockIdx.y * kCols;
-  const int r = tid / kCols;
-  const int j = tid % kCols;
-  float acc = 0.f;
+  const int tid = threadIdx.x, lane = tid % kLanes, warp = tid / kLanes;
+  const int split = blockIdx.x, c0 = split * kSplit;
+  const int r0 = blockIdx.y * kPartRows;
+  const int j0 = blockIdx.z * kCols;
+  if (tid == 0 && split == 0 && blockIdx.y == 0 && blockIdx.z == 0) *ticket = 0u;
+
+#pragma unroll
+  for (int q = 0; q < kSplit * kCols / kThreads; ++q) {
+    const int e = tid + q * kThreads, cc = e / kCols, jj = e % kCols;
+    const int c = c0 + cc, j = j0 + jj;
+    stage(&vs[cc][jj], V, (size_t)c * k + j, c < n && j < k);
+  }
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+#pragma unroll 8
+    for (int q = 0; q < kRows * kSplit / kThreads; ++q) {
+      const int e = tid + q * kThreads, rr = g * kRows + e / kSplit, cc = e % kSplit;
+      const int r = r0 + rr, c = c0 + cc;
+      stage(&ys[rr][cc], Y, (size_t)r * n + c, r < n && c < n);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+
   float ss = 0.f;
-
-  for (int c0 = 0; c0 < n; c0 += kChunk) {
-    for (int idx = tid; idx < kRows * kChunk; idx += kThreads) {
-      const int rr = idx / kChunk, cc = idx % kChunk;
-      const int gr = r0 + rr, gc = c0 + cc;
-      const float y = (gr < n && gc < n) ? to_f32(Y[(size_t)gr * n + gc]) : 0.f;
-      ys[rr][cc] = y;
-      ss = fmaf(y, y, ss);
-    }
-    for (int idx = tid; idx < kChunk * kCols; idx += kThreads) {
-      const int cc = idx / kCols, jj = idx % kCols;
-      const int gc = c0 + cc, gj = j0 + jj;
-      vs[cc][jj] = (gc < n && gj < k) ? to_f32(V[(size_t)gc * k + gj]) : 0.f;
-    }
+#pragma unroll
+  for (int g = 0; g < kGroups; ++g) {
+    if (g == 0) cp_async_wait<kGroups - 1>();
+    else cp_async_wait<0>();
     __syncthreads();
-#pragma unroll 16
-    for (int cc = 0; cc < kChunk; ++cc) acc = fmaf(ys[r][cc], vs[cc][j], acc);
-    __syncthreads();
+    // warp w: rows g·16 + 2w, + 1 of the block; lane: columns lane + 32 i
+    const float* y0 = ys[g * kRows + 2 * warp] + lane;
+    float acc[2 * kCols];
+#pragma unroll
+    for (int q = 0; q < 2 * kCols; ++q) acc[q] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const float y[2] = {y0[kLanes * i], y0[kSplit + kLanes * i]};
+      const float4* v4 = reinterpret_cast<const float4*>(vs[lane + kLanes * i]);
+#pragma unroll
+      for (int q = 0; q < kCols / 4; ++q) {
+        const float4 v = v4[q];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float* a = acc + rr * kCols + 4 * q;
+          a[0] = fmaf(y[rr], v.x, a[0]);
+          a[1] = fmaf(y[rr], v.y, a[1]);
+          a[2] = fmaf(y[rr], v.z, a[2]);
+          a[3] = fmaf(y[rr], v.w, a[3]);
+        }
+      }
+      ss = fmaf(y[0], y[0], ss);
+      ss = fmaf(y[1], y[1], ss);
+    }
+    // lane q ends with the sum for row g·16 + 2w + q / 16, column j0 + q % 16
+    fold<16>(acc, lane, 16);
+    fold<8>(acc, lane, 8);
+    fold<4>(acc, lane, 4);
+    fold<2>(acc, lane, 2);
+    fold<1>(acc, lane, 1);
+    const int r = r0 + g * kRows + 2 * warp + lane / kCols, j = j0 + lane % kCols;
+    if (r < n && j < k) YVp[((size_t)split * n + r) * k + j] = acc[0];
   }
 
-  const int gr = r0 + r, gj = j0 + j;
-  yvs[r][j] = acc;  // zero outside Y and V: their slabs were zero-filled
-  if (gr < n && gj < k) YV[(size_t)gr * k + gj] = acc;
-  red[tid] = ss;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
+  if (blockIdx.z == 0) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    if (lane == 0) wss[warp] = ss;
     __syncthreads();
-  }
-  if (tid == 0 && blockIdx.y == 0) ssp[blockIdx.x] = red[0];
-
-  // Partial G[i, gj] = Σ_{rows of this CTA} V[row, i] · YV[row, gj], all i < k.
-  const int rows_here = min(kRows, n - r0);
-  for (int i0 = 0; i0 < k; i0 += kThreads / kCols) {
-    const int i = i0 + tid / kCols;
-    if (i < k && gj < k) {
-      float g = 0.f;
-      for (int rr = 0; rr < rows_here; ++rr)
-        g = fmaf(to_f32(V[(size_t)(r0 + rr) * k + i]), yvs[rr][j], g);
-      Gp[((size_t)blockIdx.x * k + i) * k + gj] = g;
+    if (tid == 0) {
+      float t = 0.f;
+      for (int w = 0; w < kThreads / kLanes; ++w) t += wss[w];
+      ssp[(size_t)blockIdx.y * gridDim.x + split] = t;
     }
   }
 }
 
-// Sums the per-CTA partials in block order: deterministic G and ΣY².
-__global__ void subspace_reduce_kernel(const float* __restrict__ Gp,
-                                       const float* __restrict__ ssp,
-                                       float* __restrict__ G, float* __restrict__ ss,
-                                       int nb, int k) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t kk = (size_t)k * k;
-  if (idx < kk) {
-    float g = 0.f;
-    for (int b = 0; b < nb; ++b) g += Gp[(size_t)b * kk + idx];
-    G[idx] = g;
+// t[i] = Σ_{q < count} p[i · rstride + q · stride] for i < rows (0 for the
+// rest), each added in order q = 0, 1, …; B loads of each are in flight
+// together (L2 reads: another block wrote them).
+template <int R, int B>
+__device__ __forceinline__ void sums_in_order(float (&t)[R], const float* p, size_t rstride,
+                                              size_t stride, int count, int rows = R) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) t[i] = 0.f;
+  for (int q0 = 0; q0 < count; q0 += B) {
+    float v[R][B];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int q = 0; q < B; ++q)
+        v[i][q] = i < rows && q0 + q < count ? __ldcg(p + i * rstride + (q0 + q) * stride) : 0.f;
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int q = 0; q < B; ++q) t[i] += v[i][q];
   }
-  if (idx == 0) {
-    float s = 0.f;
-    for (int b = 0; b < nb; ++b) s += ssp[b];
-    *ss = s;
+}
+
+// Rows r0 … r0 + 63: YV = Σ_split YVp (in split order) and the block's
+// partial G; the last block sums the partial G in block order, and ΣY² over
+// the first kernel's blocks (each lane of the last warp a strided share in
+// order, then a fixed butterfly).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+subspace_finish_kernel(const T* __restrict__ V, const float* __restrict__ YVp,
+                       const float* __restrict__ ssp, float* __restrict__ Gp,
+                       unsigned* __restrict__ ticket, float* __restrict__ YV,
+                       float* __restrict__ G, float* __restrict__ ss, int n, int k, int splits,
+                       int nss) {
+  constexpr int kR = kFinRows / kCols;       // rows per thread
+  __shared__ float yvs[kFinRows][kCols];
+  __shared__ float vsm[kFinRows][kCols + 1];
+  __shared__ bool last;
+
+  const int tid = threadIdx.x, a = tid / kCols, b = tid % kCols;
+  const int r0 = blockIdx.x * kFinRows, nb = gridDim.x;
+  const size_t kk = (size_t)k * k;
+  float* gp = Gp + blockIdx.x * kk;
+
+  float vr[kR];                              // V[rows][i0 + b] for the first tile, loaded early
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int r = r0 + a + kCols * i;
+    vr[i] = r < n && b < k ? to_f32(V[(size_t)r * k + b]) : 0.f;
+  }
+  for (int j0 = 0; j0 < k; j0 += kCols) {
+    // thread (a, b): rows r0 + a + 16 i, column j0 + b
+    const int j = j0 + b;
+    float yv[kR];
+    sums_in_order<kR, 8>(yv, YVp + (size_t)(r0 + a) * k + j, (size_t)kCols * k, (size_t)n * k,
+                         j < k ? splits : 0, (n - r0 - a + kCols - 1) / kCols);
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const int r = r0 + a + kCols * i;
+      const bool in = r < n && j < k;
+      if (in) YV[(size_t)r * k + j] = yv[i];
+      yvs[a + kCols * i][b] = in ? yv[i] : 0.f;
+    }
+    for (int i0 = 0; i0 < k; i0 += kCols) {
+      __syncthreads();                       // yvs written; vsm free
+#pragma unroll
+      for (int i = 0; i < kR; ++i) {
+        const int r = r0 + a + kCols * i, c = i0 + b;
+        vsm[a + kCols * i][b] = i0 == 0 ? vr[i] : r < n && c < k ? to_f32(V[(size_t)r * k + c]) : 0.f;
+      }
+      __syncthreads();
+      const int i = i0 + a;                  // thread (a, b): G[i0 + a][j0 + b]
+      if (i < k && j < k) {
+        float g = 0.f;
+#pragma unroll 16
+        for (int rr = 0; rr < kFinRows; ++rr) g = fmaf(vsm[rr][a], yvs[rr][b], g);
+        gp[(size_t)i * k + j] = g;
+      }
+    }
+    __syncthreads();                         // yvs is rewritten by the next column tile
+  }
+
+  __threadfence();                           // this block's partials are visible to all
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1u) == (unsigned)(nb - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (tid >= kThreads - kLanes) {            // the last warp: ΣY²
+    const int lane = tid % kLanes;
+    float t[1];
+    sums_in_order<1, 16>(t, ssp + lane, 0, kLanes, (nss - lane + kLanes - 1) / kLanes);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) t[0] += __shfl_xor_sync(0xffffffffu, t[0], o);
+    if (lane == 0) *ss = t[0];
+  }
+  for (size_t e = tid; e < kk; e += kThreads) {
+    float g[1];
+    sums_in_order<1, 32>(g, Gp + e, 0, kk, nb);
+    G[e] = g[0];
   }
 }
 
@@ -184,26 +359,40 @@ rank_k_kernel(const T* __restrict__ Y, const T* __restrict__ A,
   }
 }
 
-int subspace_row_blocks(int n) { return (n + kRows - 1) / kRows; }
+int subspace_row_blocks(int n) { return (n + kPartRows - 1) / kPartRows; }
+int subspace_splits(int n) { return (n + kSplit - 1) / kSplit; }
+int subspace_finish_blocks(int n) { return (n + kFinRows - 1) / kFinRows; }
 
+// Scratch: the splits' partial YV, the first kernel's per-block ΣY², the
+// finishing blocks' partial G, and the ticket.
 template <typename T>
 int launch_subspace(const void* Y, const void* V, void* YV, void* G, void* ss,
                     void* scratch, int n, int k, void* stream) {
-  const int nb = subspace_row_blocks(n);
-  float* Gp = static_cast<float*>(scratch);
-  float* ssp = Gp + (size_t)nb * k * k;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(nb, (k + kCols - 1) / kCols);
-  subspace_rows_kernel<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(Y), static_cast<const T*>(V), static_cast<float*>(YV),
-      Gp, ssp, n, k);
-  cudaError_t err = cudaGetLastError();
+  static bool ready[kMaxDevices];            // the first kernel's shared memory is allowed
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const size_t kk = (size_t)k * k;
-  const int threads = 256;
-  const int blocks = (int)((kk + threads - 1) / threads);
-  subspace_reduce_kernel<<<blocks, threads, 0, s>>>(
-      Gp, ssp, static_cast<float*>(G), static_cast<float*>(ss), nb, k);
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(subspace_part_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kPartSmem);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  const int nb = subspace_row_blocks(n), splits = subspace_splits(n);
+  const int fb = subspace_finish_blocks(n);
+  float* YVp = static_cast<float*>(scratch);
+  float* ssp = YVp + (size_t)splits * n * k;
+  float* Gp = ssp + (size_t)nb * splits;
+  unsigned* ticket = reinterpret_cast<unsigned*>(Gp + (size_t)fb * k * k);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(splits, nb, (k + kCols - 1) / kCols);
+  subspace_part_kernel<T><<<grid, kThreads, kPartSmem, s>>>(
+      static_cast<const T*>(Y), static_cast<const T*>(V), YVp, ssp, ticket, n, k);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  subspace_finish_kernel<T><<<fb, kThreads, 0, s>>>(
+      static_cast<const T*>(V), YVp, ssp, Gp, ticket, static_cast<float*>(YV),
+      static_cast<float*>(G), static_cast<float*>(ss), n, k, splits, nb * splits);
   return (int)cudaGetLastError();
 }
 
@@ -221,11 +410,11 @@ int launch_rank_k(const void* Y, const void* A, const void* B, void* out, int n,
 
 extern "C" {
 
-// Float32 words of scratch that sdp_subspace needs: the per-CTA partial G
-// blocks followed by the per-CTA partial ΣY².
+// Float32 words of scratch that sdp_subspace needs (launch_subspace's layout).
 long long sdp_subspace_scratch_floats(int n, int k) {
-  const long long nb = subspace_row_blocks(n);
-  return nb * k * k + nb;
+  const long long nb = subspace_row_blocks(n), splits = subspace_splits(n);
+  const long long fb = subspace_finish_blocks(n);
+  return splits * n * k + nb * splits + fb * k * k + 1;
 }
 
 int sdp_subspace_f32(const void* Y, const void* V, void* YV, void* G, void* ss,

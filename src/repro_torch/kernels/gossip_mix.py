@@ -22,6 +22,18 @@ result has the senders' dtype.  Each wrapper chooses by the tensors'
 device: on CUDA tensors it launches its hand-written kernel
 (``csrc/gossip_mix.cu``) or raises; on CPU tensors it runs its plain
 version.  ``<wrapper>.launches`` counts kernel launches.
+
+On float32 senders ``gossip_mix_all`` runs on the tensor cores in three
+TF32 products: with ``split_tf32``'s halves of X and W, ``X_lo·W_hi +
+X_hi·W_lo + X_hi·W_hi`` drops only terms below 2^-22 of each product,
+where one TF32 product would miss the float32 exchange's 1e-5
+(tests/test_torch_fl_kernels.py models the arithmetic).  Each chunk of 32
+senders is summed on the tensor cores and the chunk sums are added in
+float32, in order, so the error does not grow with the number of senders
+(``csrc/gossip_mix.cu`` gives the readings).  Where
+W does not fit in shared memory (M or N above 128) the launch is a pair, W
+split into halves into a scratch and then the product, counted once.
+bfloat16 senders and ``gossip_mix_block`` run a tile of float32 FMAs.
 """
 
 from __future__ import annotations
@@ -47,6 +59,21 @@ def gossip_mix_block_plain(local: torch.Tensor, w_block: torch.Tensor, halo: tor
 def gossip_mix_plain(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Plain version: (w @ X) in float32, cast to X's dtype."""
     return (w.float() @ X.float()).to(X.dtype)
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds; the low 13 bits become zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 x as TF32 ``hi = tf32(x)`` and ``lo = tf32(x - hi)``, so that
+    ``hi + lo`` is x to within 2^-22 |x|: the halves of the float32
+    exchange's operands (``split_tf32`` in ``csrc/gossip_mix.cu``)."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x.float() - hi)
 
 
 def _check_cuda(name: str, senders, weights, out) -> None:
@@ -92,10 +119,15 @@ def gossip_mix_all(X: torch.Tensor, W: torch.Tensor, *, out: torch.Tensor | None
     if M and L:
         lib = build.library()
         with torch.cuda.device(X.device):
-            err = getattr(lib, f"gossip_mix_all_{_DTYPES[X.dtype]}")(
-                X.data_ptr(), W.data_ptr(), out.data_ptr(), M, N, L,
-                torch.cuda.current_stream(X.device).cuda_stream,
-            )
+            stream = torch.cuda.current_stream(X.device).cuda_stream
+            if X.dtype == torch.float32:
+                scratch = torch.empty(lib.gossip_mix_all_scratch_floats(M, N),
+                                      dtype=torch.float32, device=X.device)
+                err = lib.gossip_mix_all_f32(X.data_ptr(), W.data_ptr(), out.data_ptr(),
+                                             scratch.data_ptr(), M, N, L, stream)
+            else:
+                err = lib.gossip_mix_all_bf16(X.data_ptr(), W.data_ptr(), out.data_ptr(), M, N,
+                                              L, stream)
         build.check(err, "gossip_mix_all")
         gossip_mix_all.launches += 1
     return out

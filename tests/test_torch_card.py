@@ -100,6 +100,31 @@ def test_sdp_proj_kernels_on_card(cuda, n, k, dt):
     assert after["rank_k_update"] == before["rank_k_update"] + 1
 
 
+@pytest.mark.parametrize(
+    "n,k,dt",
+    [(1665, 16, "f32"), (1665, 1, "f32"), (1665, 17, "f32"), (1665, 37, "f32"), (257, 16, "f32"),
+     (1, 1, "f32"), (511, 37, "f32"), (2049, 16, "f32"), (1665, 16, "bf16"), (33, 17, "bf16")],
+)
+def test_sdp_subspace_kernel_on_card(cuda, n, k, dt):
+    """The column-split subspace kernel at the solver's shape (n = 1665, k = 16),
+    at odd and ragged n, and at k of one, two and three 16-column tiles."""
+    Y, V = _inputs(n, k, dt, cuda, 7 * n + k)
+    tol = 0.05 if dt == "bf16" else 1e-5
+    got, want = sdp_subspace(Y, V), sdp_subspace_plain(Y, V)
+    torch.cuda.synchronize()
+    for g, w, shape in zip(got, want, [(n, k), (k, k), ()]):
+        assert g.dtype == torch.float32 and tuple(g.shape) == shape and _rel(g, w) <= tol
+
+
+@pytest.mark.parametrize("n,k", [(1665, 16), (1665, 37), (300, 5)])
+def test_sdp_subspace_same_on_every_run(cuda, n, k):
+    """No float atomics: two calls on the same inputs agree bit for bit."""
+    Y, V = _inputs(n, k, "f32", cuda, n + 3 * k)
+    first = [t.clone() for t in sdp_subspace(Y, V)]
+    for _ in range(3):
+        assert all(torch.equal(a, b) for a, b in zip(first, sdp_subspace(Y, V)))
+
+
 def _bottleneck_inputs(s, n_t, n_k, n_edges, seed=0):
     r = np.random.default_rng(seed)
     return [torch.from_numpy(x) for x in (
@@ -183,7 +208,9 @@ def _mix_inputs(m, n, l, dt, dev, seed=0):
     "m,n,l,dt",
     [(128, 128, 552714, "f32"), (10, 10, 552714, "f32"), (1, 1, 1, "f32"), (5, 5, 7, "bf16"),
      (300, 300, 100, "f32"), (40, 300, 1000, "bf16"), (64, 20, 4097, "f32"),
-     (30, 31, 333, "f32")],
+     (30, 31, 333, "f32"), (1024, 1024, 65536, "f32"), (50, 37, 1001, "f32"),
+     (10, 128, 552714, "f32"), (17, 37, 4095, "f32"), (2048, 2048, 16384, "f32"),
+     (64, 4096, 4096, "f32")],
 )
 def test_gossip_mix_kernel_on_card(cuda, m, n, l, dt):
     X, W = _mix_inputs(m, n, l, dt, cuda, seed=m + n + l)
@@ -197,6 +224,16 @@ def test_gossip_mix_kernel_on_card(cuda, m, n, l, dt):
     assert tk.launch_counts()["gossip_mix_all"] == before + 1
     out = torch.full_like(got, float("nan"))
     assert gossip_mix_all(X, W, out=out) is out and torch.equal(out, got)
+
+
+@pytest.mark.parametrize("m,n,l", [(128, 128, 552714), (1024, 1024, 65536), (10, 10, 1001)])
+def test_gossip_mix_all_same_on_every_run(cuda, m, n, l):
+    """The float32 exchange sums the senders in order, with no split over
+    senders and no atomics: two calls agree bit for bit."""
+    X, W = _mix_inputs(m, n, l, "f32", cuda, seed=n + l)
+    first = gossip_mix_all(X, W).clone()
+    for _ in range(3):
+        assert torch.equal(gossip_mix_all(X, W), first)
 
 
 @pytest.mark.parametrize(

@@ -27,7 +27,12 @@ from repro_torch.kernels.compress import (
     topk_mask,
     topk_mask_plain,
 )
-from repro_torch.kernels.gossip_mix import gossip_mix_all, gossip_mix_all_plain
+from repro_torch.kernels.gossip_mix import (
+    gossip_mix_all,
+    gossip_mix_all_plain,
+    round_tf32,
+    split_tf32,
+)
 from repro_torch.train.compression import int8_scale
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -158,6 +163,58 @@ def test_gossip_mix_all_plain_matches_refs_and_pallas(n, l, bl, dt):
     for want in wants:
         np.testing.assert_allclose(_np(got), _np(want), atol=atol)
     assert np.all(_np(got)[0] == 0.0)          # empty row -> zero mix
+
+
+def _tf32_products(X: torch.Tensor, W: torch.Tensor, three: bool) -> torch.Tensor:
+    """W @ X as the float32 card kernel computes it on the tensor cores: the
+    senders in order, in chunks of 32; each chunk's sum starts from zero and
+    adds, 8 senders at a time (one wgmma k-step), x_lo·w_hi, x_hi·w_lo, then
+    x_hi·w_hi (``three``), or the one product of X and W rounded to TF32;
+    the chunk sums are added to the float32 result in order."""
+    xh, xl = split_tf32(X)
+    wh, wl = split_tf32(W)
+    out = torch.zeros(W.shape[0], X.shape[1])
+    for c0 in range(0, X.shape[0], 32):
+        part = torch.zeros_like(out)
+        for n0 in range(c0, min(c0 + 32, X.shape[0]), 8):
+            k = slice(n0, n0 + 8)
+            if three:
+                part += wh[:, k] @ xl[k]
+                part += wl[:, k] @ xh[k]
+            part += wh[:, k] @ xh[k]
+        out += part
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_gossip_mix_all_tf32x3_stays_within_the_card_bound(seed, scaled):
+    """Why the float32 exchange kernel multiplies in three TF32 products: their
+    sum stays within the card checks' 1e-5 of the plain float32 product (and
+    within the f32 atol of the oracle), where one TF32 product does not."""
+    rng = np.random.default_rng(seed)
+    m = n = 128
+    X = rng.standard_normal((n, 16384)).astype(np.float32)
+    if scaled:                                 # rows of X over 1e-6 … 1e3
+        X *= (10.0 ** rng.uniform(-6, 3, size=(n, 1))).astype(np.float32)
+    W = (rng.random((m, n)) * (rng.random((m, n)) < 0.5)).astype(np.float32)
+    W[0] = 0.0                                 # an isolated receiver
+    W[1:] /= W[1:].sum(axis=1, keepdims=True)
+    Xt, Wt = torch.from_numpy(X), torch.from_numpy(W)
+    hi, lo = split_tf32(Xt)
+    assert torch.all((hi.view(torch.int32) & 0x1FFF) == 0)
+    assert torch.all((lo.view(torch.int32) & 0x1FFF) == 0)
+    assert float((Xt - hi - lo).abs().max() / Xt.abs().max()) <= 2.0 ** -22
+    assert torch.equal(round_tf32(torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])),
+                       torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]))  # ties away from 0
+    want = gossip_mix_all_plain(Xt, Wt)
+    got = _tf32_products(Xt, Wt, three=True)
+    rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    assert rel <= 1e-5
+    np.testing.assert_allclose(got.numpy(), _np(kref.gossip_mix_all_ref(X, W)), atol=2e-4)
+    assert torch.all(got[0] == 0)
+    one = _tf32_products(Xt, Wt, three=False)
+    assert float(torch.linalg.norm(one - want) / torch.linalg.norm(want)) > 1e-5
 
 
 @pytest.mark.parametrize("m,n,l", [(1, 1, 1), (5, 5, 7), (3, 300, 100), (300, 300, 17)])
