@@ -13,7 +13,8 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      at the scheduler's shapes (and small ragged/bfloat16 ones), with its
      time, its bound, the plain version's time and one library call's time;
      ``sdp_subspace`` also warm (one Y in L2, as the DR loop's 5 calls an
-     iteration find it) and twice on the same inputs (bit-equal);
+     iteration find it); ``sdp_subspace`` and ``rank_k_update`` twice on
+     the same inputs (bit-equal);
   3. path: ``compare_methods`` on the paper's §4.1.2 instance (N_T = 104
      tasks, N_K = 16 machines, n = 1664) through the port's entry points,
      with the launch counters zeroed just before and read just after, and
@@ -66,6 +67,9 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      the sharded path's shape (m = 128, H = 16, L = 552,714), a heavy halo
      (m = 125, H = 472) and the reference path's receivers (5–10 rows);
      ``gossip_mix_block``'s bound at the TF32 tensor-core rate, as row 4's;
+     at both shapes it is also bit-equal on a second call, its isolated
+     receiver's row is exactly zero, and the line says whether W stayed in
+     shared memory;
  14. reference path: ``run_fl(backend="reference")`` on phase 7's instance
      and schedules, exact launch counts, losses within relative 1e-4 of
      phase 7's stacked run;
@@ -263,6 +267,10 @@ def kernel_phase(dev, gen) -> list[dict]:
     got, want = rank_k_update(Y, A, B), rank_k_update_plain(Y, A, B)
     err = rel_err(got, want)
     check(err <= F32_TOL, f"rank_k_update at n={n}, k={k}: rel error {err}")
+    check(torch.equal(rank_k_update(Y, A, B), got),
+          f"rank_k_update at n={n}, k={k}: a second call gives another result")
+    print(f"kernel check rank_k_update n={n} k={k}: rel error {err:.3e}; bit-equal on a second "
+          "call", flush=True)
     b, by = bound_ms(4 * (n * n + 2 * n * k) + 4 * n * n, 2 * n * n * k + n * n)
     rows.append(dict(
         name="rank_k_update", route="cuda", source="src/repro_torch/kernels/csrc/sdp_proj.cu",
@@ -436,18 +444,19 @@ def cnn_columns(shape=(32, 32, 3)) -> list[tuple[int, int]]:
 
 def mix_build_lines() -> None:
     """What the build made of the float32 exchange's tensor-core kernel
-    (``mix_tf32_kernel<TM, KS>``, every tile shape): ``ptxas -v``'s registers
-    and spills, and the count of wgmma instructions (HGMMA) in its SASS."""
+    (``mix_tf32_kernel<TM, KS, ST>``, every tile shape and ring depth):
+    ``ptxas -v``'s registers and spills, and the count of wgmma instructions
+    (HGMMA) in its SASS."""
     import re
 
     from repro_torch.kernels import build
 
-    pat = r"mix_tf32_kernelILi(\d+)ELi(\d+)E"
+    pat = r"mix_tf32_kernelILi(\d+)ELi(\d+)ELi(\d+)E"
     cur = spills = None
     for line in build.ptxas_log("gossip_mix").splitlines():
         m = re.search(r"entry function '\S*" + pat, line)
         if m:
-            cur, spills = f"mix_tf32_kernel<{m.group(1)}, {m.group(2)}>", ""
+            cur, spills = f"mix_tf32_kernel<{', '.join(m.groups())}>", ""
         elif cur and "spill" in line:
             spills = line.strip()
         elif cur and "Used" in line:
@@ -459,10 +468,11 @@ def mix_build_lines() -> None:
     for block in sass.split("Function : ")[1:]:
         m = re.match(r"\S*" + pat, block)
         if m:
-            found[(int(m.group(1)), int(m.group(2)))] = len(re.findall(r"\bHGMMA\b", block))
-    print(f"sass mix_tf32_kernel<TM, KS> HGMMA: {found}", flush=True)
-    check(sorted(found) == [(tm, ks) for tm in (16, 32, 64, 128) for ks in (2, 4)] and
-          all(found.values()), f"the float32 exchange kernels lack wgmma (HGMMA): {found}")
+            found[tuple(map(int, m.groups()))] = len(re.findall(r"\bHGMMA\b", block))
+    print(f"sass mix_tf32_kernel<TM, KS, ST> HGMMA: {found}", flush=True)
+    check(sorted(found) == [(tm, ks, st) for tm in (16, 32, 64, 128)
+                            for ks, st in ((2, 4), (4, 3), (4, 4))] and all(found.values()),
+          f"the float32 exchange kernels lack wgmma (HGMMA): {found}")
 
 
 def fl_kernel_phase(dev, gen) -> tuple[list[dict], list[dict]]:
@@ -1196,6 +1206,14 @@ def shard_blocks(tg, num_shards: int):
     return torch.from_numpy(ec["Wb"][0]), torch.from_numpy(ec["Wh"][0]), stats
 
 
+def mix_block_resident(m: int, h: int) -> bool:
+    """Whether the float32 shard exchange keeps W in shared memory at (m, H):
+    the launch's scratch (W split into halves) is then empty."""
+    from repro_torch.kernels import build
+
+    return build.library().gossip_mix_block_scratch_floats(m, h) == 0
+
+
 def shard_kernel_phase(dev, gen) -> list[dict]:
     """The sharded exchange and the one-receiver mix against their plain
     versions; their times at the sharded path's shape (m = 128, H = 16), a
@@ -1246,6 +1264,20 @@ def shard_kernel_phase(dev, gen) -> list[dict]:
         want = gossip_mix_block_plain(*sets[0])
         err = rel_err(got, want)
         check(err <= F32_TOL, f"gossip_mix_block m={m} H={h} L={L}: rel error {err}")
+        check(torch.equal(gossip_mix_block(*sets[0]), got),
+              f"gossip_mix_block m={m} H={h} L={L}: a second call gives another result")
+        local, _, halo, _ = sets[0]
+        wb0, wh0 = wb.clone(), wh.clone()
+        wb0[0], wh0[0] = 0.0, 0.0                 # an isolated receiver
+        got0 = gossip_mix_block(local, wb0, halo, wh0)
+        err0 = rel_err(got0, gossip_mix_block_plain(local, wb0, halo, wh0))
+        check(err0 <= F32_TOL and bool(torch.all(got0[0] == 0)),
+              f"gossip_mix_block m={m} H={h} L={L}, receiver 0 isolated: rel error {err0}")
+        del got0, wb0, wh0
+        print(f"kernel check gossip_mix_block{label} m={m} H={h} L={L} (W "
+              f"{'resident' if mix_block_resident(m, h) else 'streamed'}): rel error {err:.3e} "
+              f"(receiver 0 isolated: {err0:.3e}); bit-equal on a second call; the isolated "
+              "receiver's row is zero", flush=True)
         b, by = bound_ms(4 * (2 * m * L + h * L + m * m + m * h), 2 * m * (m + h) * L,
                          TF32_FLOPS)
         row = dict(

@@ -1,5 +1,6 @@
-"""Time this tree's ``gossip_mix_all`` and ``sdp_subspace`` kernels against
-another tree's (the parent commit's) on one card, in turns.
+"""Time this tree's ``gossip_mix_all``, ``gossip_mix_block``, ``sdp_subspace``
+and ``rank_k_update`` kernels against another tree's (the parent commit's) on
+one card, in turns.
 
     git archive <parent> src/repro_torch/kernels | tar -x -C build/parent
     python3 scripts/kernel_ab.py build/parent/src/repro_torch/kernels/csrc
@@ -8,8 +9,9 @@ The other tree's ``gossip_mix.cu`` and ``sdp_proj.cu`` are compiled by their
 own ``nvcc`` (the flags of ``repro_torch.kernels.build``) into
 ``build/kernel_ab/`` and called through their C entry points, with the
 signatures that the other tree's own ``build.py`` (beside its ``csrc``)
-declares: ``gossip_mix_all_f32`` gets a scratch where that tree sizes one
-(``gossip_mix_all_scratch_floats``); this tree's kernels go through the
+declares: ``gossip_mix_all_f32`` and ``gossip_mix_block_f32`` get a scratch
+where that tree sizes one (``gossip_mix_all_scratch_floats``,
+``gossip_mix_block_scratch_floats``); this tree's kernels go through the
 wrappers.
 Each case is timed parent, change, change, parent (CUDA events around
 repeated calls, inputs cycled past the 50 MB L2 where the caller finds them
@@ -17,8 +19,11 @@ cold), beside ``torch.matmul`` for the exchange:
 
   - ``gossip_mix_all`` at N_T = 10, 128 and 1024 users of the CIFAR-10 CNN
     (L = 552,714), float32, the weights of a random sparse mixing matrix;
+  - ``gossip_mix_block`` at the sharded path's shape (m = 128, H = 16) and a
+    heavy halo (m = 125, H = 472), L = 552,714, random sparse blocks;
   - ``sdp_subspace`` at n = 1665, k = 16, cold (10 distinct Y) and warm (one
-    Y, as the DR loop's 5 calls an iteration find it in L2).
+    Y, as the DR loop's 5 calls an iteration find it in L2);
+  - ``rank_k_update`` at n = 1665, k = 16, cold (10 distinct Y).
 
 Every result is also checked against the plain version (relative 1e-5).
 Needs one CUDA card; exits non-zero without one.
@@ -38,12 +43,23 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "src"))
 
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.gossip_mix import gossip_mix_all, gossip_mix_all_plain  # noqa: E402
-from repro_torch.kernels.sdp_proj import sdp_subspace, sdp_subspace_plain  # noqa: E402
+from repro_torch.kernels.gossip_mix import (  # noqa: E402
+    gossip_mix_all,
+    gossip_mix_all_plain,
+    gossip_mix_block,
+    gossip_mix_block_plain,
+)
+from repro_torch.kernels.sdp_proj import (  # noqa: E402
+    rank_k_update,
+    rank_k_update_plain,
+    sdp_subspace,
+    sdp_subspace_plain,
+)
 
 OUT = REPO / "build" / "kernel_ab"
-ENTRIES = ("gossip_mix_all_f32", "gossip_mix_all_scratch_floats", "sdp_subspace_f32",
-           "sdp_subspace_scratch_floats")
+ENTRIES = ("gossip_mix_all_f32", "gossip_mix_all_scratch_floats", "gossip_mix_block_f32",
+           "gossip_mix_block_scratch_floats", "sdp_subspace_f32", "sdp_subspace_scratch_floats",
+           "rank_k_update_f32")
 
 
 def parent_signatures(csrc: Path) -> dict:
@@ -153,6 +169,42 @@ def main() -> int:
         del sets, o, want
         torch.cuda.empty_cache()
 
+    def sparse(rows, cols, p):
+        return torch.rand(rows, cols, generator=gen, device=dev) * (
+            torch.rand(rows, cols, generator=gen, device=dev) < p)
+
+    for m, h in ((128, 16), (125, 472)):
+        wb, wh = sparse(m, m, 3.5 / m), sparse(m, h, 0.5)
+        scale = (wb.sum(dim=1, keepdim=True) + wh.sum(dim=1, keepdim=True)).clamp_min(1e-30)
+        wb, wh = wb / scale, wh / scale
+        sets = [(torch.randn(m, L, generator=gen, device=dev), wb,
+                 torch.randn(h, L, generator=gen, device=dev), wh)
+                for _ in range(max(2, 200_000_000 // ((m + h) * L * 4)))]
+        o = torch.empty(m, L, device=dev)
+        if hasattr(old, "gossip_mix_block_scratch_floats"):
+            scratch = torch.empty(old.gossip_mix_block_scratch_floats(m, h), device=dev)
+            ptrs = (o.data_ptr(), scratch.data_ptr())
+        else:                                     # before the tensor-core block: no scratch
+            ptrs = (o.data_ptr(),)
+
+        def parent_block(x, wb_, hx, wh_):
+            err = old.gossip_mix_block_f32(x.data_ptr(), wb_.data_ptr(), hx.data_ptr(),
+                                           wh_.data_ptr(), *ptrs, m, h, L, stream())
+            if err:
+                raise SystemExit(f"parent gossip_mix_block_f32: cudaError_t {err}")
+
+        want = gossip_mix_block_plain(*sets[0])
+        parent_block(*sets[0])
+        e_old, e_new = rel(o, want), rel(gossip_mix_block(*sets[0]), want)
+        print(f"ab gossip_mix_block m={m} H={h}: rel error parent {e_old:.3e}, change "
+              f"{e_new:.3e}", flush=True)
+        if max(e_old, e_new) > 1e-5:
+            raise SystemExit("FAILED: gossip_mix_block disagrees with its plain version")
+        turns(f"gossip_mix_block m={m} H={h} L={L}", parent_block,
+              lambda x, wb_, hx, wh_: gossip_mix_block(x, wb_, hx, wh_, out=o), sets, 20)
+        del sets, o, want
+        torch.cuda.empty_cache()
+
     n, k = 1665, 16
     sets = []
     for _ in range(10):
@@ -178,6 +230,23 @@ def main() -> int:
         raise SystemExit("FAILED: sdp_subspace disagrees with its plain version")
     turns(f"sdp_subspace n={n} k={k} cold", parent_sdp, sdp_subspace, sets, 200)
     turns(f"sdp_subspace n={n} k={k} warm", parent_sdp, sdp_subspace, sets[:1], 200)
+
+    sets = [(Y, torch.randn(n, k, generator=gen, device=dev),
+             torch.randn(n, k, generator=gen, device=dev)) for Y, _ in sets]
+    o = torch.empty(n, n, device=dev)
+
+    def parent_rank_k(Y, A, B):
+        old.rank_k_update_f32(Y.data_ptr(), A.data_ptr(), B.data_ptr(), o.data_ptr(), n, k,
+                              stream())
+
+    parent_rank_k(*sets[0])
+    want = rank_k_update_plain(*sets[0])
+    e_old, e_new = rel(o, want), rel(rank_k_update(*sets[0]), want)
+    print(f"ab rank_k_update n={n} k={k}: rel error parent {e_old:.3e}, change {e_new:.3e}",
+          flush=True)
+    if max(e_old, e_new) > 1e-5:
+        raise SystemExit("FAILED: rank_k_update disagrees with its plain version")
+    turns(f"rank_k_update n={n} k={k} cold", parent_rank_k, rank_k_update, sets, 200)
     return 0
 
 

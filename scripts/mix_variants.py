@@ -8,9 +8,9 @@ lines replaced, compiled by its own ``nvcc`` (the flags of
 ``repro_torch.kernels.build``, all started together) into
 ``build/mix_variants/<name>/`` and called through its C entry point, so all
 of them run in one process on one card.  For each it prints the registers
-and spills ``ptxas -v`` reports for the TM = 128 kernel and the relative
-error against the plain version (variants that drop work are meant to be
-wrong), then the device time at N_T = 128 and N_T = 10 users of the
+and spills ``ptxas -v`` reports for the TM = 128 kernel (4 k-steps, a ring
+of 4) and the relative error against the plain version (variants that drop
+work are meant to be wrong), then the device time at N_T = 128 and N_T = 10 users of the
 CIFAR-10 CNN (L = 552,714, inputs cycled past the 50 MB L2), the variants
 timed in turns (a, b, …, b, a).  The variants:
 
@@ -25,10 +25,19 @@ timed in turns (a, b, …, b, a).  The variants:
   nofence   no fence.proxy.async before the barrier ahead of the wgmma
             (timing only, not a safe kernel)
   everyfence  the fence at every chunk, also where W stays resident
+  streamed  W never resident: split by a first kernel and streamed through
+            the ring beside X (4 stages) wherever the shipped kernel keeps it
+            in shared memory (there with a ring of 3 or 4)
+  nounroll  the resident split of W not unrolled (one load in flight a thread)
+  twolist   the one-list product (gossip_mix_all) through the kernel compiled
+            for two lists, which chooses each chunk's list at run time
 
 Before the times, each variant's relative error against the float64 product
 at M = N = 128, 300, 1024 and 2048 senders (L = 65,536, dense weights), with
-the plain float32 product's beside it: how the error grows with N.
+the plain float32 product's beside it: how the error grows with N.  After
+the exchange's times, ``gossip_mix_block`` (the sharded exchange, the same
+kernel over local and halo rows) at the sharded path's shape (m = 128, H =
+16) and a heavy halo (m = 125, H = 472), L = 552,714, in the same turns.
 
 Needs one CUDA card; exits non-zero without one.
 """
@@ -47,7 +56,10 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "src"))
 
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.kernels.gossip_mix import gossip_mix_all_plain  # noqa: E402
+from repro_torch.kernels.gossip_mix import (  # noqa: E402
+    gossip_mix_all_plain,
+    gossip_mix_block_plain,
+)
 
 SOURCE = build.CSRC / "gossip_mix.cu"
 OUT = REPO / "build" / "mix_variants"
@@ -59,12 +71,15 @@ LOAD = "    if (ld_it < total) {"
 ADD = "for (int i = 0; i < TM / 2; ++i) acc[i] += part[i];   // chunk by chunk, in order"
 RESET = "for (int i = 0; i < TM / 2; ++i) acc[i] = 0.0f;"
 FENCE_IF = "    if (!resident || it == 0)\n"
+RESIDENT = "  p.resident = M <= TM && p.nc * w + 3 * x + kAlign <= kMaxSmem;"
+SPLIT = "#pragma unroll 8\n  for (int e = tid; e < nc * TM * kKC; e += kThreads) {"
+ONE = "      const bool one = !kTwo || ld_c < s.nc1;   // the chunk's list"
 FENCE = FENCE_IF + '      asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");\n'
 VARIANTS = {
     "base": [],
     "nostore": [(STORE, STORE.replace("if (m < M", "if (M < 0 && m < M"))],
     "nomma": [(MMA, "      part[0] += __uint_as_float(ah[ks][0] ^ al[ks][1]) + (float)(bh ^ bl);")],
-    "noload": [(LOAD, "    if (ld_it < total && ld_it < kStages - 1) {")],
+    "noload": [(LOAD, "    if (ld_it < total && ld_it < stages - 1) {")],
     "two": [(MMA, MMA.replace("      wgmma_tf32<TM>(part, ah[ks], bl, 1);        // x_hi · w_lo\n",
                               ""))],
     "onelong": [(MMA, MMA.replace("ks > 0);", "1);     ")),
@@ -72,6 +87,9 @@ VARIANTS = {
                 (RESET, "for (int i = 0; i < TM / 2; ++i) acc[i] = part[i] = 0.0f;")],
     "nofence": [(FENCE, "")],
     "everyfence": [(FENCE_IF, "    if (true)\n")],
+    "streamed": [(RESIDENT, RESIDENT.replace("M <= TM", "M < 0"))],
+    "nounroll": [(SPLIT, SPLIT.replace("#pragma unroll 8\n", ""))],
+    "twolist": [(ONE, ONE.replace("!kTwo || ", ""))],
 }
 ACCURACY_L = 65536
 ACCURACY_N = (128, 300, 1024, 2048)
@@ -102,7 +120,8 @@ def compile_all(names) -> dict[str, tuple[ctypes.CDLL, str]]:
         if proc.returncode:
             raise SystemExit(f"variant {name}: nvcc failed\n{log}")
         lib = ctypes.CDLL(str(OUT / name / "libmix.so"))
-        for fn in ("gossip_mix_all_f32", "gossip_mix_all_scratch_floats"):
+        for fn in ("gossip_mix_all_f32", "gossip_mix_all_scratch_floats", "gossip_mix_block_f32",
+                   "gossip_mix_block_scratch_floats"):
             getattr(lib, fn).argtypes, getattr(lib, fn).restype = build.SIGNATURES[fn]
         libs[name] = (lib, log)
     return libs
@@ -111,7 +130,7 @@ def compile_all(names) -> dict[str, tuple[ctypes.CDLL, str]]:
 def ptxas_line(log: str) -> str:
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        if re.search(r"entry function '\S*mix_tf32_kernelILi128ELi4E", line):
+        if re.search(r"entry function '\S*mix_tf32_kernelILi128ELi4ELi4E", line):
             rest = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
                             if "spill" in x or "Used" in x)
             return rest
@@ -180,28 +199,70 @@ def main() -> int:
             if n == 128:
                 print(f"variant {name}: ptxas {ptxas_line(log)}", flush=True)
             print(f"variant {name} N_T={n}: rel error {float(e):.3e}", flush=True)
-        order = names + names[::-1]
-        times = {name: [] for name in names}
-        for name in order:
-            fn = runs[name]
-            for X in sets[:2]:
-                fn(X)
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(200_000_000)
-            start.record()
-            reps = 50
-            for i in range(reps):
-                fn(sets[i % len(sets)])
-            end.record()
-            end.synchronize()
-            times[name].append(start.elapsed_time(end) / reps * 1e3)
+        times = in_turns(runs, sets, 50)
         for name in names:
             t = times[name]
             print(f"variant {name} N_T={n} L={L}: {t[0]:.2f} / {t[1]:.2f} us", flush=True)
         del sets, o, want
         torch.cuda.empty_cache()
+
+    for m, h in ((128, 16), (125, 472)):
+        wb = torch.rand(m, m, generator=gen, device=dev) / (m + h)
+        wh = torch.rand(m, h, generator=gen, device=dev) / (m + h)
+        sets = [(torch.randn(m, L, generator=gen, device=dev),
+                 torch.randn(h, L, generator=gen, device=dev))
+                for _ in range(max(2, 200_000_000 // ((m + h) * L * 4)))]
+        o = torch.empty(m, L, device=dev)
+
+        def call_block(lib):
+            scratch = torch.empty(lib.gossip_mix_block_scratch_floats(m, h), device=dev)
+
+            def run(xs):
+                err = lib.gossip_mix_block_f32(xs[0].data_ptr(), wb.data_ptr(), xs[1].data_ptr(),
+                                               wh.data_ptr(), o.data_ptr(), scratch.data_ptr(),
+                                               m, h, L, stream)
+                if err:
+                    raise SystemExit(f"launch failed: cudaError_t {err}")
+            return run, scratch.numel() == 0
+
+        want = gossip_mix_block_plain(sets[0][0], wb, sets[0][1], wh)
+        runs = {}
+        for name in names:
+            runs[name], resident = call_block(libs[name][0])
+            runs[name](sets[0])
+            torch.cuda.synchronize()
+            e = torch.linalg.norm((o - want).double()) / torch.linalg.norm(want.double())
+            print(f"variant {name} block m={m} H={h}: rel error {float(e):.3e}, W "
+                  f"{'resident' if resident else 'streamed'}", flush=True)
+        times = in_turns(runs, sets, 20)
+        for name in names:
+            t = times[name]
+            print(f"variant {name} block m={m} H={h} L={L}: {t[0]:.2f} / {t[1]:.2f} us",
+                  flush=True)
+        del sets, o, want
+        torch.cuda.empty_cache()
     return 0
+
+
+def in_turns(runs: dict, sets: list, reps: int) -> dict[str, list[float]]:
+    """Device us a call of each run, timed a, b, …, b, a (CUDA events around
+    ``reps`` calls on the cycled inputs, the stream held by a sleep first)."""
+    names = list(runs)
+    times = {name: [] for name in names}
+    for name in names + names[::-1]:
+        fn = runs[name]
+        for x in sets[:2]:
+            fn(x)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000_000)
+        start.record()
+        for i in range(reps):
+            fn(sets[i % len(sets)])
+        end.record()
+        end.synchronize()
+        times[name].append(start.elapsed_time(end) / reps * 1e3)
+    return times
 
 
 if __name__ == "__main__":

@@ -47,7 +47,8 @@ SIGNATURES = {
     "gossip_mix_all_scratch_floats": ([_I, _I], _LL),
     "gossip_mix_all_f32": ([_P, _P, _P, _P, _I, _I, _LL, _P], _I),
     "gossip_mix_all_bf16": ([_P, _P, _P, _I, _I, _LL, _P], _I),
-    "gossip_mix_block_f32": ([_P, _P, _P, _P, _P, _I, _I, _LL, _P], _I),
+    "gossip_mix_block_scratch_floats": ([_I, _I], _LL),
+    "gossip_mix_block_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _LL, _P], _I),
     "gossip_mix_block_bf16": ([_P, _P, _P, _P, _P, _I, _I, _LL, _P], _I),
     "gossip_mix_f32": ([_P, _P, _P, _I, _LL, _P], _I),
     "gossip_mix_bf16": ([_P, _P, _P, _I, _LL, _P], _I),

@@ -21,11 +21,18 @@
 // 3.35 TB/s) and does 18.1 GFLOP: on the tensor cores, in three TF32
 // products (54.3 GFLOP at 495 TFLOP/s, 110 us), it is bound by bytes.
 // Kernel 2 at the sharded path's shape (m = 128, H = 16) moves 601 MB (179
-// us) for 20.4 GFLOP (304 us at 67 TFLOP/s of float32 FMA outside the tensor
-// cores).  Kernel 3 does 2 flops per 4-byte element: bound by bytes (24 MB,
-// 7 us at N = 10).
+// us) for 20.4 GFLOP, 61.1 GFLOP in three TF32 products (123 us): bound by
+// bytes too.  With a heavy halo (m = 125, H = 472) it moves 1.6 GB (477 us)
+// for 247.5 GFLOP of TF32 products (500 us, bound by operations).  Kernel
+// 3 does 2 flops per 4-byte element: bound by bytes (24 MB, 7 us at N = 10).
 //
-// Kernel 1 on float32 senders (mix_tf32_kernel): 3×TF32 on the tensor cores.
+// Kernels 1 and 2 on float32 senders (mix_tf32_kernel): 3×TF32 on the
+// tensor cores, over one virtual list of senders, the N1 rows of X1 under
+// W1's columns and then the N2 rows of X2 under W2's (kernel 1: X, W and N2
+// = 0; kernel 2: local under Wb, then halo under Wh).  Each list is padded
+// to whole chunks of 32 senders, so that each chunk's slab comes from one
+// base pointer and W's padded columns are [W1 | 0 | W2 | 0]: ceil(m / 32) +
+// ceil(H / 32) chunks, 4 + 1 at the sharded path's shape.
 // One TF32 product keeps about three digits (relative error 2.9e-4 against
 // the float32 product, 29× the 1e-5 the exchange is held to); with x = x_hi +
 // x_lo and w = w_hi + w_lo, each half rounded to TF32 (cvt.rna), the three
@@ -48,48 +55,49 @@
 // warpgroup, wgmma m64nTMk8) × TM receivers (TM = 16, 32, 64 or 128,
 // following M); it walks the senders in chunks of 32 (one 128-byte row of W),
 // each k-step of 8 issuing x_lo·w_hi, x_hi·w_lo, then x_hi·w_hi into the
-// chunk's float32 accumulators (N ≤ 16 takes 2 k-steps a chunk, not 4). wgmma
-// reads W through the async proxy, so every thread fences its writes of W to
-// that proxy (fence.proxy.async) before the barrier that precedes the wgmma:
-// after the split's stores, and after each streamed chunk's cp.async copies
-// (2.4 % of the time at N_T = 128 if issued every chunk). X cannot be loaded
-// by TMA (a row pitch of 4·L bytes is not a multiple of 16 at L = 552,714),
-// so all 256 threads bring X slabs with cp.async (8-byte copies where L is
-// even and X 8-byte aligned, else 4) into a ring of 4 stages, rows padded to
-// 136 floats so that the fragment reads of a warp hit 32 distinct banks.  With
-// M ≤ 128 and N ≤ 128 (N_T = 10 and 128) all of W stays in shared memory (128
-// KB at N = M = 128): each CTA splits it into W_hi and W_lo once, while its
-// first slabs are in flight. Otherwise (N_T = 1024) a first small kernel
-// splits W into the wrapper's scratch, padded with zeros to a multiple of TM
-// rows and 32 columns (the pair counts as one gossip_mix_all launch), and
-// each stage carries its chunk of W_hi and W_lo (16-byte cp.async) beside its
-// slab.  CTAs are persistent: tile t = (column tile t / mt, receiver tile t %
-// mt), CTA b takes tiles b, b + G, …, so the mt CTAs that read one slab run
-// together and L2 serves the repeats.  Every receiver's sum runs over the
-// senders in order, 8 at a time, with no split over senders and no atomics,
-// and the chunk sums in order: the result is the same on every run.  A
-// receiver whose weights are all zero gets exact zeros; ragged L, M and N
-// tails are masked or zero-filled.  Each thread stores its accumulators
-// straight from the wgmma layout (a warp writes 4 rows × 32 contiguous bytes
-// per store).
+// chunk's float32 accumulators (where each list has at most 16 senders, 2
+// k-steps a chunk, not 4). wgmma reads W through the async proxy, so every
+// thread fences its writes of W to that proxy (fence.proxy.async) before the
+// barrier that precedes the wgmma: after the split's stores, and after each
+// streamed chunk's cp.async copies (2.4 % of the time at N_T = 128 if issued
+// every chunk). X cannot be loaded by TMA (a row pitch of 4·L bytes is not a
+// multiple of 16 at L = 552,714), so all 256 threads bring X slabs with
+// cp.async (8-byte copies where L is even and both lists 8-byte aligned, else
+// 4) into a ring of 4 stages (3 where W's resident chunks leave room for no
+// more), rows padded to 136 floats so that the fragment reads of a warp hit
+// 32 distinct banks.  Where there is one receiver tile (M ≤ 128) and all of
+// W's nc chunks fit in shared memory beside a ring of 3 slabs, W stays
+// there: each CTA splits it into W_hi and W_lo once, while its first slabs
+// are in flight (N_T = 10 and 128: 1 and 4 chunks; the sharded path: 5
+// chunks, 160 KB, beside 3 slabs of 17 KB).  Otherwise (N_T = 1024, the
+// heavy halo's 19 chunks) a first small kernel splits W into the wrapper's
+// scratch, padded with zeros to a multiple of TM rows and to each list's
+// chunks (the pair counts as one launch), and each stage carries its chunk of
+// W_hi and W_lo (16-byte cp.async) beside its slab.  CTAs are persistent:
+// tile t = (column tile t / mt, receiver tile t % mt), CTA b takes tiles b, b
+// + G, …, so the mt CTAs that read one slab run together and L2 serves the
+// repeats.  Every receiver's sum runs over the senders in order, 8 at a time,
+// with no split over senders and no atomics, and the chunk sums in order: the
+// result is the same on every run.  A receiver whose weights are all zero
+// gets exact zeros; ragged L, M and list tails are masked or zero-filled.
+// Each thread stores its accumulators straight from the wgmma layout (a warp
+// writes 4 rows × 32 contiguous bytes per store).
 //
-// Kernel 1 on bfloat16 senders and kernel 2 (mix_all_kernel): a register-
-// tiled SIMT product.  A CTA owns TM receivers × TL columns.  It walks a
-// list of senders, first the N1 rows of X1 under W1's columns and then the
-// N2 rows of X2 under W2's (kernel 1 has N2 = 0; kernel 2 has X1 = local,
-// X2 = halo), KC sender rows at a time, staging each (KC, TL) slab and the
-// matching (TM, KC) block of weights in shared memory, in two buffers: the
-// asynchronous copies (cp.async) of the next chunk are in flight while the
-// current one is multiplied.  So each element of the senders is read from
-// device memory once for all TM receivers, local and halo slab alike (with
-// M > TM the slabs are read once per receiver tile).  Each of the 256
-// threads keeps kRm × RL sums in registers: receivers ty·kRm … ty·kRm + kRm
-// − 1 (weights read as float4 from shared memory), columns tx, tx + TX, …
-// (conflict-free shared-memory reads, coalesced stores).  Any N1, N2 works
-// (the last chunk is zero-filled); the ragged L and M tails are masked, not
-// padded.  Each sum runs over the sender list in order, one FMA at a time,
-// so the result is the same on every run.  A receiver whose weights are all
-// zero gets a row of zeros.
+// Kernels 1 and 2 on bfloat16 senders (mix_all_kernel): a register-tiled
+// SIMT product.  A CTA owns TM receivers × TL columns.  It walks the same
+// two lists of senders, KC sender rows at a time, staging each (KC, TL) slab
+// (widened to float32) and the matching (TM, KC) block of weights in shared
+// memory, in two buffers: the asynchronous copies (cp.async) of the next
+// chunk's weights are in flight while the current one is multiplied.  So each
+// element of the senders is read from device memory once for all TM
+// receivers, local and halo slab alike (with M > TM the slabs are read once
+// per receiver tile).  Each of the 256 threads keeps kRm × RL sums in
+// registers: receivers ty·kRm … ty·kRm + kRm − 1 (weights read as float4 from
+// shared memory), columns tx, tx + TX, … (conflict-free shared-memory reads,
+// coalesced stores).  Any N1, N2 works (the last chunk is zero-filled); the
+// ragged L and M tails are masked, not padded.  Each sum runs over the sender
+// list in order, one FMA at a time, so the result is the same on every run.
+// A receiver whose weights are all zero gets a row of zeros.
 //
 // Design of kernel 3: M = 1 would leave most threads of the tiled product
 // idle, so it is a stream of its own.  Each thread owns 4 neighbouring
@@ -102,7 +110,6 @@
 
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
@@ -133,9 +140,9 @@ __device__ __forceinline__ void cp_async_wait_one() {
 
 // Stage senders n0 … n0 + KC − 1 of the list at the CTA's columns, and the
 // matching (TM, KC) block of weights transposed, into one shared-memory
-// buffer.  Float32 senders are copied asynchronously; bfloat16 ones are
-// widened on the way.  kTwo = false compiles the one-list product of
-// kernel 1 without the choice between the lists.
+// buffer: the bfloat16 senders widened on the way, the weights copied
+// asynchronously.  kTwo = false compiles the one-list product of kernel 1
+// without the choice between the lists.
 template <typename T, int TM, int TL, int KC, bool kTwo>
 __device__ __forceinline__ void stage(const T* X1, const float* W1, int N1, const T* X2,
                                       const float* W2, int N2, float (*xs)[TL],
@@ -148,11 +155,7 @@ __device__ __forceinline__ void stage(const T* X1, const float* W1, int N1, cons
     const long long l = l0 + c;
     const bool ok = n < N && l < L;
     const T* row = (!kTwo || n < N1) ? X1 + (size_t)n * L : X2 + (size_t)(n - N1) * L;
-    if constexpr (std::is_same<T, float>::value) {
-      cp_async4(&xs[k][c], ok ? row + l : X1, ok);
-    } else {
-      xs[k][c] = ok ? to_f32(row[l]) : 0.0f;
-    }
+    xs[k][c] = ok ? to_f32(row[l]) : 0.0f;
   }
   for (int e = tid; e < KC * TM; e += kThreads) {
     const int k = e / TM, m = e % TM;
@@ -245,11 +248,11 @@ int launch_tile(const T* X1, const float* W1, int N1, const T* X2, const float* 
   return (int)cudaGetLastError();
 }
 
-// The senders of one product: N1 rows of X1 under the columns of W1
-// (M, N1), then N2 rows of X2 under the columns of W2 (M, N2).
-template <typename T>
+// The bfloat16 senders of one product: N1 rows of X1 under the columns of
+// W1 (M, N1), then N2 rows of X2 under the columns of W2 (M, N2).
 int launch_mix(const void* X1, const void* W1, int N1, const void* X2, const void* W2, int N2,
                void* out, int M, long long L, void* stream) {
+  using T = __nv_bfloat16;
   const T* x1 = static_cast<const T*>(X1);
   const T* x2 = static_cast<const T*>(X2);
   const float* w1 = static_cast<const float*>(W1);
@@ -263,7 +266,7 @@ int launch_mix(const void* X1, const void* W1, int N1, const void* X2, const voi
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 1 on float32 senders: 3×TF32 wgmma (see the note at the top).
+// Kernels 1 and 2 on float32 senders: 3×TF32 wgmma (see the note at the top).
 
 namespace tc {
 
@@ -271,24 +274,57 @@ constexpr int kThreads = 256;               // two warpgroups
 constexpr int kKC = 32;                     // senders per chunk: one 128-byte row of W
 constexpr int kTL = 128;                    // columns of X per tile, 64 per warpgroup
 constexpr int kXPitch = kTL + 8;            // floats; ≡ 8 (mod 32): conflict-free fragment reads
-constexpr int kStages = 4;                  // ring of X slabs (and of W chunks when W streams)
+constexpr int kMaxSmem = 232448;            // bytes of shared memory a block may opt in to (H100)
+constexpr int kAlign = 1024;                // slack for the 1024-byte alignment of the base
 constexpr int kMaxDevices = 64;
 
-// KS k-steps of 8 senders per chunk: 4, or 2 where N ≤ 16 (the slabs are
-// then 16 rows, and the wgmma descriptors read the first 64 bytes of W's rows).
+// KS k-steps of 8 senders per chunk: 4, or 2 where each list has at most 16
+// senders (the slabs are then 16 rows, and the wgmma descriptors read the
+// first 64 bytes of W's rows).
 template <int TM, int KS>
-struct Smem {                               // byte offsets from a 1024-aligned base
+struct Smem {                               // bytes; from a 1024-aligned base the X ring, then W
   static constexpr int kWTile = TM * kKC * 4;   // one chunk of W_hi (or W_lo): TM rows × 128 bytes
   static constexpr int kWSlot = 2 * kWTile;     // W_hi, then W_lo
-  static constexpr int kX = kStages * kWSlot;   // kStages W slots: the ring, or ≤ kStages resident chunks
   static constexpr int kXStage = 8 * KS * kXPitch * 4;   // bytes of one slab
-  static constexpr int kBytes = kX + kStages * kXStage;
+};
+
+// The senders of one product, one virtual list: the N1 rows of X1 under W1's
+// (M, N1) columns, then the N2 rows of X2 under W2's (M, N2) (gossip_mix_all
+// has N2 = 0).  Each list is padded to whole chunks of 32 senders, so that a
+// chunk's slab comes from one base pointer: chunks 0 … nc1 − 1 are X1's, nc1 …
+// nc − 1 X2's, and W's padded columns follow the same chunks, zero-filled.
+struct Lists {
+  const float* X1;
+  const float* W1;
+  int N1;
+  const float* X2;
+  const float* W2;
+  int N2;
+  int nc1;
 };
 
 int tile_m(int M) { return M <= 16 ? 16 : M <= 32 ? 32 : M <= 64 ? 64 : 128; }
-int chunks(int N) { return N > kKC ? (N + kKC - 1) / kKC : 1; }
-// All of W for one receiver tile stays in shared memory, split by the kernel itself.
-bool resident(int M, int N) { return M <= 128 && chunks(N) <= kStages; }
+int k_steps(int N1, int N2) { return N1 <= 16 && N2 <= 16 ? 2 : 4; }
+int chunks1(int N) { return N > kKC ? (N + kKC - 1) / kKC : 1; }
+int chunks2(int N) { return (N + kKC - 1) / kKC; }
+
+// Shared memory of one launch: W resident (one receiver tile, all nc chunks
+// split by each CTA itself) where it fits beside a ring of at least 3 slabs,
+// else streamed through the ring beside X.  The ring has 4 stages where they fit.
+struct Plan {
+  int mt, nc, resident, stages, smem;
+};
+
+Plan plan(int M, int N1, int N2) {
+  const int TM = tile_m(M), w = 2 * TM * kKC * 4, x = 8 * k_steps(N1, N2) * kXPitch * 4;
+  Plan p;
+  p.mt = (M + TM - 1) / TM;
+  p.nc = chunks1(N1) + chunks2(N2);
+  p.resident = M <= TM && p.nc * w + 3 * x + kAlign <= kMaxSmem;
+  p.stages = !p.resident || p.nc * w + 4 * x + kAlign <= kMaxSmem ? 4 : 3;
+  p.smem = (p.resident ? p.nc : p.stages) * w + p.stages * x + kAlign;
+  return p;
+}
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
@@ -302,14 +338,22 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
-// W (M, N) -> W_hi, W_lo (Mp, Np), zeros outside W.
-__global__ void split_w_kernel(const float* __restrict__ W, float* __restrict__ hi,
-                               float* __restrict__ lo, int M, int N, int Np, long long count) {
+// Column n (chunk n / 32) of the virtual list's padded weights at receiver
+// r: W1's or W2's, zero outside them.
+__device__ __forceinline__ float w_at(const Lists& s, int M, int r, int n) {
+  if (r >= M) return 0.0f;
+  if (n < s.nc1 * kKC) return n < s.N1 ? __ldg(s.W1 + (size_t)r * s.N1 + n) : 0.0f;
+  n -= s.nc1 * kKC;
+  return n < s.N2 ? __ldg(s.W2 + (size_t)r * s.N2 + n) : 0.0f;
+}
+
+// [W1 | W2] -> W_hi, W_lo (Mp, Np), each list's columns padded to whole chunks.
+__global__ void split_w_kernel(Lists s, float* __restrict__ hi, float* __restrict__ lo, int M,
+                               int Np, long long count) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= count) return;
-  const int m = (int)(i / Np), n = (int)(i % Np);
   uint32_t h, l;
-  split_tf32(m < M && n < N ? W[(size_t)m * N + n] : 0.0f, h, l);
+  split_tf32(w_at(s, M, (int)(i / Np), (int)(i % Np)), h, l);
   hi[i] = __uint_as_float(h);
   lo[i] = __uint_as_float(l);
 }
@@ -377,15 +421,16 @@ __device__ __forceinline__ void load_w(uint32_t slot, const float* Whi, const fl
   }
 }
 
-// All nc chunks of W (M ≤ TM receivers) split into TF32 halves -> slots 0 …
-// nc − 1, zeros outside W.
+// All nc chunks of [W1 | W2] (M ≤ TM receivers) split into TF32 halves ->
+// slots 0 … nc − 1, zeros outside W (unrolled, so that a thread's loads overlap).
 template <int TM>
-__device__ __forceinline__ void split_w_resident(uint8_t* wsm, const float* W, int M, int N,
-                                                 int nc, int tid) {
+__device__ __forceinline__ void split_w_resident(uint8_t* wsm, const Lists& s, int M, int nc,
+                                                 int tid) {
+#pragma unroll 8
   for (int e = tid; e < nc * TM * kKC; e += kThreads) {
-    const int c = e / (TM * kKC), r = (e / kKC) % TM, q = e % kKC, n = c * kKC + q;
+    const int c = e / (TM * kKC), r = (e / kKC) % TM, q = e % kKC;
     uint32_t h, l;
-    split_tf32(r < M && n < N ? __ldg(W + (size_t)r * N + n) : 0.0f, h, l);
+    split_tf32(w_at(s, M, r, c * kKC + q), h, l);
     uint8_t* at = wsm + c * 2 * TM * kKC * 4 + w_offset(r, q);
     *reinterpret_cast<uint32_t*>(at) = h;
     *reinterpret_cast<uint32_t*>(at + TM * kKC * 4) = l;
@@ -488,61 +533,65 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a
   else wgmma_tf32_n128(d, a, b, add);
 }
 
-template <int TM, int KS>
+// ST stages in the ring of X slabs (and of W chunks where W streams); kTwo:
+// a second list (N2 > 0), else the one-list product compiles without the
+// choice between the lists.
+template <int TM, int KS, int ST, bool kTwo>
 __global__ void __launch_bounds__(kThreads, 1)
-mix_tf32_kernel(const float* __restrict__ X, const float* __restrict__ W,
-                const float* __restrict__ Whi, const float* __restrict__ Wlo,
-                float* __restrict__ out, int M, int N, long long L, int Np, int vec,
-                int resident) {
+mix_tf32_kernel(Lists s, const float* __restrict__ Whi, const float* __restrict__ Wlo,
+                float* __restrict__ out, int M, long long L, int nc, int vec, int resident) {
   using S = Smem<TM, KS>;
+  constexpr int kW = ST * S::kXStage;         // W's slots follow the ring of X slabs
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* sm = smem_raw + (base - raw);
-  const float* xsm = reinterpret_cast<const float*>(sm + S::kX);
+  const float* xsm = reinterpret_cast<const float*>(sm);
 
   const int tid = threadIdx.x;
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
   const int t = lane % 4;
   const int lrow = 64 * wg + 16 * warp + lane / 4;   // this thread's columns: lrow, lrow + 8
 
-  const int nc = (Np + kKC - 1) / kKC;
+  const int Np = nc * kKC;
   const int mt = (M + TM - 1) / TM;
   const long long ntiles = (L + kTL - 1) / kTL * mt;
   if (blockIdx.x >= ntiles) return;
   const long long total = ((ntiles - 1 - blockIdx.x) / gridDim.x + 1) * nc;
 
-  // The loader runs kStages − 1 iterations ahead of the multiply.
+  // The loader runs ST − 1 iterations ahead of the multiply.
   long long ld_tile = blockIdx.x, ld_it = 0;
   int ld_c = 0, ld_s = 0;
   auto load_next = [&]() {
     if (ld_it < total) {
-      load_x<8 * KS>(base + S::kX + ld_s * S::kXStage, X, N, L, ld_c * kKC, ld_tile / mt * kTL,
-                     vec != 0, tid);
+      const bool one = !kTwo || ld_c < s.nc1;   // the chunk's list
+      load_x<8 * KS>(base + ld_s * S::kXStage, one ? s.X1 : s.X2, one ? s.N1 : s.N2, L,
+                     (one ? ld_c : ld_c - s.nc1) * kKC, ld_tile / mt * kTL, vec != 0, tid);
       if (!resident)
-        load_w<TM>(base + ld_s * S::kWSlot, Whi, Wlo, Np, (int)(ld_tile % mt) * TM, ld_c, tid);
+        load_w<TM>(base + kW + ld_s * S::kWSlot, Whi, Wlo, Np, (int)(ld_tile % mt) * TM, ld_c,
+                   tid);
       if (++ld_c == nc) {
         ld_c = 0;
         ld_tile += gridDim.x;
       }
-      ld_s = ld_s + 1 == kStages ? 0 : ld_s + 1;
+      ld_s = ld_s + 1 == ST ? 0 : ld_s + 1;
     }
     ++ld_it;
     asm volatile("cp.async.commit_group;\n" ::);
   };
 
-  for (int s = 0; s < kStages - 1; ++s) load_next();
-  // one receiver tile, nc ≤ kStages: all of W, split here once (the first
-  // iteration's proxy fence and barrier publish it to wgmma)
-  if (resident) split_w_resident<TM>(sm, W, M, N, nc, tid);
+  for (int st = 0; st < ST - 1; ++st) load_next();
+  // one receiver tile: all of W, split here once (the first iteration's
+  // proxy fence and barrier publish it to wgmma)
+  if (resident) split_w_resident<TM>(sm + kW, s, M, nc, tid);
 
   float acc[TM / 2], part[TM / 2];           // the tile's sum; one chunk's, on the tensor cores
 #pragma unroll
   for (int i = 0; i < TM / 2; ++i) acc[i] = part[i] = 0.0f;
   long long tile = blockIdx.x;
-  int c = 0, s = 0;
+  int c = 0, st = 0;
   for (long long it = 0; it < total; ++it) {
-    cp_async_wait<kStages - 2>();            // this thread's copies of iteration it have landed
+    cp_async_wait<ST - 2>();                 // this thread's copies of iteration it have landed
     // wgmma reads W through the async proxy: order this thread's generic
     // writes of it (the cp.async copies of a streamed chunk, or
     // split_w_resident's stores before the first iteration) ahead of those
@@ -553,7 +602,7 @@ mix_tf32_kernel(const float* __restrict__ X, const float* __restrict__ W,
     load_next();
 
     // A fragments of the chunk's KS k-steps, split into TF32 halves
-    const float* xs = xsm + s * (S::kXStage / 4) + lrow;
+    const float* xs = xsm + st * (S::kXStage / 4) + lrow;
     uint32_t ah[KS][4], al[KS][4];
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
@@ -564,7 +613,7 @@ mix_tf32_kernel(const float* __restrict__ X, const float* __restrict__ W,
       split_tf32(r1[0], ah[ks][2], al[ks][2]);
       split_tf32(r1[8], ah[ks][3], al[ks][3]);
     }
-    const uint32_t wslot = base + (resident ? c : s) * S::kWSlot;
+    const uint32_t wslot = base + kW + (resident ? c : st) * S::kWSlot;
     pin(part);
     wgmma_fence();
 #pragma unroll
@@ -599,75 +648,92 @@ mix_tf32_kernel(const float* __restrict__ X, const float* __restrict__ W,
       c = 0;
       tile += gridDim.x;
     }
-    s = s + 1 == kStages ? 0 : s + 1;
+    st = st + 1 == ST ? 0 : st + 1;
   }
   cp_async_wait<0>();
 }
 
-template <int TM, int KS>
-int launch_tm(const float* X, const float* W, float* out, float* scratch, int M, int N,
-              long long L, cudaStream_t stream) {
-  constexpr int kSmem = Smem<TM, KS>::kBytes + 1024;   // + slack for the 1024-byte alignment
-  static int occupancy[kMaxDevices];                   // CTAs per SM, per device; 0 = not asked
+template <int TM, int KS, int ST, bool kTwo>
+int launch_st(const Lists& s, const Plan& p, float* out, float* scratch, int M, long long L,
+              cudaStream_t stream) {
+  static bool opted[kMaxDevices];                      // the shared-memory opt-in is set
+  static int occ_smem[kMaxDevices], occupancy[kMaxDevices];   // CTAs per SM at occ_smem bytes
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (occupancy[dev] == 0) {
-    err = cudaFuncSetAttribute(mix_tf32_kernel<TM, KS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occupancy[dev], mix_tf32_kernel<TM, KS>,
-                                                          kThreads, kSmem);
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(mix_tf32_kernel<TM, KS, ST, kTwo>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    opted[dev] = true;
+  }
+  if (occ_smem[dev] != p.smem) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occupancy[dev], mix_tf32_kernel<TM, KS, ST, kTwo>, kThreads, p.smem);
     if (err != cudaSuccess) return (int)err;
     if (occupancy[dev] < 1) return (int)cudaErrorInvalidConfiguration;
+    occ_smem[dev] = p.smem;
   }
 
-  const int mt = (M + TM - 1) / TM, nc = chunks(N), Np = nc * kKC;
-  const bool res = resident(M, N);
+  const int Np = p.nc * kKC;
   float* hi = scratch;
-  float* lo = scratch + (long long)mt * TM * Np;
-  if (!res) {                                // W streams: split it once into the scratch
-    const long long count = (long long)mt * TM * Np;
-    split_w_kernel<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(W, hi, lo, M, N, Np,
-                                                                        count);
+  float* lo = scratch + (long long)p.mt * TM * Np;
+  if (!p.resident) {                         // W streams: split it once into the scratch
+    const long long count = (long long)p.mt * TM * Np;
+    split_w_kernel<<<(unsigned)((count + 255) / 256), 256, 0, stream>>>(s, hi, lo, M, Np, count);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
 
-  const long long ntiles = (L + kTL - 1) / kTL * mt;
+  const long long ntiles = (L + kTL - 1) / kTL * p.mt;
   const long long slots = (long long)sms * occupancy[dev];
   const unsigned grid = (unsigned)(ntiles < slots ? ntiles : slots);
-  const int vec = L % 2 == 0 && (size_t)X % 8 == 0;
-  mix_tf32_kernel<TM, KS><<<grid, kThreads, kSmem, stream>>>(X, W, hi, lo, out, M, N, L, Np, vec,
-                                                             res);
+  const int vec = L % 2 == 0 && (size_t)s.X1 % 8 == 0 && (size_t)s.X2 % 8 == 0;
+  mix_tf32_kernel<TM, KS, ST, kTwo><<<grid, kThreads, p.smem, stream>>>(s, hi, lo, out, M, L,
+                                                                        p.nc, vec, p.resident);
   return (int)cudaGetLastError();
 }
 
-long long scratch_floats(int M, int N) {
-  const int TM = tile_m(M);
-  return resident(M, N) ? 0 : 2LL * ((M + TM - 1) / TM) * TM * chunks(N) * kKC;
+// The ring has 3 stages only where W's resident chunks leave no room for 4:
+// more than two chunks, so 4 k-steps a chunk.
+template <int TM, int KS>
+int launch_tm(const Lists& s, float* out, float* scratch, int M, long long L,
+              cudaStream_t stream) {
+  const Plan p = plan(M, s.N1, s.N2);
+  if constexpr (KS == 4)
+    if (p.stages == 3)
+      return s.N2 ? launch_st<TM, KS, 3, true>(s, p, out, scratch, M, L, stream)
+                  : launch_st<TM, KS, 3, false>(s, p, out, scratch, M, L, stream);
+  return s.N2 ? launch_st<TM, KS, 4, true>(s, p, out, scratch, M, L, stream)
+              : launch_st<TM, KS, 4, false>(s, p, out, scratch, M, L, stream);
+}
+
+long long scratch_floats(int M, int N1, int N2) {
+  const Plan p = plan(M, N1, N2);
+  return p.resident ? 0 : 2LL * p.mt * tile_m(M) * p.nc * kKC;
 }
 
 template <int KS>
-int launch_ks(const float* x, const float* w, float* o, float* sc, int M, int N, long long L,
-              cudaStream_t s) {
+int launch_ks(const Lists& s, float* o, float* sc, int M, long long L, cudaStream_t st) {
   switch (tile_m(M)) {
-    case 16: return launch_tm<16, KS>(x, w, o, sc, M, N, L, s);
-    case 32: return launch_tm<32, KS>(x, w, o, sc, M, N, L, s);
-    case 64: return launch_tm<64, KS>(x, w, o, sc, M, N, L, s);
-    default: return launch_tm<128, KS>(x, w, o, sc, M, N, L, s);
+    case 16: return launch_tm<16, KS>(s, o, sc, M, L, st);
+    case 32: return launch_tm<32, KS>(s, o, sc, M, L, st);
+    case 64: return launch_tm<64, KS>(s, o, sc, M, L, st);
+    default: return launch_tm<128, KS>(s, o, sc, M, L, st);
   }
 }
 
-int launch(const void* X, const void* W, void* out, void* scratch, int M, int N, long long L,
-           void* stream) {
-  const float* x = static_cast<const float*>(X);
-  const float* w = static_cast<const float*>(W);
+// out (M, L) = W1 (M, N1) @ X1 (N1, L) + W2 (M, N2) @ X2 (N2, L).
+int launch(const void* X1, const void* W1, int N1, const void* X2, const void* W2, int N2,
+           void* out, void* scratch, int M, long long L, void* stream) {
+  const Lists s{static_cast<const float*>(X1), static_cast<const float*>(W1), N1,
+                static_cast<const float*>(X2), static_cast<const float*>(W2), N2, chunks1(N1)};
   float* o = static_cast<float*>(out);
   float* sc = static_cast<float*>(scratch);
-  const auto s = static_cast<cudaStream_t>(stream);
-  return N <= 16 ? launch_ks<2>(x, w, o, sc, M, N, L, s) : launch_ks<4>(x, w, o, sc, M, N, L, s);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return k_steps(N1, N2) == 2 ? launch_ks<2>(s, o, sc, M, L, st)
+                              : launch_ks<4>(s, o, sc, M, L, st);
 }
 
 }  // namespace tc
@@ -735,28 +801,31 @@ int launch_one(const void* X, const void* w, void* out, int N, long long L, void
 
 extern "C" {
 
-// Float32 words of scratch that gossip_mix_all_f32 needs: W_hi and W_lo,
-// padded to whole receiver tiles and 32-sender chunks.
-long long gossip_mix_all_scratch_floats(int M, int N) { return tc::scratch_floats(M, N); }
+// Float32 words of scratch that gossip_mix_all_f32 and gossip_mix_block_f32
+// need: W_hi and W_lo where W streams, padded to whole receiver tiles and
+// 32-sender chunks of each list; 0 where W stays in shared memory.
+long long gossip_mix_all_scratch_floats(int M, int N) { return tc::scratch_floats(M, N, 0); }
+
+long long gossip_mix_block_scratch_floats(int m, int H) { return tc::scratch_floats(m, m, H); }
 
 int gossip_mix_all_f32(const void* X, const void* W, void* out, void* scratch, int M, int N,
                        long long L, void* stream) {
-  return tc::launch(X, W, out, scratch, M, N, L, stream);
+  return tc::launch(X, W, N, X, W, 0, out, scratch, M, L, stream);
 }
 
 int gossip_mix_all_bf16(const void* X, const void* W, void* out, int M, int N, long long L,
                         void* stream) {
-  return launch_mix<__nv_bfloat16>(X, W, N, X, W, 0, out, M, L, stream);
+  return launch_mix(X, W, N, X, W, 0, out, M, L, stream);
 }
 
 int gossip_mix_block_f32(const void* local, const void* Wb, const void* halo, const void* Wh,
-                         void* out, int m, int H, long long L, void* stream) {
-  return launch_mix<float>(local, Wb, m, halo, Wh, H, out, m, L, stream);
+                         void* out, void* scratch, int m, int H, long long L, void* stream) {
+  return tc::launch(local, Wb, m, halo, Wh, H, out, scratch, m, L, stream);
 }
 
 int gossip_mix_block_bf16(const void* local, const void* Wb, const void* halo, const void* Wh,
                           void* out, int m, int H, long long L, void* stream) {
-  return launch_mix<__nv_bfloat16>(local, Wb, m, halo, Wh, H, out, m, L, stream);
+  return launch_mix(local, Wb, m, halo, Wh, H, out, m, L, stream);
 }
 
 int gossip_mix_f32(const void* X, const void* w, void* out, int N, long long L, void* stream) {

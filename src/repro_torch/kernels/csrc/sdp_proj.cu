@@ -38,11 +38,27 @@
 //   the second.
 //
 // rank_k_update: out = Y − A Bᵀ without building the (n, n) outer product.
-//   Bound: bytes (read Y and write out: 22.2 MB at n = 1665, ~6.6 us).
-//   Design: 2-D output tiles of kTileR × kTileC; the tile's A rows and B rows
-//   are staged in shared memory kKc columns at a time, each thread keeps
-//   kTileR / 4 accumulators and reads its Y elements once, coalesced, at the
-//   end.  Output is in Y's dtype.
+//   Bound: bytes (read Y and write out: 22.2 MB at n = 1665, ~6.6 us);
+//   2·n²·k = 88.7 MFLOP is 1.3 us of float32 FMA, so the tensor cores are no
+//   lever.  What costs time is the latency of Y.  Design: a CTA of 128
+//   threads owns 32 rows of out in a strip of at most 128 columns, one column
+//   a thread; the strips split n evenly (grid at n = 1665: 14 strips of 119
+//   columns × 53 row blocks = 742 CTAs, one wave, every CTA the same work).
+//   Each thread first issues the cp.async copies of its column's 32 Y values
+//   (4-byte copies: n is odd, so rows are only 4-byte aligned) in 2 commit
+//   groups of 16 rows, so 15 KB of Y per CTA is in flight before anything
+//   else; then the CTA stages its 32 A rows in shared memory, each thread
+//   loads its column's row of B into registers, and the products run while Y
+//   is on its way (A read as float4, one address a warp), one group of 16 rows
+//   at a time: each group's sums, then, as its copies land, out = Y − acc for
+//   its rows while the second group is still in flight.  A thread reads back
+//   only the Y values it copied itself, so Y needs no barrier.  A and B are
+//   read from L2 once per CTA (2 KB and 7.5 KB).  k > 16 runs in steps of 16
+//   columns of A and B, each group's rows of A restaged for each step.
+//   scripts/rank_k_variants.py times the tile shapes against each other.
+//   Each output is acc = Σ_j A[r, j]·B[c, j] by fmaf in j order, then Y −
+//   acc: the same on every run.  Output is in Y's dtype (bfloat16 Y is loaded
+//   and widened, not copied asynchronously).
 //
 // Y, V, A, B are float32 or bfloat16 (one dtype per call); every sum is
 // float32.  Each entry point returns the cudaError_t of its launches.
@@ -68,12 +84,10 @@ constexpr int kPartSmem = (kSplit * kVPitch + kPartRows * kSplit) * 4;   // V sl
 constexpr int kFinRows = 64;           // rows per block of the finishing kernel
 constexpr int kMaxDevices = 64;
 
-constexpr int kTileR = 32;             // rank-k output tile rows
-constexpr int kTileC = 64;             // rank-k output tile columns
-constexpr int kKc = 16;                // rank-k depth per shared-memory step
-constexpr int kRkThreads = 256;
-constexpr int kRkRowsPerThread = kTileR * kTileC / kRkThreads;
-constexpr int kRkRowStride = kRkThreads / kTileC;
+constexpr int kRkCols = 128;           // rank-k columns per CTA, one a thread
+constexpr int kRkRows = 32;            // rank-k rows per CTA
+constexpr int kRkGroup = 16;           // rows per copy group of Y
+constexpr int kRkKc = 16;              // columns of A and B per step
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -309,52 +323,94 @@ subspace_finish_kernel(const T* __restrict__ V, const float* __restrict__ YVp,
   }
 }
 
+// Rows g·16 … g·16 + 15 of the CTA's as, columns j0 … j0 + 15 of A (zeros outside A).
 template <typename T>
-__global__ void __launch_bounds__(kRkThreads)
-rank_k_kernel(const T* __restrict__ Y, const T* __restrict__ A,
-              const T* __restrict__ B, T* __restrict__ out, int n, int k) {
-  __shared__ float as[kTileR][kKc + 1];
-  __shared__ float bs[kTileC][kKc + 1];
+__device__ __forceinline__ void stage_a(float (*as)[kRkKc], const T* A, int n, int k, int r0,
+                                        int g, int j0, int tid) {
+#pragma unroll
+  for (int q = 0; q < kRkGroup * kRkKc / kRkCols; ++q) {
+    const int e = tid + q * kRkCols, rr = g * kRkGroup + e / kRkKc, jj = e % kRkKc;
+    const int r = r0 + rr, j = j0 + jj;
+    as[rr][jj] = r < n && j < k ? to_f32(A[(size_t)r * k + j]) : 0.f;
+  }
+}
+
+// Columns j0 … j0 + 15 of B's row c (zeros outside B).
+template <typename T>
+__device__ __forceinline__ void load_b(float (&b)[kRkKc], const T* B, int n, int k, int c,
+                                       int j0) {
+#pragma unroll
+  for (int jj = 0; jj < kRkKc; ++jj)
+    b[jj] = c < n && j0 + jj < k ? to_f32(B[(size_t)c * k + j0 + jj]) : 0.f;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRkCols)
+rank_k_kernel(const T* __restrict__ Y, const T* __restrict__ A, const T* __restrict__ B,
+              T* __restrict__ out, int n, int k) {
+  constexpr int kYGroups = kRkRows / kRkGroup;
+  static_assert(kYGroups == 2, "rank_k_kernel waits for two copy groups");
+  __shared__ float ys[kRkRows][kRkCols];
+  __shared__ __align__(16) float as[kRkRows][kRkKc];
 
   const int tid = threadIdx.x;
-  const int r0 = blockIdx.y * kTileR;
-  const int c0 = blockIdx.x * kTileC;
-  const int c = tid % kTileC;
-  const int rb = tid / kTileC;
-  float acc[kRkRowsPerThread];
-#pragma unroll
-  for (int q = 0; q < kRkRowsPerThread; ++q) acc[q] = 0.f;
+  const int width = (n + gridDim.x - 1) / gridDim.x;   // strips of equal width, ≤ kRkCols
+  const int c = tid < width ? blockIdx.x * width + tid : n;
+  const int r0 = blockIdx.y * kRkRows;
 
-  for (int j0 = 0; j0 < k; j0 += kKc) {
-    for (int idx = tid; idx < kTileR * kKc; idx += kRkThreads) {
-      const int rr = idx / kKc, jj = idx % kKc;
-      const int gr = r0 + rr, gj = j0 + jj;
-      as[rr][jj] = (gr < n && gj < k) ? to_f32(A[(size_t)gr * k + gj]) : 0.f;
-    }
-    for (int idx = tid; idx < kTileC * kKc; idx += kRkThreads) {
-      const int cc = idx / kKc, jj = idx % kKc;
-      const int gc = c0 + cc, gj = j0 + jj;
-      bs[cc][jj] = (gc < n && gj < k) ? to_f32(B[(size_t)gc * k + gj]) : 0.f;
-    }
-    __syncthreads();
+  // this thread's column of the CTA's Y rows, first, in two groups (not
+  // unrolled: a bfloat16 group's 16 loads are all the registers it holds)
+#pragma unroll 1
+  for (int g = 0; g < kYGroups; ++g) {
 #pragma unroll
-    for (int jj = 0; jj < kKc; ++jj) {
-      const float b = bs[c][jj];
-#pragma unroll
-      for (int q = 0; q < kRkRowsPerThread; ++q)
-        acc[q] = fmaf(as[rb + kRkRowStride * q][jj], b, acc[q]);
+    for (int i = 0; i < kRkGroup; ++i) {
+      const int rr = g * kRkGroup + i, r = r0 + rr;
+      stage(&ys[rr][tid], Y, (size_t)r * n + c, r < n && c < n);
     }
-    __syncthreads();
+    asm volatile("cp.async.commit_group;\n" ::);
   }
 
-  const int gc = c0 + c;
-  if (gc >= n) return;
+  // k ≤ 16: all 32 rows of A and the row of B once
+  const bool one_step = k <= kRkKc;
+  float b[kRkKc];
+  if (one_step) {
 #pragma unroll
-  for (int q = 0; q < kRkRowsPerThread; ++q) {
-    const int gr = r0 + rb + kRkRowStride * q;
-    if (gr < n) {
-      const size_t at = (size_t)gr * n + gc;
-      out[at] = from_f32<T>(to_f32(Y[at]) - acc[q]);
+    for (int g = 0; g < kYGroups; ++g) stage_a(as, A, n, k, r0, g, 0, tid);
+    load_b(b, B, n, k, c, 0);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int g = 0; g < kYGroups; ++g) {
+    float acc[kRkGroup];
+#pragma unroll
+    for (int i = 0; i < kRkGroup; ++i) acc[i] = 0.f;
+    for (int j0 = 0; j0 < k; j0 += kRkKc) {
+      if (!one_step) {                       // the group's rows of A and B's, step by step
+        __syncthreads();                     // everyone is done with these rows of as
+        stage_a(as, A, n, k, r0, g, j0, tid);
+        load_b(b, B, n, k, c, j0);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < kRkGroup; ++i) {
+        const float4* a4 = reinterpret_cast<const float4*>(as[g * kRkGroup + i]);
+#pragma unroll
+        for (int q = 0; q < kRkKc / 4; ++q) {
+          const float4 a = a4[q];
+          acc[i] = fmaf(a.x, b[4 * q], acc[i]);
+          acc[i] = fmaf(a.y, b[4 * q + 1], acc[i]);
+          acc[i] = fmaf(a.z, b[4 * q + 2], acc[i]);
+          acc[i] = fmaf(a.w, b[4 * q + 3], acc[i]);
+        }
+      }
+    }
+    // group g's copies have landed (the later groups may still be in flight)
+    if (g == 0) cp_async_wait<1>();
+    else cp_async_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kRkGroup; ++i) {
+      const int rr = g * kRkGroup + i, r = r0 + rr;
+      if (r < n && c < n) out[(size_t)r * n + c] = from_f32<T>(ys[rr][tid] - acc[i]);
     }
   }
 }
@@ -399,8 +455,8 @@ int launch_subspace(const void* Y, const void* V, void* YV, void* G, void* ss,
 template <typename T>
 int launch_rank_k(const void* Y, const void* A, const void* B, void* out, int n,
                   int k, void* stream) {
-  const dim3 grid((n + kTileC - 1) / kTileC, (n + kTileR - 1) / kTileR);
-  rank_k_kernel<T><<<grid, kRkThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((n + kRkCols - 1) / kRkCols, (n + kRkRows - 1) / kRkRows);
+  rank_k_kernel<T><<<grid, kRkCols, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(Y), static_cast<const T*>(A), static_cast<const T*>(B),
       static_cast<T*>(out), n, k);
   return (int)cudaGetLastError();

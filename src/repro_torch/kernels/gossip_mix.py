@@ -23,17 +23,19 @@ device: on CUDA tensors it launches its hand-written kernel
 (``csrc/gossip_mix.cu``) or raises; on CPU tensors it runs its plain
 version.  ``<wrapper>.launches`` counts kernel launches.
 
-On float32 senders ``gossip_mix_all`` runs on the tensor cores in three
-TF32 products: with ``split_tf32``'s halves of X and W, ``X_lo·W_hi +
-X_hi·W_lo + X_hi·W_hi`` drops only terms below 2^-22 of each product,
-where one TF32 product would miss the float32 exchange's 1e-5
-(tests/test_torch_fl_kernels.py models the arithmetic).  Each chunk of 32
-senders is summed on the tensor cores and the chunk sums are added in
+On float32 senders ``gossip_mix_all`` and ``gossip_mix_block`` run on the
+tensor cores in three TF32 products: with ``split_tf32``'s halves of X and
+W, ``X_lo·W_hi + X_hi·W_lo + X_hi·W_hi`` drops only terms below 2^-22 of
+each product, where one TF32 product would miss the float32 exchange's
+1e-5 (tests/test_torch_fl_kernels.py models the arithmetic).  Each chunk of
+32 senders is summed on the tensor cores and the chunk sums are added in
 float32, in order, so the error does not grow with the number of senders
-(``csrc/gossip_mix.cu`` gives the readings).  Where
-W does not fit in shared memory (M or N above 128) the launch is a pair, W
-split into halves into a scratch and then the product, counted once.
-bfloat16 senders and ``gossip_mix_block`` run a tile of float32 FMAs.
+(``csrc/gossip_mix.cu`` gives the readings).  ``gossip_mix_block``'s local
+and halo rows are one sender list, each part padded to whole chunks.  Where
+W does not fit in shared memory (more than one 128-receiver tile, or more
+chunks than fit beside the ring of X slabs) the launch is a pair, W split
+into halves into a scratch and then the product, counted once.  bfloat16
+senders run a tile of float32 FMAs.
 """
 
 from __future__ import annotations
@@ -164,10 +166,15 @@ def gossip_mix_block(local: torch.Tensor, w_block: torch.Tensor, halo: torch.Ten
     if m and L:
         lib = build.library()
         with torch.cuda.device(local.device):
-            err = getattr(lib, f"gossip_mix_block_{_DTYPES[local.dtype]}")(
-                local.data_ptr(), w_block.data_ptr(), halo.data_ptr(), w_halo.data_ptr(),
-                out.data_ptr(), m, H, L, torch.cuda.current_stream(local.device).cuda_stream,
-            )
+            stream = torch.cuda.current_stream(local.device).cuda_stream
+            ptrs = (local.data_ptr(), w_block.data_ptr(), halo.data_ptr(), w_halo.data_ptr(),
+                    out.data_ptr())
+            if local.dtype == torch.float32:
+                scratch = torch.empty(lib.gossip_mix_block_scratch_floats(m, H),
+                                      dtype=torch.float32, device=local.device)
+                err = lib.gossip_mix_block_f32(*ptrs, scratch.data_ptr(), m, H, L, stream)
+            else:
+                err = lib.gossip_mix_block_bf16(*ptrs, m, H, L, stream)
         build.check(err, "gossip_mix_block")
         gossip_mix_block.launches += 1
     return out

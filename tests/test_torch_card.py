@@ -125,6 +125,33 @@ def test_sdp_subspace_same_on_every_run(cuda, n, k):
         assert all(torch.equal(a, b) for a, b in zip(first, sdp_subspace(Y, V)))
 
 
+@pytest.mark.parametrize("n", [1, 31, 1665, 2048])
+@pytest.mark.parametrize("k", [1, 16, 17])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_rank_k_kernel_on_card(cuda, n, k, dt):
+    """The rank-k downdate at the solver's shape (n = 1665, k = 16), at one
+    row, a part of a tile and whole tiles, and at k of one and two steps of
+    16 columns; its output keeps Y's dtype."""
+    Y = _inputs(n, 1, dt, cuda, 11 * n + k)[0]
+    A, B = _randn((n, k), dt, cuda, 13 * n + k), _randn((n, k), dt, cuda, 17 * n + k)
+    before = tk.launch_counts()["rank_k_update"]
+    got, want = rank_k_update(Y, A, B), rank_k_update_plain(Y, A, B)
+    torch.cuda.synchronize()
+    assert got.dtype == Y.dtype and got.shape == (n, n)
+    assert _rel(got, want) <= (0.05 if dt == "bf16" else 1e-5)
+    assert tk.launch_counts()["rank_k_update"] == before + 1
+
+
+@pytest.mark.parametrize("n,k", [(1665, 16), (2048, 17), (31, 1)])
+def test_rank_k_update_same_on_every_run(cuda, n, k):
+    """Each output is a fixed-order sum: two calls agree bit for bit."""
+    Y = _inputs(n, 1, "f32", cuda, n + 5 * k)[0]
+    A, B = _randn((n, k), "f32", cuda, n + 7 * k), _randn((n, k), "f32", cuda, n + 9 * k)
+    first = rank_k_update(Y, A, B).clone()
+    for _ in range(3):
+        assert torch.equal(rank_k_update(Y, A, B), first)
+
+
 def _bottleneck_inputs(s, n_t, n_k, n_edges, seed=0):
     r = np.random.default_rng(seed)
     return [torch.from_numpy(x) for x in (
@@ -291,11 +318,16 @@ def test_fl_wrappers_check_cuda_inputs(cuda):
 @pytest.mark.parametrize(
     "m,h,l,dt",
     [(128, 16, 552714, "f32"), (125, 472, 4097, "f32"), (1, 1, 1, "f32"), (5, 3, 7, "bf16"),
-     (16, 40, 1000, "bf16"), (130, 7, 100, "f32"), (7, 0, 333, "f32"), (33, 9, 2049, "bf16")],
+     (16, 40, 1000, "bf16"), (130, 7, 100, "f32"), (7, 0, 333, "f32"), (33, 9, 2049, "bf16"),
+     (128, 17, 4097, "f32"), (128, 32, 1000, "f32"), (128, 33, 4096, "f32"),
+     (128, 100, 2049, "f32"), (129, 16, 1001, "f32"), (16, 16, 999, "f32"), (10, 3, 1001, "f32"),
+     (40, 300, 777, "f32")],
 )
 def test_gossip_mix_block_kernel_on_card(cuda, m, h, l, dt):
     """One shard's exchange against its plain version; H = 0 hands off to
-    the all-receivers kernel."""
+    the all-receivers kernel.  At m = 128, H ≤ 32 keeps W's 5 chunks in
+    shared memory and H ≥ 33 streams them; m = 129 is two receiver tiles;
+    m, H ≤ 16 takes two k-steps a chunk."""
     r = np.random.default_rng(m + h + l)
     local, halo = (torch.from_numpy(r.standard_normal(s).astype(np.float32)).to(TORCH_DT[dt])
                    .to(cuda) for s in ((m, l), (h, l)))
@@ -316,6 +348,46 @@ def test_gossip_mix_block_kernel_on_card(cuda, m, h, l, dt):
     assert sum(after.values()) == sum(before.values()) + 1
     out = torch.full_like(got, float("nan"))
     assert gossip_mix_block(local, wb, halo, wh, out=out) is out and torch.equal(out, got)
+
+
+def _block_inputs(m, h, l, seed, dense=False):
+    r = np.random.default_rng(seed)
+    local, halo = (torch.from_numpy(r.standard_normal(s).astype(np.float32))
+                   for s in ((m, l), (h, l)))
+    wb, wh = r.random((m, m)).astype(np.float32), r.random((m, h)).astype(np.float32)
+    if not dense:
+        wb, wh = wb * (r.random((m, m)) < 0.5), wh * (r.random((m, h)) < 0.3)
+    wb[0], wh[0] = 0.0, 0.0                       # an isolated receiver
+    scale = wb.sum(axis=1, keepdims=True) + wh.sum(axis=1, keepdims=True)
+    scale[scale == 0] = 1.0                       # row-normalized, as a mixing matrix
+    wb, wh = wb / scale, wh / scale
+    return local, torch.from_numpy(wb), halo, torch.from_numpy(wh)
+
+
+@pytest.mark.parametrize("m,h,l", [(128, 16, 552714), (125, 472, 4097), (10, 3, 1001)])
+def test_gossip_mix_block_same_on_every_run(cuda, m, h, l):
+    """The float32 shard exchange sums its virtual sender list in order, with
+    no split over senders and no atomics: two calls agree bit for bit, and the
+    isolated receiver's row is exactly zero."""
+    args = [t.to(cuda) for t in _block_inputs(m, h, l, m + h + l)]
+    first = gossip_mix_block(*args).clone()
+    assert torch.all(first[0] == 0)
+    for _ in range(3):
+        assert torch.equal(gossip_mix_block(*args), first)
+
+
+def test_gossip_mix_block_large_halo_does_not_drift(cuda):
+    """2,048 halo rows under dense weights (68 chunks of 32 senders): each
+    chunk is summed on the tensor cores and the chunk sums in float32, so the
+    kernel stays within 2× the plain float32 product's error against the
+    float64 product (one tensor-core accumulator over all senders would drift
+    in proportion to their number)."""
+    local, wb, halo, wh = _block_inputs(128, 2048, 16384, 3, dense=True)
+    exact = (wb.double() @ local.double() + wh.double() @ halo.double()).to(cuda)
+    args = [t.to(cuda) for t in (local, wb, halo, wh)]
+    got, plain = gossip_mix_block(*args), gossip_mix_block_plain(*args)
+    assert _rel(got, exact) <= 2 * _rel(plain, exact)
+    assert _rel(got, plain) <= 1e-5
 
 
 @pytest.mark.parametrize(

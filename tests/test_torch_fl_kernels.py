@@ -19,7 +19,7 @@ import torch
 
 from repro.kernels import ref as kref
 from repro.kernels.compress import int8_roundtrip_fwd, topk_mask_fwd
-from repro.kernels.gossip_mix import gossip_mix_all_fwd
+from repro.kernels.gossip_mix import gossip_mix_all_fwd, gossip_mix_block_fwd
 from repro_torch import kernels as tk
 from repro_torch.kernels.compress import (
     int8_roundtrip,
@@ -30,6 +30,7 @@ from repro_torch.kernels.compress import (
 from repro_torch.kernels.gossip_mix import (
     gossip_mix_all,
     gossip_mix_all_plain,
+    gossip_mix_block_plain,
     round_tf32,
     split_tf32,
 )
@@ -166,23 +167,31 @@ def test_gossip_mix_all_plain_matches_refs_and_pallas(n, l, bl, dt):
 
 
 def _tf32_products(X: torch.Tensor, W: torch.Tensor, three: bool) -> torch.Tensor:
-    """W @ X as the float32 card kernel computes it on the tensor cores: the
-    senders in order, in chunks of 32; each chunk's sum starts from zero and
-    adds, 8 senders at a time (one wgmma k-step), x_lo·w_hi, x_hi·w_lo, then
-    x_hi·w_hi (``three``), or the one product of X and W rounded to TF32;
-    the chunk sums are added to the float32 result in order."""
-    xh, xl = split_tf32(X)
-    wh, wl = split_tf32(W)
-    out = torch.zeros(W.shape[0], X.shape[1])
-    for c0 in range(0, X.shape[0], 32):
-        part = torch.zeros_like(out)
-        for n0 in range(c0, min(c0 + 32, X.shape[0]), 8):
-            k = slice(n0, n0 + 8)
-            if three:
-                part += wh[:, k] @ xl[k]
-                part += wl[:, k] @ xh[k]
-            part += wh[:, k] @ xh[k]
-        out += part
+    """W @ X as the float32 card kernel computes it on the tensor cores."""
+    return _tf32_lists([(X, W)], three)
+
+
+def _tf32_lists(lists, three: bool) -> torch.Tensor:
+    """Σ W_i @ X_i over the sender lists [(X_1, W_1), …] as the float32 card
+    kernel computes it on the tensor cores: each list's senders in order, in
+    chunks of 32 that start afresh at each list; each chunk's sum starts from
+    zero and adds, 8 senders at a time (one wgmma k-step), x_lo·w_hi,
+    x_hi·w_lo, then x_hi·w_hi (``three``), or the one product of X and W
+    rounded to TF32; the chunk sums, local then halo, are added to the
+    float32 result in order."""
+    out = torch.zeros(lists[0][1].shape[0], lists[0][0].shape[1])
+    for X, W in lists:
+        xh, xl = split_tf32(X)
+        wh, wl = split_tf32(W)
+        for c0 in range(0, X.shape[0], 32):
+            part = torch.zeros_like(out)
+            for n0 in range(c0, min(c0 + 32, X.shape[0]), 8):
+                k = slice(n0, n0 + 8)
+                if three:
+                    part += wh[:, k] @ xl[k]
+                    part += wl[:, k] @ xh[k]
+                part += wh[:, k] @ xh[k]
+            out += part
     return out
 
 
@@ -214,6 +223,45 @@ def test_gossip_mix_all_tf32x3_stays_within_the_card_bound(seed, scaled):
     np.testing.assert_allclose(got.numpy(), _np(kref.gossip_mix_all_ref(X, W)), atol=2e-4)
     assert torch.all(got[0] == 0)
     one = _tf32_products(Xt, Wt, three=False)
+    assert float(torch.linalg.norm(one - want) / torch.linalg.norm(want)) > 1e-5
+
+
+def _shard_case(m: int, h: int, l: int, seed: int):
+    """One shard's senders and its (m, m), (m, H) weight blocks, row-normalized
+    with the self weight 0.5 left out as ``shard_edge_arrays`` builds them;
+    receiver 0 isolated."""
+    rng = np.random.default_rng(seed)
+    local = rng.standard_normal((m, l)).astype(np.float32)
+    halo = rng.standard_normal((h, l)).astype(np.float32)
+    wb = rng.random((m, m)).astype(np.float32) * (rng.random((m, m)) < 0.5)
+    wh = rng.random((m, h)).astype(np.float32) * (rng.random((m, h)) < 0.5)
+    tot = wb.sum(axis=1) + wh.sum(axis=1)
+    scale = np.where(tot > 0, 0.5 / np.maximum(tot, 1e-30), 0.0).astype(np.float32)
+    wb, wh = wb * scale[:, None], wh * scale[:, None]
+    wb[0], wh[0] = 0.0, 0.0
+    return local, wb, halo, wh
+
+
+@pytest.mark.parametrize("m,h", [(128, 16), (125, 472)])
+def test_gossip_mix_block_tf32x3_stays_within_the_card_bound(m, h):
+    """The float32 shard exchange on the tensor cores: its local rows and its
+    halo rows each in chunks of 32 senders (4 + 1 chunks at the sharded
+    path's shape, 4 + 15 at a heavy halo), three TF32 products a k-step.  The
+    sum stays within the card checks' 1e-5 of the plain float32 product and
+    within the f32 atol of tests/test_torch_shard_kernels.py of the Pallas
+    kernel; one TF32 product does not."""
+    l = 4096
+    local, wb, halo, wh = _shard_case(m, h, l, seed=m + h)
+    tl, twb, th, twh = (torch.from_numpy(a) for a in (local, wb, halo, wh))
+    want = gossip_mix_block_plain(tl, twb, th, twh)
+    got = _tf32_lists([(tl, twb), (th, twh)], three=True)
+    rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    assert rel <= 1e-5
+    pallas = gossip_mix_block_fwd(jnp.asarray(local), jnp.asarray(wb), jnp.asarray(halo),
+                                  jnp.asarray(wh), block_len=1024, interpret=True)
+    np.testing.assert_allclose(got.numpy(), _np(pallas), atol=2e-5, rtol=0)
+    assert torch.all(got[0] == 0)
+    one = _tf32_lists([(tl, twb), (th, twh)], three=False)
     assert float(torch.linalg.norm(one - want) / torch.linalg.norm(want)) > 1e-5
 
 
