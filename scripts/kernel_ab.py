@@ -1,18 +1,19 @@
-"""Time this tree's ``gossip_mix_all``, ``gossip_mix_block``, ``sdp_subspace``
-and ``rank_k_update`` kernels against another tree's (the parent commit's) on
-one card, in turns.
+"""Time this tree's ``gossip_mix_all``, ``gossip_mix_block``, ``sdp_subspace``,
+``rank_k_update``, ``topk_mask`` and ``int8_roundtrip`` kernels against another
+tree's (the parent commit's) on one card, in turns.
 
     git archive <parent> src/repro_torch/kernels | tar -x -C build/parent
     python3 scripts/kernel_ab.py build/parent/src/repro_torch/kernels/csrc
 
-The other tree's ``gossip_mix.cu`` and ``sdp_proj.cu`` are compiled by their
-own ``nvcc`` (the flags of ``repro_torch.kernels.build``) into
+The other tree's ``gossip_mix.cu``, ``sdp_proj.cu`` and ``compress.cu`` are
+compiled by their own ``nvcc`` (the flags of ``repro_torch.kernels.build``) into
 ``build/kernel_ab/`` and called through their C entry points, with the
 signatures that the other tree's own ``build.py`` (beside its ``csrc``)
 declares: ``gossip_mix_all_f32`` and ``gossip_mix_block_f32`` get a scratch
 where that tree sizes one (``gossip_mix_all_scratch_floats``,
 ``gossip_mix_block_scratch_floats``); this tree's kernels go through the
-wrappers.
+wrappers, its compression kernels through their C entries, as the other
+tree's.
 Each case is timed parent, change, change, parent (CUDA events around
 repeated calls, inputs cycled past the 50 MB L2 where the caller finds them
 cold), beside ``torch.matmul`` for the exchange:
@@ -23,7 +24,17 @@ cold), beside ``torch.matmul`` for the exchange:
     heavy halo (m = 125, H = 472), L = 552,714, random sparse blocks;
   - ``sdp_subspace`` at n = 1665, k = 16, cold (10 distinct Y) and warm (one
     Y, as the DR loop's 5 calls an iteration find it in L2);
-  - ``rank_k_update`` at n = 1665, k = 16, cold (10 distinct Y).
+  - ``rank_k_update`` at n = 1665, k = 16, cold (10 distinct Y);
+  - ``topk_mask`` and ``int8_roundtrip``, float32: one round's compression of
+    the (N_T, 552,714) delta at N_T = 10 and 128, every leaf of the CIFAR-10
+    CNN (both trees through their C entries: a tree whose entry takes one
+    column range is called once per leaf, one that takes a table of ranges
+    once a round), both outputs bit-equal to the plain version; then, for
+    each tree, each leaf's launch alone and the big leaf (N, 524,288) with
+    rows as they lie in the flat buffer (stride 552,714 floats, odd rows 8
+    bytes off 16-byte alignment) and with every row aligned (stride
+    552,716), each launch on memory no other launch of the timing touched,
+    after a 128 MB write that pushes everything else out of the L2.
 
 Every result is also checked against the plain version (relative 1e-5).
 Needs one CUDA card; exits non-zero without one.
@@ -42,7 +53,9 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "src"))
 
+from repro_torch.fl.cnn import init_cnn_params  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.compress import int8_roundtrip_plain, topk_mask_plain  # noqa: E402
 from repro_torch.kernels.gossip_mix import (  # noqa: E402
     gossip_mix_all,
     gossip_mix_all_plain,
@@ -55,11 +68,14 @@ from repro_torch.kernels.sdp_proj import (  # noqa: E402
     sdp_subspace,
     sdp_subspace_plain,
 )
+from repro_torch.train.compression import int8_scale, topk_count  # noqa: E402
+from repro_torch.train.tree import ParamLayout  # noqa: E402
 
 OUT = REPO / "build" / "kernel_ab"
 ENTRIES = ("gossip_mix_all_f32", "gossip_mix_all_scratch_floats", "gossip_mix_block_f32",
            "gossip_mix_block_scratch_floats", "sdp_subspace_f32", "sdp_subspace_scratch_floats",
-           "rank_k_update_f32")
+           "rank_k_update_f32", "topk_mask_f32", "int8_roundtrip_f32")
+SOURCES = ("gossip_mix", "sdp_proj", "compress")
 
 
 def parent_signatures(csrc: Path) -> dict:
@@ -72,26 +88,114 @@ def parent_signatures(csrc: Path) -> dict:
 
 
 def compile_parent(csrc: Path) -> ctypes.CDLL:
-    """The other tree's two sources -> one shared library (one nvcc per file),
+    """The other tree's sources -> one shared library (one nvcc per file),
     its entry points typed as that tree declares them."""
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = build.tool()
     procs = [subprocess.Popen([nvcc, *build.ARCH_FLAGS, *build.CFLAGS, "-c", str(csrc / f"{s}.cu"),
                                "-o", str(OUT / f"{s}.o")], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for s in ("gossip_mix", "sdp_proj")]
+             for s in SOURCES]
     for p in procs:
         log, _ = p.communicate()
         if p.returncode:
             raise SystemExit(f"nvcc failed:\n{log}")
     lib = OUT / "libparent.so"
-    subprocess.run([nvcc, *build.ARCH_FLAGS, "-shared", str(OUT / "gossip_mix.o"),
-                    str(OUT / "sdp_proj.o"), "-o", str(lib)], check=True)
+    subprocess.run([nvcc, *build.ARCH_FLAGS, "-shared", *(str(OUT / f"{s}.o") for s in SOURCES),
+                    "-o", str(lib)], check=True)
     dll = ctypes.CDLL(str(lib))
     for name, (args, res) in parent_signatures(csrc).items():
         if name in ENTRIES:
             getattr(dll, name).argtypes, getattr(dll, name).restype = args, res
     return dll
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def compress_entry(lib, name: str):
+    """``run(x, stat, msg, resid, ranges)`` through ``lib``'s C entry ``name``
+    (float32): x, msg and resid share their row stride; ``stat`` is (N,
+    len(ranges)).  An entry that takes one column range (10 arguments) is
+    called once per range with that range's statistics (a contiguous copy,
+    made before the timing by ``leaf_stats``); one that takes a table of
+    ranges is called once."""
+    fn = getattr(lib, name)
+    grouped = len(fn.argtypes) != 10
+
+    def run(x, stat, msg, resid, ranges, leaf_stats=None):
+        n, ld = x.shape[0], x.stride(0)
+        if grouped:
+            table = (ctypes.c_longlong * (2 * len(ranges)))(*(c for r in ranges for c in r))
+            errs = [fn(x.data_ptr(), ld, stat.data_ptr(), msg.data_ptr(), ld, resid.data_ptr(),
+                       ld, n, table, len(ranges), stream())]
+        else:
+            stats = leaf_stats if leaf_stats is not None else [
+                stat[:, j].contiguous() for j in range(len(ranges))]
+            errs = [fn(x.data_ptr() + 4 * a, ld, st.data_ptr(), msg.data_ptr() + 4 * a, ld,
+                       resid.data_ptr() + 4 * a, ld, n, b - a, stream())
+                    for (a, b), st in zip(ranges, stats)]
+        if any(errs):
+            raise SystemExit(f"{name}: cudaError_t {errs}")
+    return run
+
+
+def cold_us(fn, arg_sets, flush) -> float:
+    """Device time of one call, each of ``arg_sets`` touching memory no other
+    one touches, after ``flush`` is written over the L2 (the first set warms
+    up and is not timed)."""
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    flush.zero_()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for args in arg_sets[1:]:
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (len(arg_sets) - 1) * 1e3
+
+
+def windows(pool, n: int, a: int, b: int, count: int) -> list:
+    """Up to ``count`` (n, b − a) column windows of ``pool`` (k·n rows) on
+    disjoint memory: the range shifted right in steps of whole 64-column
+    blocks (the same 16-byte alignment as at ``a``), then the next n rows."""
+    w, step = b - a, -(-(b - a) // 64) * 64
+    out = []
+    for r in range(0, pool.shape[0] - n + 1, n):
+        for c in range(a, pool.shape[1] - w + 1, step):
+            out.append(pool[r:r + n, c:c + w])
+            if len(out) == count:
+                return out
+    return out
+
+
+def compress_split(run, n: int, cols, L: int, gen, flush) -> str:
+    """Each leaf's launch alone (cold), and the big leaf with rows as they lie
+    in the flat buffer and with every row 16-byte aligned."""
+    dev = flush.device
+    times = []
+    for ld, ranges in ((L, cols), (L + 2, [max(cols, key=lambda r: r[1] - r[0])])):
+        k = max(4, -(-400_000_000 // (n * ld * 4)))
+        pool = torch.randn(k * n, ld, generator=gen, device=dev)
+        out = torch.empty_like(pool)
+        for a, b in ranges:
+            sets = []
+            for x in windows(pool, n, a, b, 65):
+                r0, c0 = divmod(x.storage_offset(), ld)
+                st = torch.rand(n, 1, device=dev) + 0.5
+                sets.append((x, st, out[r0:r0 + n, c0:c0 + b - a], [st[:, 0]]))
+            # msg over x in place, as the trainer does; the residual to its own buffer
+            times.append(cold_us(lambda x, st, r, ls: run(x, st, x, r, [(0, b - a)], ls),
+                                 sets, flush))
+        del pool, out
+        torch.cuda.empty_cache()
+    big = max(range(len(cols)), key=lambda j: cols[j][1] - cols[j][0])
+    per = ", ".join(f"{b - a}: {t:.2f}" for (a, b), t in zip(cols, times))
+    return (f"each leaf alone (columns: us) {per}; sum {sum(times[:len(cols)]):.2f} us; big leaf "
+            f"rows as they lie {times[big]:.2f} us, every row aligned {times[-1]:.2f} us")
 
 
 def device_us(fn, arg_sets, reps: int) -> float:
@@ -130,9 +234,6 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {out}", flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
-
-    def stream() -> int:
-        return torch.cuda.current_stream().cuda_stream
 
     L = 552714
     for n in (10, 128, 1024):
@@ -247,6 +348,47 @@ def main() -> int:
     if max(e_old, e_new) > 1e-5:
         raise SystemExit("FAILED: rank_k_update disagrees with its plain version")
     turns(f"rank_k_update n={n} k={k} cold", parent_rank_k, rank_k_update, sets, 200)
+    del sets, o, YV, G, ss, scratch
+    torch.cuda.empty_cache()
+
+    cols = ParamLayout(init_cnn_params(torch.Generator(), (32, 32, 3))).columns()
+    flush = torch.empty(32_000_000, device=dev)
+    for name, plain in (("topk_mask", topk_mask_plain), ("int8_roundtrip", int8_roundtrip_plain)):
+        runs = {"parent": compress_entry(old, f"{name}_f32"),
+                "change": compress_entry(build.library(), f"{name}_f32")}
+        for n in (10, 128):
+            sets = []
+            for _ in range(max(2, -(-100_000_000 // (n * L * 4)))):
+                x = torch.randn(n, L, generator=gen, device=dev)
+                if name == "topk_mask":
+                    st = torch.stack([torch.topk(x[:, a:b].abs(), topk_count(0.05, b - a),
+                                                 dim=1).values[:, -1] for a, b in cols], dim=1)
+                else:
+                    st = torch.stack([int8_scale(x[:, a:b]) for a, b in cols], dim=1)
+                sets.append((x, st, [st[:, j].contiguous() for j in range(len(cols))]))
+            msg, resid = torch.empty_like(sets[0][0]), torch.empty_like(sets[0][0])
+            x, st, _ = sets[0]
+            for side, run in runs.items():
+                msg.fill_(float("nan"))
+                resid.fill_(float("nan"))
+                run(x, st, msg, resid, cols)
+                ok = True
+                for j, (a, b) in enumerate(cols):
+                    want = plain(x[:, a:b], st[:, j])
+                    ok &= torch.equal(msg[:, a:b], want[0]) and torch.equal(resid[:, a:b], want[1])
+                if not ok:
+                    raise SystemExit(f"FAILED: {name} ({side}) is not bit-equal to its plain "
+                                     "version")
+            print(f"ab {name} N_T={n}: both outputs of parent and change bit-equal to the plain "
+                  "version over every leaf", flush=True)
+            turns(f"{name} N_T={n} L={L}, a round of {len(cols)} leaves",
+                  *(lambda x, st, ls, r=runs[s]: r(x, st, msg, resid, cols, ls)
+                    for s in ("parent", "change")), sets, 100)
+            del sets, msg, resid, x, st
+            torch.cuda.empty_cache()
+            for side, run in runs.items():
+                print(f"ab {name} N_T={n} {side}: {compress_split(run, n, cols, L, gen, flush)}",
+                      flush=True)
     return 0
 
 

@@ -16,8 +16,9 @@ two stages:
     one forward and one backward of the sum over users of each user's mean
     loss (so each user gets its own, unscaled gradient), then two in-place
     passes over the flat buffers;
-  - with a compressor, per leaf of the CNN: the threshold or scale of each
-    user's leaf (``torch.topk`` / a max), then one fused kernel that writes
+  - with a compressor: the threshold or scale of each user's leaf of the
+    CNN (``torch.topk`` / a max per leaf, gathered into one ``(rows,
+    n_leaves)`` table), then one fused kernel over every leaf that writes
     the message over the delta and the residual in place
     (``kernels.compress``).  Without one, the messages are the parameters.
 
@@ -195,6 +196,9 @@ class _Block:
         self.momentum = torch.zeros_like(flat, requires_grad=False)
         self.residual = torch.zeros_like(self.momentum) if compressed else None
         self.msgs = torch.empty_like(self.momentum) if compressed else None
+        # each (user, leaf)'s threshold or scale, filled every round
+        self.stats = (torch.empty((self.rows, len(self.model.layout.columns())),
+                                  device=self.device) if compressed else None)
         self.incoming = torch.empty_like(self.momentum)
         self.xs, self.ys = xs, ys.long()
         self.mask = mask              # (rows,) loss weights; None = every row counts
@@ -220,14 +224,17 @@ class _Block:
         if comp is None:
             return flat.detach()
         msgs = torch.add(flat, self.residual, out=self.msgs)     # the delta
-        for a, b in columns:
-            x, resid = msgs[:, a:b], self.residual[:, a:b]
-            if isinstance(comp, TopK):
-                k = topk_count(comp.fraction, b - a)
-                thr = torch.topk(torch.abs(x), k, dim=1).values[:, -1].contiguous()
-                topk_mask(x, thr, out=(x, resid))
-            else:
-                int8_roundtrip(x, int8_scale(x), out=(x, resid))
+        if isinstance(comp, TopK):
+            kernel = topk_mask
+
+            def stat(x):           # the k-th largest |x| of each row
+                return torch.topk(torch.abs(x), topk_count(comp.fraction, x.shape[1]),
+                                  dim=1).values[:, -1]
+        else:
+            kernel, stat = int8_roundtrip, int8_scale
+        # every leaf's statistic from the unmodified delta, then one launch over all leaves
+        torch.stack([stat(msgs[:, a:b]) for a, b in columns], dim=1, out=self.stats)
+        kernel(msgs, self.stats, columns=columns, out=(msgs, self.residual))
         return msgs
 
 

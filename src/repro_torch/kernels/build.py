@@ -62,7 +62,8 @@ SIGNATURES.update({
 })
 for _name in ("topk_mask", "int8_roundtrip"):
     for _tag in ("f32", "bf16"):
-        SIGNATURES[f"{_name}_{_tag}"] = ([_P, _LL, _P, _P, _LL, _P, _LL, _I, _LL, _P], _I)
+        # x, ldx, stat, msg, ldm, resid, ldr, N, column table (start, stop pairs), leaves, stream
+        SIGNATURES[f"{_name}_{_tag}"] = ([_P, _LL, _P, _P, _LL, _P, _LL, _I, _P, _I, _P], _I)
 
 _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None   # wall time of this process's build, if it built

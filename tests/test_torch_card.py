@@ -33,6 +33,7 @@ from repro_torch import kernels as tk
 from repro_torch.core.sdp import SDPOptions
 from repro_torch.kernels.bottleneck import bottleneck_eval, bottleneck_eval_plain
 from repro_torch.kernels.compress import (
+    MAX_LEAVES,
     int8_roundtrip,
     int8_roundtrip_plain,
     topk_mask,
@@ -301,6 +302,103 @@ def test_compress_kernels_in_place_on_strided_rows(cuda):
     want = int8_roundtrip_plain(x.clone(), scale)
     int8_roundtrip(x, scale, out=(x, resid[:, a:b]))
     assert torch.equal(flat[:, a:b], want[0]) and torch.equal(resid[:, a:b], want[1])
+
+
+CNN_WIDTHS = (32, 864, 64, 18432, 128, 524288, 64, 8192, 10, 640)   # the CIFAR-10 CNN's leaves
+
+
+def _leaf_ranges(widths, start=0, gap=0):
+    cols, a = [], start
+    for w in widths:
+        cols.append((a, a + w))
+        a += w + gap
+    return cols
+
+
+def _grouped_stats(x, cols):
+    """(N, len(cols)) thresholds (the k-th largest |x|, k = w / 20) and int8 scales."""
+    thr = torch.stack([torch.topk(x[:, a:b].float().abs(), max(1, (b - a) // 20), dim=1)
+                       .values[:, -1] for a, b in cols], dim=1)
+    scale = torch.stack([torch.clamp_min(x[:, a:b].float().abs().amax(dim=1), 1e-12) / 127.0
+                         for a, b in cols], dim=1)
+    return thr, scale
+
+
+def _check_grouped(x, cols, msg=None):
+    """Both kernels over ``cols`` in one launch, msg over x (or into ``msg``),
+    bit-equal to the plain versions; columns outside ``cols`` untouched."""
+    thr, scale = _grouped_stats(x, cols)
+    for fn, plain, stat in ((topk_mask, topk_mask_plain, thr),
+                            (int8_roundtrip, int8_roundtrip_plain, scale)):
+        xk = x.clone()
+        mk = xk if msg is None else msg.fill_(3.0)
+        resid = torch.full_like(x, 7.0)
+        want = plain(x.clone(), stat, columns=cols, out=(mk.clone(), resid.clone()))
+        before = tk.launch_counts()[fn.__name__]
+        got = fn(xk, stat, columns=cols, out=(mk, resid))
+        torch.cuda.synchronize()
+        assert tk.launch_counts()[fn.__name__] == before + 1, fn.__name__
+        assert got[0].data_ptr() == mk.data_ptr() and got[1].data_ptr() == resid.data_ptr()
+        assert torch.equal(mk, want[0]) and torch.equal(resid, want[1]), fn.__name__
+        if msg is not None:
+            assert torch.equal(xk, x), fn.__name__                # x itself is only read
+
+
+def _buffer(n, ld, dt, dev, seed):
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.standard_normal((n, ld)).astype(np.float32)).to(TORCH_DT[dt]).to(dev)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 10, 37, 128])
+def test_compress_grouped_kernels_on_card_cnn_layout(cuda, n, dt):
+    """The flat (N, 552,714) buffer of the CNN, all 10 leaves in one launch
+    (float32 rows are 2,210,856 bytes: odd rows start 8 bytes off 16-byte
+    alignment)."""
+    cols = _leaf_ranges(CNN_WIDTHS)
+    _check_grouped(_buffer(n, cols[-1][1], dt, cuda, n), cols)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("leaves", ["small", "max"])
+def test_compress_grouped_kernels_on_card_odd_rows(cuda, dt, leaves):
+    """Rows of a stride ≡ 8 (mod 16) bytes, leaves of 1, 3 and 10 columns
+    among wider ones, gaps between the ranges and at both ends of [0, L); and
+    a table at the kernel's maximum leaf count."""
+    ld = 20002 if dt == "f32" else 20004                  # 80,008 / 40,008 bytes
+    assert ld * TORCH_DT[dt].itemsize % 16 == 8
+    widths = ((1, 3, 10, 1000, 4097, 33, 9000) if leaves == "small"
+              else (1, 3, 10, 64, 333, 1, 2048, 17, 5, 4100, 3, 10, 700, 1, 129, 2500))
+    cols = _leaf_ranges(widths, start=5, gap=3)
+    assert len(cols) <= MAX_LEAVES and cols[-1][1] < ld
+    _check_grouped(_buffer(9, ld, dt, cuda, len(cols)), cols)
+    if leaves == "max":
+        assert len(cols) == MAX_LEAVES
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_compress_grouped_kernels_on_card_msg_misaligned_to_x(cuda, dt):
+    """msg in a buffer whose rows sit 4 (float32) or 2 (bfloat16) bytes off x's:
+    the segments take the scalar path."""
+    x = _buffer(6, 30000, dt, cuda, 3)
+    msg = torch.empty(6, 30001, dtype=x.dtype, device=cuda)[:, 1:]
+    _check_grouped(x, _leaf_ranges((10, 20000, 3, 9000), start=1, gap=2), msg=msg)
+
+
+def test_compress_wrappers_check_columns_on_card(cuda):
+    x = _buffer(4, 100, "f32", cuda, 0)
+    st = torch.ones(4, 2, device=cuda)
+    with pytest.raises(ValueError):
+        topk_mask(x, torch.ones(4, MAX_LEAVES + 1, device=cuda),
+                  columns=[(i, i + 1) for i in range(MAX_LEAVES + 1)])   # over the table
+    with pytest.raises(ValueError):
+        topk_mask(x, st, columns=[(0, 10), (5, 20)])                      # overlapping
+    with pytest.raises(ValueError):
+        int8_roundtrip(x, st, columns=[(0, 10), (20, 101)])               # past L
+    with pytest.raises(ValueError):
+        int8_roundtrip(x, torch.ones(4, device=cuda), columns=[(0, 10), (20, 30)])  # (N,) stat
+    with pytest.raises(ValueError):
+        topk_mask(x, st.T.contiguous().T, columns=[(0, 10), (20, 30)])   # not contiguous
 
 
 def test_fl_wrappers_check_cuda_inputs(cuda):

@@ -4,7 +4,10 @@ interpret mode, on the same numpy inputs.
 
 The shapes and contracts are those of tests/test_kernel_diff.py (the fused
 compression: block-ragged tails, B ∈ {1, 8}, L = 1, k ∈ {1, small, all};
-top-k bit-equal; int8 messages bit-equal and residuals within 1 ulp of |x|)
+top-k bit-equal; int8 messages bit-equal and residuals within 1 ulp of |x|;
+one grouped call over the CNN's 10 leaves against the per-leaf version and
+the Pallas kernel on each leaf, and the stacked trainer's one call a round
+against one call a leaf)
 and tests/test_kernels.py (the all-receivers mix, with an isolated receiver,
 against the dense and the segment-sum oracles to 2e-4).  On a CPU tensor
 each wrapper runs its plain version and counts no launch; the kernels
@@ -21,7 +24,12 @@ from repro.kernels import ref as kref
 from repro.kernels.compress import int8_roundtrip_fwd, topk_mask_fwd
 from repro.kernels.gossip_mix import gossip_mix_all_fwd, gossip_mix_block_fwd
 from repro_torch import kernels as tk
+from repro_torch.core.graphs import gossip_task_graph
+from repro_torch.data.synthetic import image_dataset
+from repro_torch.fl.cnn import init_cnn_params
+from repro_torch.fl.gossip import GossipConfig, GossipTrainer, _Block
 from repro_torch.kernels.compress import (
+    MAX_LEAVES,
     int8_roundtrip,
     int8_roundtrip_plain,
     topk_mask,
@@ -34,7 +42,7 @@ from repro_torch.kernels.gossip_mix import (
     round_tf32,
     split_tf32,
 )
-from repro_torch.train.compression import int8_scale
+from repro_torch.train.compression import Int8, TopK, int8_scale, topk_count
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -128,6 +136,140 @@ def test_compress_wrappers_on_cpu_run_plain_in_place():
         topk_mask(x, torch.zeros(3))                       # wrong statistic shape
     with pytest.raises(ValueError):
         int8_roundtrip(x, torch.ones(4), out=(torch.empty(4, 5), torch.empty(4, 5)))
+
+
+# the CIFAR-10 CNN's 10 leaves (32, 864, 64, 18,432, 128, 524,288, 64, 8,192,
+# 10, 640 columns) at a narrow width: conv channels 4 and 8, dense width 16
+NARROW_CNN = (4, 108, 8, 288, 16, 8192, 8, 128, 10, 80)
+
+
+def _ranges(widths, start=0, gap=0):
+    cols, a = [], start
+    for w in widths:
+        cols.append((a, a + w))
+        a += w + gap
+    return cols
+
+
+def _grouped_case(dt, n=5, start=0, gap=0, seed=11):
+    cols = _ranges(NARROW_CNN, start, gap)
+    L = cols[-1][1] + start
+    X, Xt = _pair(np.random.default_rng(seed).standard_normal((n, L)), dt)
+    thr = torch.stack([torch.topk(Xt[:, a:b].float().abs(), max(1, (b - a) // 20), dim=1)
+                       .values[:, -1] for a, b in cols], dim=1)
+    return X, Xt, cols, {"topk": thr, "int8": torch.stack([int8_scale(Xt[:, a:b])
+                                                             for a, b in cols], dim=1)}
+
+
+GROUPED = {"topk": (topk_mask, topk_mask_plain, topk_mask_fwd),
+           "int8": (int8_roundtrip, int8_roundtrip_plain, int8_roundtrip_fwd)}
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["topk", "int8"])
+def test_grouped_plain_matches_per_leaf_and_pallas(kind, dt):
+    """One grouped call over the CNN's 10 leaves: each leaf's range equals the
+    per-leaf plain version bit for bit, and the Pallas kernel (interpret
+    mode) on that leaf as the one-leaf parity tests state it."""
+    _, plain, pallas = GROUPED[kind]
+    X, Xt, cols, stats = _grouped_case(dt)
+    stat = stats[kind]
+    msg, resid = plain(Xt, stat, columns=cols)
+    atol = 0.05 if dt == "bf16" else 2e-7
+    for j, (a, b) in enumerate(cols):
+        one = plain(Xt[:, a:b], stat[:, j])
+        assert torch.equal(msg[:, a:b], one[0]) and torch.equal(resid[:, a:b], one[1])
+        want = pallas(X[:, a:b], jnp.asarray(stat[:, j].numpy()), block_len=4096, interpret=True)
+        np.testing.assert_array_equal(_np(msg[:, a:b]), _np(want[0]))    # msgs bit-equal
+        if kind == "topk":
+            np.testing.assert_array_equal(_np(resid[:, a:b]), _np(want[1]))
+        else:
+            np.testing.assert_allclose(_np(resid[:, a:b]), _np(want[1]), atol=atol)
+
+
+@pytest.mark.parametrize("kind", ["topk", "int8"])
+def test_grouped_wrapper_on_cpu_leaves_other_columns(kind):
+    """With gaps between the ranges and at both ends, in place (msg over x):
+    the columns outside stay as they were, in msg and in resid; without
+    ``out`` msg keeps x there and resid is 0.  No launch on the CPU."""
+    fn, plain, _ = GROUPED[kind]
+    _, Xt, cols, stats = _grouped_case("f32", start=3, gap=2)
+    stat = stats[kind]
+    inside = torch.zeros(Xt.shape, dtype=torch.bool)
+    for a, b in cols:
+        inside[:, a:b] = True
+    x, resid = Xt.clone(), torch.full_like(Xt, 7.0)
+    before = tk.launch_counts()
+    got = fn(x, stat, columns=cols, out=(x, resid))
+    assert got[0] is x and got[1] is resid and tk.launch_counts() == before
+    want = plain(Xt, stat, columns=cols)
+    assert torch.equal(x[inside], want[0][inside]) and torch.equal(resid[inside], want[1][inside])
+    assert torch.equal(x[~inside], Xt[~inside]) and torch.all(resid[~inside] == 7.0)
+    assert torch.equal(want[0][~inside], Xt[~inside]) and torch.all(want[1][~inside] == 0)
+    assert all(torch.equal(g, w) for g, w in zip(fn(Xt, stat, columns=cols), want))
+
+
+def test_grouped_wrappers_check_columns_and_statistics():
+    _, Xt, cols, stats = _grouped_case("f32")
+    L = Xt.shape[1]
+    with pytest.raises(ValueError):
+        topk_mask(Xt, stats["topk"][:, :-1], columns=cols)            # (N, n_leaves - 1)
+    with pytest.raises(ValueError):
+        int8_roundtrip(Xt, stats["int8"].T, columns=cols)             # (n_leaves, N)
+    with pytest.raises(ValueError):
+        topk_mask(Xt, stats["topk"][:, 0], columns=cols)             # (N,) with ranges
+    with pytest.raises(ValueError):
+        topk_mask(Xt, stats["topk"][:, :2], columns=[(0, 10), (9, 20)])     # overlapping
+    with pytest.raises(ValueError):
+        int8_roundtrip(Xt, stats["int8"][:, :1], columns=[(L - 5, L + 1)])  # past L
+    many = [(i, i + 1) for i in range(MAX_LEAVES + 1)]
+    with pytest.raises(ValueError):
+        topk_mask(Xt, torch.ones(Xt.shape[0], len(many)), columns=many)     # over the table
+    with pytest.raises(ValueError):
+        topk_mask(Xt, torch.ones(Xt.shape[0], 0), columns=[])
+
+
+def _per_leaf_compress(self, comp, columns):
+    """``_Block.compress`` as one call a leaf: each leaf's statistic, then its
+    kernel on that leaf's column range, leaf after leaf."""
+    msgs = torch.add(self.model.flat, self.residual, out=self.msgs)
+    for a, b in columns:
+        x, resid = msgs[:, a:b], self.residual[:, a:b]
+        if isinstance(comp, TopK):
+            thr = torch.topk(torch.abs(x), topk_count(comp.fraction, b - a), dim=1).values[:, -1]
+            topk_mask(x, thr.contiguous(), out=(x, resid))
+        else:
+            int8_roundtrip(x, int8_scale(x), out=(x, resid))
+    return msgs
+
+
+@pytest.mark.parametrize("comp", [TopK(0.05), Int8()], ids=["topk", "int8"])
+def test_stacked_trainer_one_call_a_round_equals_the_per_leaf_loop(comp, monkeypatch):
+    """The stacked trainer at N_T = 4: messages, residuals and losses of each
+    round are the same, bit for bit, as with one kernel call per leaf."""
+    rng = np.random.default_rng(0)
+    tg = gossip_task_graph(rng, 4, degree_low=2, degree_high=3)
+    shards = image_dataset("mnist", 128, seed=0)[0].split(4, rng)
+    cfg = GossipConfig(local_steps=2, batch_size=16, compressor=comp)
+    runs = []
+    for per_leaf in (False, True):
+        with monkeypatch.context() as m:
+            if per_leaf:
+                m.setattr(_Block, "compress", torch.no_grad()(_per_leaf_compress))
+            tr = GossipTrainer(tg, lambda g: init_cnn_params(g, (28, 28, 1)), shards, cfg,
+                               seed=3, device="cpu")
+            rounds = []
+            for _ in range(2):
+                loss = tr.step_round()["mean_loss"]
+                blk = tr._blocks[0]
+                rounds.append((loss, blk.msgs.clone(), blk.residual.clone(),
+                               blk.model.flat.detach().clone()))
+            runs.append(rounds)
+    for grouped, looped in zip(*runs):
+        assert grouped[0] == looped[0] and np.isfinite(grouped[0])
+        for g, w in zip(grouped[1:], looped[1:]):
+            assert torch.equal(g, w)
+        assert torch.count_nonzero(grouped[2]) > 0            # the residual is in use
 
 
 # ---------------------------------------------------------------------------
