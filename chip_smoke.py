@@ -83,7 +83,22 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      trainer with TopK(0.05), mesh 8 with Int8(): wall per round, its split
      into local / compress / halo / mix, the halo's size, peak memory, the
      idle share of a profiled mesh-8 round, exact launch counts, and mesh 8
-     against mesh 1 and the stacked trainer to relative 1e-4.
+     against mesh 1 and the stacked trainer to relative 1e-4;
+ 16. batched schedule: ``bottleneck_eval`` over lanes against its plain
+     version at the batched shape (64 lanes × 4000 samples, T = 128, K = 8)
+     and at ragged ones (T % 4 ≠ 0, E = 0, K = 1, 3, 16, 32), bit-equal on
+     a second call, timed once over all lanes beside one launch a lane, the
+     plain version and its bound; ``sdp_subspace`` and ``rank_k_update``
+     over 64 lanes (n = 1025, k = 16) beside 64 one-lane calls; then
+     ``schedule_batch`` on ``benchmarks/scheduler_bench.py``'s
+     ``_batch_instances(128, 8, 64)`` (n = 1024, factored) with
+     ``SDPOptions(max_iters=150, check_every=25, tol=2e-3)`` and 4000
+     samples: wall seconds split into set-up, DR loop and rounding, each
+     lane's iterations, residual and projection counts, peak device memory,
+     launch counts that do not depend on B, each lane's device Eq. 2 time
+     against the host's, and the device's idle share of the DR loop (a
+     profiled 25-iteration batched solve); a 4-lane 6×3 batch against one
+     ``schedule`` a lane.
 
 Each phase prints its wall time.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object with every kernel's numbers, and
@@ -173,15 +188,18 @@ def dev_us(e) -> float:
     return e.self_cuda_time_total if us is None else us
 
 
-def busy_seconds(prof) -> float:
+def busy_seconds(prof, window: tuple[float, float] | None = None) -> float:
     """Seconds in which at least one kernel or copy ran on the card: the
-    union of the device intervals of a profile.  (A sum of kernel times
-    counts overlapping kernels twice: cuDNN runs the grouped convolutions'
+    union of the device intervals of a profile, clipped to ``window`` (µs on
+    the profile's clock) where given.  (A sum of kernel times counts
+    overlapping kernels twice: cuDNN runs the grouped convolutions'
     per-group kernels concurrently.)"""
     from torch.autograd import DeviceType
 
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    lo, hi = window or (float("-inf"), float("inf"))
+    spans = sorted((max(e.time_range.start, lo), min(e.time_range.end, hi))
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and e.time_range.end > lo and e.time_range.start < hi)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
@@ -1453,6 +1471,230 @@ def sharded_population_phase(dev, n: int = 1024, clusters: int = 16, chunk: int 
     return counts["mesh8 TopK"]
 
 
+def batch_instance(num_tasks: int = 128, num_machines: int = 8, batch: int = 64, seed: int = 0):
+    """``benchmarks/scheduler_bench.py``'s ``_batch_instances``: one §4.1.2
+    task graph, ``batch`` compute graphs whose speeds and delays differ."""
+    from repro_torch.core import ComputeGraph, random_compute_graph, random_task_graph
+
+    rng = np.random.default_rng(seed)
+    tg = random_task_graph(rng, num_tasks, degree_low=2, degree_high=4)
+    cg = random_compute_graph(rng, num_machines)
+    rng = np.random.default_rng(seed + 1)
+    return tg, [ComputeGraph(e=cg.e * rng.uniform(0.7, 1.4, size=cg.e.shape),
+                             C=cg.C * rng.uniform(0.7, 1.4)) for _ in range(batch)]
+
+
+def loads_close(got, want, n_tasks: int) -> bool:
+    """Equal up to the rounding of the machine loads (float32 sums of at
+    most T positive terms, in two orders: within 2·T·2^-24 relative)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return bool(torch.all(torch.abs(got - want) <= 2 * n_tasks * 2.0 ** -24 * torch.abs(want)))
+
+
+def batch_kernel_phase(dev, gen, row: dict) -> None:
+    """Row 3 over lanes (and rows 1 and 2), beside their plain versions."""
+    from repro_torch.kernels.bottleneck import bottleneck_eval, bottleneck_eval_plain
+    from repro_torch.kernels.sdp_proj import (
+        rank_k_update,
+        rank_k_update_plain,
+        sdp_subspace,
+        sdp_subspace_plain,
+    )
+
+    def lanes(b, S, T, K, E, seed):
+        r = np.random.default_rng(seed)
+        return [torch.as_tensor(x) for x in (
+            r.integers(0, K, (b, S, T)).astype(np.int32), r.uniform(0.1, 5.0, (b, T)).astype(np.float32),
+            r.uniform(0.5, 4.0, (b, K)).astype(np.float32),
+            r.uniform(0.0, 3.0, (b, K, K)).astype(np.float32),
+            r.integers(0, T, (b, E)).astype(np.int32), r.integers(0, T, (b, E)).astype(np.int32))]
+
+    for i, (b, S, T, K, E) in enumerate([(3, 500, 103, 16, 300), (2, 77, 7, 1, 9),
+                                         (3, 130, 33, 3, 0), (2, 64, 5, 32, 12),
+                                         (2, 300, 130, 16, 400), (1, 4000, 104, 16, 302)]):
+        host = lanes(b, S, T, K, E, i)
+        got = bottleneck_eval(*(x.to(dev) for x in host))
+        check(loads_close(got, bottleneck_eval_plain(*host), T),
+              f"bottleneck_eval B={b} S={S} T={T} K={K} E={E} against the plain version")
+        print(f"kernel check bottleneck_eval B={b} S={S} T={T} K={K} E={E}: ok", flush=True)
+
+    tg, cgs = batch_instance()
+    B, S, T, K = len(cgs), 4000, tg.num_tasks, cgs[0].num_machines
+    edges = np.asarray(tg.edges, np.int32).T.copy()
+    E = edges.shape[1]
+
+    def batched():
+        assign = torch.randint(0, K, (B, S, T), generator=gen, device=dev, dtype=torch.int32)
+        return (assign,
+                torch.as_tensor(np.stack([tg.p] * B), dtype=torch.float32, device=dev),
+                torch.as_tensor(np.stack([c.e for c in cgs]), dtype=torch.float32, device=dev),
+                torch.as_tensor(np.stack([c.C for c in cgs]), dtype=torch.float32, device=dev),
+                torch.as_tensor(np.stack([edges[0]] * B), device=dev),
+                torch.as_tensor(np.stack([edges[1]] * B), device=dev))
+
+    sets = copies(batched, B * S * T * 4)
+    args = sets[0]
+    got = bottleneck_eval(*args)
+    want = bottleneck_eval_plain(*args)
+    check(got.shape == (B, S) and loads_close(got, want, T),
+          f"bottleneck_eval at B={B} S={S} T={T} K={K} E={E} against the plain version")
+    check(torch.equal(bottleneck_eval(*args), got), "bottleneck_eval: a second call differs")
+    check(bool(torch.equal(got.argmin(dim=1), want.argmin(dim=1))), "bottleneck_eval argmin")
+    ms = device_ms(bottleneck_eval, sets, 50)
+
+    def per_lane(*a):
+        for i in range(B):
+            bottleneck_eval(*(x[i] for x in a))
+
+    lane_ms = device_ms(per_lane, sets, 5)
+    plain_ms = device_ms(bottleneck_eval_plain, sets, 3)
+    b_ms, by = bound_ms(4 * (B * S * T + B * T + B * K + B * K * K + 2 * B * E) + 4 * B * S,
+                        B * S * (3 * T + K + E))
+    row.update(batched_ms=ms, batched_bound_ms=b_ms, batched_plain_ms=plain_ms,
+               batched_per_lane_ms=lane_ms)
+    print(f"kernel bottleneck_eval B={B} S={S} T={T} K={K} E={E}: one launch {ms * 1e3:.2f} us "
+          f"(bound {b_ms * 1e3:.2f} us, {by}), one launch a lane ({B} launches) "
+          f"{lane_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, max abs err "
+          f"{max_abs(got, want):.3g}; bit-equal on a second call", flush=True)
+    print(f"kernel bottleneck_eval S=4000 T=104 K=16 (one lane): {row['ms'] * 1e3:.2f} us "
+          f"(bound {row['bound_ms'] * 1e3:.2f} us)", flush=True)
+    del sets, args, got, want
+
+    n, k = T * K + 1, 16                          # the batched DR loop's iterate
+    Y = torch.randn(B, n, n, generator=gen, device=dev)
+    Y = Y + Y.transpose(1, 2)
+    V = torch.linalg.qr(torch.randn(B, n, k, generator=gen, device=dev)).Q.contiguous()
+    A = torch.randn(B, n, k, generator=gen, device=dev)
+    for name, fn, plain, a, nbytes, flops in (
+        ("sdp_subspace", sdp_subspace, sdp_subspace_plain, (Y, V),
+         4 * (n * n + n * k) + 4 * (n * k + k * k + 1), 2 * n * n * k + 2 * n * k * k + 2 * n * n),
+        ("rank_k_update", rank_k_update, rank_k_update_plain, (Y, A, V),
+         4 * (n * n + 2 * n * k) + 4 * n * n, 2 * n * n * k + n * n),
+    ):
+        got, want = fn(*a), plain(*a)
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = max(rel_err(g, w) for g, w in zip(got, want))
+        check(err <= F32_TOL, f"{name} over {B} lanes: rel error {err}")
+        one = fn(*(x[B - 1] for x in a))
+        one = one if isinstance(one, tuple) else (one,)
+        check(all(torch.equal(g[B - 1], o) for g, o in zip(got, one)),
+              f"{name}: lane {B - 1} differs from its one-lane call")
+
+        def lanes_apart(*x):
+            for i in range(B):
+                fn(*(t[i] for t in x))
+
+        t_all, t_apart = device_ms(fn, [a], 50), device_ms(lanes_apart, [a], 5)
+        b_ms, by = bound_ms(B * nbytes, B * flops)
+        print(f"kernel {name} B={B} n={n} k={k}: one launch {t_all * 1e3:.2f} us (bound "
+              f"{b_ms * 1e3:.2f} us, {by}), {B} one-lane launches {t_apart * 1e3:.2f} us, rel "
+              f"error {err:.3e}; lane {B - 1} bit-equal to its one-lane call", flush=True)
+    del Y, V, A
+    torch.cuda.empty_cache()
+
+
+def batch_path_phase(dev) -> dict[str, int]:
+    """``schedule_batch`` at B = 64 lanes of N_T = 128, N_K = 8."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as tk
+    from repro_torch.core import (
+        ComputeGraph,
+        SDPOptions,
+        bottleneck_time,
+        build_factored_bqp,
+        random_compute_graph,
+        random_task_graph,
+        schedule,
+        schedule_batch,
+        solve_sdp_batch,
+    )
+
+    tg, cgs = batch_instance()
+    B = len(cgs)
+    opts = SDPOptions(max_iters=150, check_every=25, tol=2e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = schedule_batch([tg] * B, cgs, "sdp", num_samples=4000, sdp_options=opts, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    stats = out[0].info["solver_stats"]
+    loop, rounding = stats["loop_seconds"], out[0].info["rounding_seconds"] * B
+    iters = [s.info["sdp_iterations"] for s in out]
+    it = max(iters)                               # the loop ran until its slowest lane
+    attempts = it - -(-it // opts.eig_refresh)
+    expect = dict.fromkeys(counts, 0)
+    expect.update(sdp_subspace=attempts * (opts.eig_iters + 1), rank_k_update=attempts,
+                  bottleneck_eval=1)
+    print(f"batch: {B} lanes of N_T={tg.num_tasks}, N_K={cgs[0].num_machines}, "
+          f"{len(tg.edges)} edges, representation={out[0].info['representation']}: "
+          f"schedule_batch {wall:.3f} s wall = set-up {wall - loop - rounding:.3f} s + DR loop "
+          f"{loop:.3f} s ({loop / it * 1e3:.2f} ms/iteration over {it} iterations) + rounding "
+          f"{rounding:.3f} s; peak device memory {peak / 1e9:.2f} GB", flush=True)
+    print(f"batch: iterations {iters}", flush=True)
+    print(f"batch: residuals {[float('%.4g' % s.info['sdp_residual']) for s in out]}", flush=True)
+    print(f"batch: eig_full {[s.info['solver_stats']['eig_full'] for s in out]}", flush=True)
+    print(f"batch: eig_partial {[s.info['solver_stats']['eig_partial'] for s in out]}", flush=True)
+    print(f"batch: bottlenecks {[float('%.6g' % s.bottleneck) for s in out]}", flush=True)
+    print(f"batch: launches {counts}, expected {expect}", flush=True)
+    check(counts == expect, f"batch launch counts {counts} != {expect}")
+    for s, cg in zip(out, cgs):
+        info = s.info
+        check(info["solver_stats"]["batch"] == B and info["representation"] == "factored",
+              "batch stats")
+        st = info["solver_stats"]
+        check(st["eig_full"] + st["eig_partial"] == info["sdp_iterations"], "eig counts add up")
+        a = s.assignment
+        check(a.shape == (tg.num_tasks,) and a.min() >= 0 and a.max() < cg.num_machines,
+              "batch assignment shape")
+        host = bottleneck_time(tg, cg, a)
+        check(np.isfinite(s.bottleneck) and s.bottleneck == host, "batch Eq. 2 on the host")
+        check(abs(info["rounding_bottleneck"] - host) <= 1e-5 * host,
+              f"device Eq. 2 {info['rounding_bottleneck']} vs host {host}")
+        check(0 <= info["num_feasible"] <= 4000, "num_feasible")
+
+    short = SDPOptions(max_iters=25, check_every=25, tol=0.0)
+    bqps = [build_factored_bqp(tg, cg) for cg in cgs]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sols = solve_sdp_batch(bqps, short, device=dev)
+    spans = [e.time_range for e in prof.events() if e.name == "sdp: DR loop"]
+    loop = sols[0].stats["loop_seconds"]
+    busy = busy_seconds(prof, (spans[0].start, spans[0].end)) if spans else 0.0
+    if busy > 0:
+        print(f"batch: profiled 25-iteration batched solve: DR loop {loop:.4f} s wall "
+              f"({(spans[0].end - spans[0].start) / 1e6:.4f} s in the profile), device busy "
+              f"{busy:.4f} s in it, idle share of the loop "
+              f"{1 - busy / ((spans[0].end - spans[0].start) / 1e6):.3f}", flush=True)
+        for e in sorted(prof.key_averages(), key=dev_us, reverse=True)[:8]:
+            print(f"batch:   {dev_us(e) / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:90]}", flush=True)
+    else:
+        print("batch: profiler recorded no device time: idle share not measured", flush=True)
+    del out, sols, bqps
+
+    rng = np.random.default_rng(42)
+    small_tg = random_task_graph(rng, 6, degree_low=1, degree_high=3)
+    small_cg = random_compute_graph(rng, 3)
+    fleet = [ComputeGraph(e=small_cg.e * rng.uniform(0.6, 1.5, size=small_cg.e.shape),
+                          C=small_cg.C * rng.uniform(0.6, 1.5)) for _ in range(4)]
+    sopts = SDPOptions(max_iters=600, check_every=25, tol=3e-4)
+    got = schedule_batch([small_tg] * 4, fleet, "sdp", num_samples=2000, sdp_options=sopts,
+                         device=dev)
+    for s, cg in zip(got, fleet):
+        one = schedule(small_tg, cg, "sdp", num_samples=2000, sdp_options=sopts, device=dev)
+        check(s.info["sdp_iterations"] == one.info["sdp_iterations"] and
+              abs(s.bottleneck - one.bottleneck) <= 1e-6 * one.bottleneck,
+              "6x3 batch lane against its own schedule")
+    print(f"batch: 6x3 fleet of 4 against one schedule a lane: iterations "
+          f"{[s.info['sdp_iterations'] for s in got]}, bottlenecks equal", flush=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1494,9 +1736,13 @@ def main() -> int:
     shard_rows = phase("13 shard kernels", shard_kernel_phase, dev, gen)
     ref_counts = phase("14 reference path", reference_path_phase, dev, fl_schedules, fl_losses)
     shard_counts = phase("15 sharded population", sharded_population_phase, dev)
+    bottleneck_row = next(r for r in rows if r["name"] == "bottleneck_eval")
+    phase("16 batched kernels", batch_kernel_phase, dev, gen, bottleneck_row)
+    batch_counts = phase("16 batched schedule", batch_path_phase, dev)
 
     for r in rows:
         r["launches"] = counts[r["name"]]
+    bottleneck_row["batched_launches"] = batch_counts["bottleneck_eval"]
     for r in fl_rows:
         # the exchange and top-k from the run_fl path; int8 from the population's Int8 run
         r["launches"] = (int8_counts if r["name"] == "int8_roundtrip" else fl_counts)[r["name"]]
@@ -1508,9 +1754,12 @@ def main() -> int:
         r["launches"] = (shard_counts if r["name"] == "gossip_mix_block" else ref_counts)[r["name"]]
     rows += shard_rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            # row 3 at the batched shape (phase 16)
+            "batched_ms", "batched_bound_ms", "batched_plain_ms", "batched_per_lane_ms",
+            "batched_launches")
     print(card)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,12 @@
 """Time this tree's ``gossip_mix_all``, ``gossip_mix_block``, ``sdp_subspace``,
-``rank_k_update``, ``topk_mask`` and ``int8_roundtrip`` kernels against another
-tree's (the parent commit's) on one card, in turns.
+``rank_k_update``, ``bottleneck_eval``, ``topk_mask`` and ``int8_roundtrip``
+kernels against another tree's (the parent commit's) on one card, in turns.
 
     git archive <parent> src/repro_torch/kernels | tar -x -C build/parent
-    python3 scripts/kernel_ab.py build/parent/src/repro_torch/kernels/csrc
+    python3 scripts/kernel_ab.py build/parent/src/repro_torch/kernels/csrc [groups]
 
-The other tree's ``gossip_mix.cu``, ``sdp_proj.cu`` and ``compress.cu`` are
+The other tree's ``gossip_mix.cu``, ``sdp_proj.cu``, ``bottleneck.cu`` and
+``compress.cu`` are
 compiled by their own ``nvcc`` (the flags of ``repro_torch.kernels.build``) into
 ``build/kernel_ab/`` and called through their C entry points, with the
 signatures that the other tree's own ``build.py`` (beside its ``csrc``)
@@ -25,6 +26,11 @@ cold), beside ``torch.matmul`` for the exchange:
   - ``sdp_subspace`` at n = 1665, k = 16, cold (10 distinct Y) and warm (one
     Y, as the DR loop's 5 calls an iteration find it in L2);
   - ``rank_k_update`` at n = 1665, k = 16, cold (10 distinct Y);
+  - ``bottleneck_eval`` at the batched scheduler's shape (64 lanes × 4000
+    samples, T = 128, K = 8, E = 384) and at the single schedule's (one lane
+    × 4000, T = 104, K = 16, E = 302), random edges sorted by source as a
+    ``TaskGraph`` keeps them: a tree whose entry takes one lane is called
+    once per lane, one that takes a lane axis once;
   - ``topk_mask`` and ``int8_roundtrip``, float32: one round's compression of
     the (N_T, 552,714) delta at N_T = 10 and 128, every leaf of the CIFAR-10
     CNN (both trees through their C entries: a tree whose entry takes one
@@ -36,7 +42,11 @@ cold), beside ``torch.matmul`` for the exchange:
     552,716), each launch on memory no other launch of the timing touched,
     after a 128 MB write that pushes everything else out of the L2.
 
-Every result is also checked against the plain version (relative 1e-5).
+A second argument picks groups of rows, comma-separated: ``exchange`` (rows
+4, 5), ``scheduler`` (rows 1-3), ``compression`` (rows 7, 8); all by default.
+
+Every result is also checked against the plain version (relative 1e-5;
+``bottleneck_eval`` to the float32 rounding of its machine loads).
 Needs one CUDA card; exits non-zero without one.
 """
 
@@ -55,6 +65,7 @@ sys.path.insert(0, str(REPO / "src"))
 
 from repro_torch.fl.cnn import init_cnn_params  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.bottleneck import bottleneck_eval, bottleneck_eval_plain  # noqa: E402
 from repro_torch.kernels.compress import int8_roundtrip_plain, topk_mask_plain  # noqa: E402
 from repro_torch.kernels.gossip_mix import (  # noqa: E402
     gossip_mix_all,
@@ -74,8 +85,8 @@ from repro_torch.train.tree import ParamLayout  # noqa: E402
 OUT = REPO / "build" / "kernel_ab"
 ENTRIES = ("gossip_mix_all_f32", "gossip_mix_all_scratch_floats", "gossip_mix_block_f32",
            "gossip_mix_block_scratch_floats", "sdp_subspace_f32", "sdp_subspace_scratch_floats",
-           "rank_k_update_f32", "topk_mask_f32", "int8_roundtrip_f32")
-SOURCES = ("gossip_mix", "sdp_proj", "compress")
+           "rank_k_update_f32", "topk_mask_f32", "int8_roundtrip_f32", "bottleneck_eval")
+SOURCES = ("gossip_mix", "sdp_proj", "compress", "bottleneck")
 
 
 def parent_signatures(csrc: Path) -> dict:
@@ -223,19 +234,59 @@ def turns(label: str, parent, change, sets, reps: int) -> None:
           f"(parent, change, change, parent)", flush=True)
 
 
-def main() -> int:
-    if not torch.cuda.is_available() or len(sys.argv) != 2:
-        print(__doc__, file=sys.stderr)
-        return 1
-    dev = torch.device("cuda")
-    old = compile_parent(Path(sys.argv[1]))
-    build.library()
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(f"nvidia-smi: {out}", flush=True)
-    gen = torch.Generator(device=dev).manual_seed(0)
+def bottleneck_ab(old, gen, dev) -> None:
+    """Row 3: the other tree's ``bottleneck_eval`` (one launch a lane where its
+    entry takes one lane) against this tree's (one launch)."""
+    fn = old.bottleneck_eval
+    per_lane = len(fn.argtypes) == 12        # assign, p, e, C, src, dst, out, S, T, K, E, stream
+                                             # (a lane axis adds B after out)
 
-    L = 552714
+    for B, S, T, K, E in ((64, 4000, 128, 8, 384), (1, 4000, 104, 16, 302)):
+        def inputs():
+            # edges sorted by (source, destination), as a TaskGraph keeps them
+            key = torch.sort(torch.randint(0, T * T, (B, E), generator=gen, device=dev),
+                             dim=1).values
+            return (torch.randint(0, K, (B, S, T), generator=gen, device=dev, dtype=torch.int32),
+                    torch.rand(B, T, generator=gen, device=dev) * 3,
+                    torch.rand(B, K, generator=gen, device=dev) + 0.5,
+                    torch.rand(B, K, K, generator=gen, device=dev) * 3,
+                    (key // T).to(torch.int32), (key % T).to(torch.int32))
+
+        sets = [inputs() for _ in range(max(2, -(-100_000_000 // (B * S * T * 4))))]
+        out = torch.empty(B, S, device=dev)
+
+        def parent(a, p, e, C, src, dst):
+            if per_lane:
+                errs = [fn(a[i].data_ptr(), p[i].data_ptr(), e[i].data_ptr(), C[i].data_ptr(),
+                           src[i].data_ptr(), dst[i].data_ptr(), out[i].data_ptr(), S, T, K, E,
+                           stream()) for i in range(B)]
+            else:
+                errs = [fn(a.data_ptr(), p.data_ptr(), e.data_ptr(), C.data_ptr(), src.data_ptr(),
+                           dst.data_ptr(), out.data_ptr(), B, S, T, K, E, stream())]
+            if any(errs):
+                raise SystemExit(f"parent bottleneck_eval: cudaError_t {errs}")
+
+        want = bottleneck_eval_plain(*sets[0])
+        parent(*sets[0])
+        tol = 2 * T * 2.0 ** -24 * want.abs()
+        ok_old = bool(torch.all((out - want).abs() <= tol))
+        ok_new = bool(torch.all((bottleneck_eval(*sets[0]) - want).abs() <= tol))
+        print(f"ab bottleneck_eval B={B} S={S} T={T} K={K} E={E}: within the load-sum rounding "
+              f"of the plain version: parent {ok_old}, change {ok_new}", flush=True)
+        if not (ok_old and ok_new):
+            raise SystemExit("FAILED: bottleneck_eval disagrees with its plain version")
+        turns(f"bottleneck_eval B={B} S={S} T={T} K={K} E={E} (parent: "
+              f"{B if per_lane else 1} launches)", parent, bottleneck_eval, sets,
+              10 if B > 1 else 200)
+        del sets, out, want
+        torch.cuda.empty_cache()
+
+
+L = 552714                     # parameters of the CIFAR-10 CNN
+
+
+def exchange_ab(old, gen, dev) -> None:
+    """Rows 4 and 5."""
     for n in (10, 128, 1024):
         W = torch.rand(n, n, generator=gen, device=dev) * (
             torch.rand(n, n, generator=gen, device=dev) < 6.5 / n)
@@ -306,6 +357,10 @@ def main() -> int:
         del sets, o, want
         torch.cuda.empty_cache()
 
+
+
+def scheduler_ab(old, gen, dev) -> None:
+    """Rows 1, 2 and 3."""
     n, k = 1665, 16
     sets = []
     for _ in range(10):
@@ -316,10 +371,12 @@ def main() -> int:
     G = torch.empty(k, k, device=dev)
     ss = torch.empty((), device=dev)
     scratch = torch.empty(old.sdp_subspace_scratch_floats(n, k), device=dev)
+    # a tree whose entries take a lane count gets one lane
+    one_lane = (1,) if len(old.sdp_subspace_f32.argtypes) == 10 else ()
 
     def parent_sdp(Y, V):
         old.sdp_subspace_f32(Y.data_ptr(), V.data_ptr(), YV.data_ptr(), G.data_ptr(),
-                             ss.data_ptr(), scratch.data_ptr(), n, k, stream())
+                             ss.data_ptr(), scratch.data_ptr(), n, k, *one_lane, stream())
 
     parent_sdp(*sets[0])
     want = sdp_subspace_plain(*sets[0])
@@ -338,7 +395,7 @@ def main() -> int:
 
     def parent_rank_k(Y, A, B):
         old.rank_k_update_f32(Y.data_ptr(), A.data_ptr(), B.data_ptr(), o.data_ptr(), n, k,
-                              stream())
+                              *one_lane, stream())
 
     parent_rank_k(*sets[0])
     want = rank_k_update_plain(*sets[0])
@@ -350,7 +407,11 @@ def main() -> int:
     turns(f"rank_k_update n={n} k={k} cold", parent_rank_k, rank_k_update, sets, 200)
     del sets, o, YV, G, ss, scratch
     torch.cuda.empty_cache()
+    bottleneck_ab(old, gen, dev)
 
+
+def compression_ab(old, gen, dev) -> None:
+    """Rows 7 and 8."""
     cols = ParamLayout(init_cnn_params(torch.Generator(), (32, 32, 3))).columns()
     flush = torch.empty(32_000_000, device=dev)
     for name, plain in (("topk_mask", topk_mask_plain), ("int8_roundtrip", int8_roundtrip_plain)):
@@ -389,6 +450,25 @@ def main() -> int:
             for side, run in runs.items():
                 print(f"ab {name} N_T={n} {side}: {compress_split(run, n, cols, L, gen, flush)}",
                       flush=True)
+
+
+GROUPS = {"exchange": exchange_ab, "scheduler": scheduler_ab, "compression": compression_ab}
+
+
+def main() -> int:
+    if not torch.cuda.is_available() or len(sys.argv) not in (2, 3):
+        print(__doc__, file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    old = compile_parent(Path(sys.argv[1]))
+    build.library()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"nvidia-smi: {out}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    for name in (sys.argv[2].split(",") if len(sys.argv) == 3 else GROUPS):
+        GROUPS[name](old, gen, dev)
     return 0
 
 

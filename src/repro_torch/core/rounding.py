@@ -11,6 +11,11 @@ Counterpart of the fused rounding of ``repro.core.rounding``:
     the same g from the same seed.  The covariance root is the eigen square
     root of the solver's device-resident Y (``SDPSolution.Y_device``), or of
     the host Y when no device copy is given.
+  - ``randomized_rounding_batch``: the same for B same-shape instances at
+    once (each lane's Gaussians from its own ``Generator``, in lane order),
+    with one ``bottleneck_eval`` launch over all lanes and the B covariance
+    roots from one batched ``eigh``; the analysis bounds per lane on the
+    host in float64.
   - ``naive_rounding``: per-task argmax of the relaxed solution (the paper's
     "SDP with naive rounding" baseline).
   - ``analysis_bounds``: Eq. (22)-(23) expected bottleneck, Eq. (24) lower
@@ -27,6 +32,7 @@ import torch
 
 from repro_torch.core.bqp import BQPData, FactoredBQP
 from repro_torch.core.graphs import ComputeGraph, TaskGraph
+from repro_torch.core.lanes import lane_map
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bottleneck import bottleneck_eval
 
@@ -137,6 +143,130 @@ def randomized_rounding(
         lower_bound=lb,
         upper_bound=ub,
     )
+
+
+def _device_covariance_root_batch(Ys: torch.Tensor) -> torch.Tensor:
+    """Eigen square roots of B stacked device covariances (B, n+1, n+1)."""
+    Ys = 0.5 * (Ys + Ys.transpose(1, 2))
+    w, V = torch.linalg.eigh(Ys)
+    return V * torch.sqrt(torch.clamp_min(w, 0.0))[:, None, :]
+
+
+def _fused_rounding_batch(
+    p: torch.Tensor,
+    e: torch.Tensor,
+    C: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    n_tasks: int,
+    n_machines: int,
+    root: torch.Tensor,
+    g: torch.Tensor,
+    strict: bool,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_fused_rounding`` of B lanes: p (B, T), e (B, K), C (B, K, K),
+    src/dst (B, E), roots (B, n+1, n+1), g (B, S, n+1) -> each lane's best
+    assignment (B, T), its float32 Eq. 2 time and its number of strictly
+    feasible samples."""
+    B, S = g.shape[:2]
+    z = g @ root.transpose(1, 2)                         # (B, S, n+1)
+    s = torch.where(z >= 0, 1.0, -1.0)                   # sign with 0 -> +1
+    u = s[:, :, -1:]
+    zx = (z[:, :, :-1] * u).reshape(B, S, n_machines, n_tasks)
+    sel = (s[:, :, :-1] * u).reshape(B, S, n_machines, n_tasks) > 0
+    masked = torch.where(sel, zx, -torch.inf)
+    any_sel = sel.any(dim=2)                             # (B, S, T)
+    strict_mask = any_sel.all(dim=2)                     # (B, S)
+    choice = torch.where(any_sel[:, :, None, :], masked, zx)
+    assignments = torch.argmax(choice, dim=2).to(torch.int32)   # (B, S, T)
+    times = bottleneck_eval(assignments, p, e, C, src, dst)     # (B, S): one launch
+    if strict:
+        times = torch.where(
+            strict_mask.any(dim=1, keepdim=True), torch.where(strict_mask, times, torch.inf),
+            times,
+        )
+    best = torch.argmin(times, dim=1)
+    lane = torch.arange(B, device=g.device)
+    return assignments[lane, best], times[lane, best], strict_mask.sum(dim=1)
+
+
+def randomized_rounding_batch(
+    bqps,
+    task_graphs,
+    compute_graphs,
+    Ys,
+    *,
+    num_samples: int = 2000,
+    rngs=None,
+    strict: bool = False,
+    Y_devices=None,
+    device: str | torch.device | None = None,
+) -> list[RoundingResult]:
+    """Round B same-shape SDP solutions at once on ``device`` (None = the
+    CUDA card).
+
+    Each lane runs ``randomized_rounding``'s pipeline (its Gaussians drawn
+    from its own ``rngs[i]``, in lane order); sampling, repair, the Eq. 2
+    scores of all B × ``num_samples`` samples (one ``bottleneck_eval``
+    launch) and the pick of each lane's best run on the device together.
+    With every lane's device covariance given (``Y_devices``) the B roots
+    come from one batched ``eigh``.  The Eq. (22)-(24)/(27) analysis bounds
+    are computed per lane on the host in float64.  The lanes' host work
+    (Gaussians, bounds) runs in a pool of threads (``repro_torch.core.lanes``).
+    """
+    dev = resolve_device(device)
+    B = len(bqps)
+    if not (len(task_graphs) == len(compute_graphs) == len(Ys) == B):
+        raise ValueError("bqps, task_graphs, compute_graphs, Ys must align")
+    if B == 0:
+        return []
+    rngs = [None] * B if rngs is None else list(rngs)
+    Y_devices = [None] * B if Y_devices is None else list(Y_devices)
+    T, K = bqps[0].n_tasks, bqps[0].n_machines
+    n_e = len(task_graphs[0].edges)
+    for bqp, tg in zip(bqps, task_graphs):
+        if (bqp.n_tasks, bqp.n_machines, len(tg.edges)) != (T, K, n_e):
+            raise ValueError(
+                "randomized_rounding_batch requires same-shape instances "
+                "(same n_tasks, n_machines, and task-graph edge count)"
+            )
+
+    def stack(arrays, dtype):
+        return torch.as_tensor(np.stack([np.asarray(a, dtype) for a in arrays]), device=dev)
+
+    p = stack([tg.p for tg in task_graphs], np.float32)
+    e = stack([cg.e for cg in compute_graphs], np.float32)
+    C = stack([cg.C for cg in compute_graphs], np.float32)
+    edges = stack([np.asarray(tg.edges, np.int32).reshape(-1, 2) for tg in task_graphs],
+                  np.int32)
+    src, dst = edges[:, :, 0].contiguous(), edges[:, :, 1].contiguous()
+    if all(yd is not None for yd in Y_devices):
+        roots = _device_covariance_root_batch(torch.stack([yd.to(dev) for yd in Y_devices]))
+    else:
+        roots = stack([_covariance_root(Y) for Y in Ys], np.float32)
+    g = np.stack(lane_map(
+        lambda rng, Y: (rng or np.random.default_rng(0))
+        .standard_normal((num_samples, Y.shape[0])).astype(np.float32),
+        rngs, Ys,
+    ))
+    assignments, times, feasible = _fused_rounding_batch(
+        p, e, C, src, dst, T, K, roots, torch.as_tensor(g, device=dev), strict,
+    )
+    assignments = assignments.cpu().numpy().astype(np.int64)
+    times, feasible = times.cpu().numpy(), feasible.cpu().numpy()
+    bounds = lane_map(analysis_bounds, bqps, Ys)
+    return [
+        RoundingResult(
+            assignment=assignments[i],
+            bottleneck=float(times[i]),
+            num_feasible=int(feasible[i]),
+            num_samples=num_samples,
+            expected_bottleneck=bounds[i][0],
+            lower_bound=bounds[i][1],
+            upper_bound=bounds[i][2],
+        )
+        for i in range(B)
+    ]
 
 
 def naive_rounding(bqp: AnyBQP, Y: np.ndarray) -> np.ndarray:

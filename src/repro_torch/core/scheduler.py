@@ -1,6 +1,8 @@
 """Unified scheduling API — the paper's technique on the CUDA card.
 
-Counterpart of ``repro.core.scheduler`` (single-instance path).
+Counterpart of ``repro.core.scheduler``: ``schedule`` for one instance,
+``schedule_batch`` for B same-shape instances with one batched SDP solve
+and one batched rounding.
 ``schedule(task_graph, compute_graph, method=...)`` returns a ``Schedule``
 with the assignment, its exact float64 Eq. 2 bottleneck time, and
 method-specific diagnostics.
@@ -23,8 +25,10 @@ once the dense stacks would cross ``_DENSE_BYTES_LIMIT``.
 ``warm_start=True`` keeps a cache of solver states keyed by the
 (task-graph, compute-graph) *structural fingerprint*, so repeated
 ``schedule()`` calls after weight-only changes resume from the previous
-iterate.  ``get_warm_start`` / ``seed_warm_start`` / ``clear_warm_start``
-read and write it.
+iterate; ``schedule_batch`` keys a second cache by the tuple of its lanes'
+fingerprints and writes each lane's state back to the first.
+``get_warm_start`` / ``seed_warm_start`` / ``clear_warm_start`` read and
+write them.
 """
 
 from __future__ import annotations
@@ -38,8 +42,12 @@ import torch
 
 from repro_torch.core import bqp as bqp_mod
 from repro_torch.core.graphs import ComputeGraph, TaskGraph
-from repro_torch.core.rounding import naive_rounding, randomized_rounding
-from repro_torch.core.sdp import SDPOptions, solve_sdp
+from repro_torch.core.rounding import (
+    naive_rounding,
+    randomized_rounding,
+    randomized_rounding_batch,
+)
+from repro_torch.core.sdp import SDPOptions, solve_sdp, solve_sdp_batch
 from repro_torch.device import resolve_device
 
 METHODS = (
@@ -67,6 +75,13 @@ _DENSE_BYTES_LIMIT = 100_000_000
 _WARM_STARTS: dict[tuple, dict] = {}
 _WARM_STARTS_MAX = 8
 
+# Batched warm starts: the tuple of a batch's per-lane fingerprints -> the
+# list of per-lane solver states from the last ``schedule_batch`` of that
+# exact composition.  A new composition falls back lane by lane to
+# ``_WARM_STARTS``, and every lane's state is written back there.
+_WARM_STARTS_BATCH: dict[tuple, list] = {}
+_WARM_STARTS_BATCH_MAX = 4
+
 
 def _warm_fingerprint(task_graph: TaskGraph, compute_graph: ComputeGraph) -> tuple:
     return (
@@ -80,14 +95,20 @@ def clear_warm_start(
     task_graph: TaskGraph | None = None,
     compute_graph: ComputeGraph | None = None,
 ) -> bool:
-    """Drop cached solver state for this problem structure (or, called with
-    no arguments, all of it).  Returns True if anything was dropped."""
+    """Drop cached solver state for this problem structure, and every batch
+    that holds it (or, called with no arguments, all of both caches).
+    Returns True if anything was dropped."""
     if task_graph is None and compute_graph is None:
-        hit = bool(_WARM_STARTS)
+        hit = bool(_WARM_STARTS) or bool(_WARM_STARTS_BATCH)
         _WARM_STARTS.clear()
+        _WARM_STARTS_BATCH.clear()
         return hit
     fp = _warm_fingerprint(task_graph, compute_graph)
-    return _WARM_STARTS.pop(fp, None) is not None
+    hit = _WARM_STARTS.pop(fp, None) is not None
+    stale = [key for key in _WARM_STARTS_BATCH if fp in key]
+    for key in stale:
+        del _WARM_STARTS_BATCH[key]
+    return hit or bool(stale)
 
 
 def get_warm_start(
@@ -212,24 +233,30 @@ def schedule(
         if method == "sdp_naive":
             assignment = naive_rounding(data, sol.Y)
         else:
-            t0 = time.perf_counter()
-            res = randomized_rounding(
-                data,
-                task_graph,
-                compute_graph,
-                sol.Y,
-                num_samples=num_samples,
-                rng=rng,
-                Y_device=sol.Y_device,
-                device=dev,
-            )
+            # ``schedule_batch`` rounds all lanes at once and hands each
+            # lane's result (and its share of the wall time) down here
+            res = cache.get("rounding")
+            seconds = cache.get("rounding_seconds")
+            if res is None:
+                t0 = time.perf_counter()
+                res = randomized_rounding(
+                    data,
+                    task_graph,
+                    compute_graph,
+                    sol.Y,
+                    num_samples=num_samples,
+                    rng=rng,
+                    Y_device=sol.Y_device,
+                    device=dev,
+                )
+                seconds = time.perf_counter() - t0
             info.update(
                 num_feasible=res.num_feasible,
                 expected_bottleneck=res.expected_bottleneck,
                 upper_bound=res.upper_bound,
                 rounding_lower_bound=res.lower_bound,
                 rounding_bottleneck=res.bottleneck,
-                rounding_seconds=time.perf_counter() - t0,
+                rounding_seconds=seconds,
             )
             assignment = res.assignment
             if method == "sdp_ls":
@@ -270,6 +297,110 @@ def schedule(
         method=method,
         info=info,
     )
+
+
+def _remember(cache: dict, key, value, limit: int) -> None:
+    """Insert ``key`` as the most recent entry of an LRU dict of ``limit``."""
+    if key in cache:
+        cache.pop(key)
+    else:
+        while len(cache) >= limit:
+            cache.pop(next(iter(cache)))
+    cache[key] = value
+
+
+def schedule_batch(
+    task_graphs,
+    compute_graphs,
+    method: str = "sdp",
+    *,
+    seed: int = 0,
+    num_samples: int = 4000,
+    sdp_options: SDPOptions | None = None,
+    representation: str = "auto",
+    warm_start: bool = False,
+    device: str | torch.device | None = None,
+) -> list[Schedule]:
+    """Schedule B same-shape instances with one batched SDP solve on
+    ``device`` (None = the CUDA card).
+
+    The B Douglas-Rachford solves run as one batched loop with per-lane
+    convergence (``solve_sdp_batch``), and the roundings as one batched
+    pass (``randomized_rounding_batch``, each lane's Gaussians from
+    ``default_rng(seed)``).  Each ``Schedule`` matches what ``schedule`` with
+    the same ``seed`` gives for its lane, to float32 batching noise, with
+    the same ``info`` keys (``sdp_seconds`` and ``rounding_seconds`` are the
+    batch's wall times divided by B).
+
+    ``warm_start=True`` keys the B solver states by the tuple of the lanes'
+    structural fingerprints: re-scheduling the same composition after
+    weight-only changes restores all lanes, a new composition falls back
+    lane by lane to the single-instance cache, and every lane's state is
+    written back to it.  Instances must share (n_tasks, n_machines, edge
+    count); other methods run ``schedule`` lane by lane.
+    """
+    B = len(task_graphs)
+    if len(compute_graphs) != B:
+        raise ValueError("task_graphs and compute_graphs must align")
+    if B == 0:
+        return []
+    dev = resolve_device(device)
+    kw = dict(seed=seed, num_samples=num_samples, sdp_options=sdp_options,
+              representation=representation, device=dev)
+    if method not in ("sdp", "sdp_naive", "sdp_ls"):
+        return [schedule(tg, cg, method, warm_start=warm_start, **kw)
+                for tg, cg in zip(task_graphs, compute_graphs)]
+
+    reps = {_pick_representation(tg, cg, representation)
+            for tg, cg in zip(task_graphs, compute_graphs)}
+    if len(reps) != 1:
+        raise ValueError("schedule_batch requires a uniform representation")
+    rep = reps.pop()
+    build = bqp_mod.build_factored_bqp if rep == "factored" else bqp_mod.build_bqp
+    bqps = [build(tg, cg) for tg, cg in zip(task_graphs, compute_graphs)]
+
+    fps = [_warm_fingerprint(tg, cg) for tg, cg in zip(task_graphs, compute_graphs)]
+    batch_key = tuple(fps)
+    warm_states: list = [None] * B
+    if warm_start:
+        cached = _WARM_STARTS_BATCH.get(batch_key)
+        if cached is not None:
+            _WARM_STARTS_BATCH[batch_key] = _WARM_STARTS_BATCH.pop(batch_key)
+            warm_states = list(cached)
+        else:
+            warm_states = [_WARM_STARTS.get(fp) for fp in fps]
+
+    sols = solve_sdp_batch(bqps, sdp_options or SDPOptions(), warm_starts=warm_states,
+                           device=dev)
+
+    if warm_start:
+        # never cache a diverged iterate
+        states = [sol.state for sol in sols]
+        finite = [bool(np.all(np.isfinite(st.get("w", np.inf)))) for st in states]
+        if all(finite):
+            _remember(_WARM_STARTS_BATCH, batch_key, states, _WARM_STARTS_BATCH_MAX)
+        for fp, st, ok in zip(fps, states, finite):
+            if ok:
+                _remember(_WARM_STARTS, fp, st, _WARM_STARTS_MAX)
+
+    rounded: list = [None] * B
+    seconds = None
+    if method in ("sdp", "sdp_ls"):
+        t0 = time.perf_counter()
+        rounded = randomized_rounding_batch(
+            bqps, task_graphs, compute_graphs, [sol.Y for sol in sols],
+            num_samples=num_samples, rngs=[np.random.default_rng(seed) for _ in range(B)],
+            Y_devices=[sol.Y_device for sol in sols], device=dev,
+        )
+        seconds = (time.perf_counter() - t0) / B
+
+    out = []
+    for tg, cg, bqp, sol, res in zip(task_graphs, compute_graphs, bqps, sols, rounded):
+        cache = {"bqp": bqp, "sol": sol, "representation": rep}
+        if res is not None:
+            cache.update(rounding=res, rounding_seconds=seconds)
+        out.append(schedule(tg, cg, method, _sdp_cache=cache, **kw))
+    return out
 
 
 def compare_methods(

@@ -1,7 +1,7 @@
 """Douglas-Rachford SDP solver for the relaxed bottleneck-time problem (Eq. 20).
 
-Counterpart of the single-instance device loop of ``repro.core.sdp``.  The
-conic form is
+Counterpart of the device loops of ``repro.core.sdp`` (``_dr_jax_fn`` and
+its batched twin ``_dr_jax_batch_fn``).  The conic form is
 
     min  t
     s.t. <Q̃_e, Y> - 4 t + s_e = 0      for every constraint edge e   (s_e >= 0)
@@ -16,24 +16,28 @@ over the stacked variable v = (vec(Y), t, s), split as
 
 The constraint operator L and the Cholesky factor of its Gram matrix are
 built once on the host in float64 (``_AffineProjector``); the factor is cast
-to float32 and every iteration runs on the device in float32:
+to float32 and every iteration runs on the device in float32, for B
+same-shape instances at once (``solve_sdp`` is one lane):
 
   - the affine projection: L·v and Lᵀ·y in closed form from the Kronecker
     factors for ``FactoredBQP`` ("factored"), or from the COO triplets with
     ``index_add_`` for the dense ``BQPData`` and duck-typed SDPs ("csr"),
-    and two triangular solves;
+    and two batched triangular solves;
   - the PSD-cone projection: a full ``eigh`` on the first iteration, every
-    ``eig_refresh`` iterations and whenever the partial projection fails;
-    otherwise the partial-spectrum projection, which refines the tracked
-    basis of Y's most negative eigenvectors with ``eig_iters`` shifted
-    subspace-iteration sweeps and clips only the negative Ritz pairs, through
-    the ``sdp_subspace`` and ``rank_k_update`` kernels.
+    ``eig_refresh`` iterations and, per lane, whenever the partial
+    projection fails; otherwise the partial-spectrum projection, which
+    refines the tracked basis of Y's most negative eigenvectors with
+    ``eig_iters`` shifted subspace-iteration sweeps and clips only the
+    negative Ritz pairs, through the ``sdp_subspace`` and ``rank_k_update``
+    kernels, one launch over all lanes each.
 
-The loop is a Python loop.  Whether the partial projection succeeded is
-read on the host once per iteration (a device sync), and the residual once
-every ``check_every`` iterations.  On an iteration whose full ``eigh`` is
-forced anyway, the partial projection is skipped: the JAX loop computes and
-discards it there, so the iterates are the same.
+The loop is a Python loop.  Whether each lane's partial projection
+succeeded is read on the host once per iteration (one (B,) device sync),
+and the residuals once every ``check_every`` iterations; a lane whose
+residual crosses ``tol`` there freezes (its ``iterations`` is that first
+crossing) and leaves the later launches.  On an iteration whose full
+``eigh`` is forced anyway, the partial projection is skipped: the JAX loop
+computes and discards it there, so the iterates are the same.
 
 ``solve_sdp(..., warm_start=sol.state)`` resumes from a previous solve's
 (w, V) state, including one carried over from ``repro`` with
@@ -49,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.bqp import BQPData, FactoredBQP
+from repro_torch.core.lanes import lane_map
 from repro_torch.device import resolve_device
 from repro_torch.kernels.sdp_proj import rank_k_update, sdp_subspace
 
@@ -284,133 +289,143 @@ def _host_operands(bqp, proj: _AffineProjector):
 
 
 def _make_device_ops(kind: str, operands, n1: int, n_tasks: int, n_machines: int):
-    """Constraint-operator closures (matvec, rmatvec, b) on the operands'
-    device: ``kind`` "csr" (COO triplets, ``index_add_``) or "factored"
-    (closed forms from the Kronecker factors; row layout
-    [diag (n1) | A (n_tasks) | Q̃/q_scale with -4t + s (|E|)])."""
+    """Constraint-operator closures (matvec, rmatvec, b) of B lanes on the
+    operands' device; every operand carries one lane a row, and matvec /
+    rmatvec map (B, dim) <-> (B, m).  ``kind`` "csr" (COO triplets,
+    ``index_add_``) or "factored" (closed forms from the Kronecker factors;
+    row layout [diag (n1) | A (n_tasks) | Q̃/q_scale with -4t + s (|E|)])."""
     idx_t = n1 * n1
 
     if kind == "csr":
         Lval, Lrow, Lcol, b = operands
-        m = b.shape[0]
+        B, m = b.shape
+        lane = torch.arange(B, device=b.device)[:, None]
 
         def matvec(v):
-            return torch.zeros(m, dtype=v.dtype, device=v.device).index_add_(
-                0, Lrow, Lval * v[Lcol]
-            )
+            dim = v.shape[1]
+            return torch.zeros(B * m, dtype=v.dtype, device=v.device).index_add_(
+                0, (Lrow + lane * m).reshape(-1),
+                (Lval * v.reshape(-1)[Lcol + lane * dim]).reshape(-1),
+            ).view(B, m)
 
         def rmatvec(y, dim):
-            return torch.zeros(dim, dtype=y.dtype, device=y.device).index_add_(
-                0, Lcol, Lval * y[Lrow]
-            )
+            return torch.zeros(B * dim, dtype=y.dtype, device=y.device).index_add_(
+                0, (Lcol + lane * dim).reshape(-1),
+                (Lval * y.reshape(-1)[Lrow + lane * m]).reshape(-1),
+            ).view(B, dim)
 
         return matvec, rmatvec, b
 
     p, d, C, src, dst, qs = operands
     T, K = n_tasks, n_machines
     n = T * K
-    n_e = src.shape[0]
+    B, n_e = src.shape
     dt, dev = C.dtype, C.device
     ones_k = torch.ones(K, dtype=dt, device=dev)
-    C1 = C @ ones_k
-    Ct1 = C.T @ ones_k
-    P = torch.sum(p)
-    corner = torch.sum(d) * P + torch.sum(C)
-    dp = torch.outer(d, p)                      # (K, T) grid of d⊗p
+    C1 = C @ ones_k                                       # (B, K)
+    Ct1 = C.transpose(1, 2) @ ones_k
+    P = torch.sum(p, dim=1)                               # (B,)
+    corner = torch.sum(d, dim=1) * P + torch.sum(C, dim=(1, 2))
+    dp = d[:, :, None] * p[:, None, :]                    # (B, K, T) grid of d⊗p
     eyeK = torch.eye(K, dtype=dt, device=dev)
     b = torch.cat(
-        [torch.ones(n1, dtype=dt, device=dev), torch.zeros(T + n_e, dtype=dt, device=dev)]
+        [torch.ones(B, n1, dtype=dt, device=dev), torch.zeros(B, T + n_e, dtype=dt, device=dev)],
+        dim=1,
     )
     pair = src * T + dst
+    lane = torch.arange(B, device=dev)[:, None]
+    Cu = C1 + P[:, None] * d                              # (B, K)
 
     def matvec(v):
-        F = v[:idx_t].view(n1, n1)
-        Fs = 0.5 * (F + F.T)
-        r_diag = torch.diagonal(F)
-        f_row = F[:n, n].reshape(K, T)
-        f_col = F[n, :n].reshape(K, T)
-        r_a = 0.5 * (f_row.sum(0) + f_col.sum(0)) + (K - 2.0) * F[n, n]
-        # <Q̃_e, sym(F)> — the same contraction as FactoredBQP.inner
-        Fxx = Fs[:n, :n].reshape(K, T, K, T)
-        f = Fs[:n, n].reshape(K, T)
-        comp = torch.einsum("k,t,ktks->s", d, p, Fxx)
-        blocks = Fxx.permute(1, 3, 0, 2)[src, dst]          # (|E|, K, K)
-        comm = torch.einsum("ekl,kl->e", blocks, C)
-        base = torch.einsum("k,t,kt->", d, p, f)
-        u_i = (C1 + P * d) @ f
-        u_j = Ct1 @ f
-        q1f = 0.5 * (base + u_i[src] + u_j[dst])
-        inner = comp[src] + comm + 2.0 * q1f + corner * Fs[n, n]
-        r_q = inner / qs - 4.0 * v[idx_t] + v[idx_t + 1:]
-        return torch.cat([r_diag, r_a, r_q])
+        F = v[:, :idx_t].view(B, n1, n1)
+        Fs = 0.5 * (F + F.transpose(1, 2))
+        r_diag = torch.diagonal(F, dim1=1, dim2=2)
+        f_row = F[:, :n, n].reshape(B, K, T)
+        f_col = F[:, n, :n].reshape(B, K, T)
+        r_a = 0.5 * (f_row.sum(1) + f_col.sum(1)) + (K - 2.0) * F[:, n, n, None]
+        Fxx = Fs[:, :n, :n].reshape(B, K, T, K, T)
+        f = Fs[:, :n, n].reshape(B, K, T)
+        comp = torch.einsum("bk,bt,bktks->bs", d, p, Fxx)
+        blocks = Fxx.permute(0, 2, 4, 1, 3)[lane, src, dst]        # (B, |E|, K, K)
+        comm = torch.einsum("bekl,bkl->be", blocks, C)
+        base = torch.einsum("bk,bt,bkt->b", d, p, f)
+        u_i = torch.einsum("bk,bkt->bt", Cu, f)
+        u_j = torch.einsum("bk,bkt->bt", Ct1, f)
+        q1f = 0.5 * (base[:, None] + u_i.gather(1, src) + u_j.gather(1, dst))
+        inner = comp.gather(1, src) + comm + 2.0 * q1f + corner[:, None] * Fs[:, n, n, None]
+        r_q = inner / qs[:, None] - 4.0 * v[:, idx_t, None] + v[:, idx_t + 1:]
+        return torch.cat([r_diag, r_a, r_q], dim=1)
 
     def rmatvec(y, dim):
-        y_d = y[:n1]
-        y_a = y[n1: n1 + T]
-        y_raw = y[n1 + T:]
-        y_q = y_raw / qs
-        S = torch.sum(y_q)
-        zeros_t = torch.zeros(T, dtype=y.dtype, device=y.device)
-        c_i = zeros_t.clone().index_add_(0, src, y_q)
-        c_j = zeros_t.clone().index_add_(0, dst, y_q)
-        W2 = torch.zeros(T * T, dtype=y.dtype, device=y.device).index_add_(
-            0, pair, y_q
-        ).view(T, T)
+        y_d = y[:, :n1]
+        y_a = y[:, n1: n1 + T]
+        y_raw = y[:, n1 + T:]
+        y_q = y_raw / qs[:, None]
+        S = torch.sum(y_q, dim=1)
+        zeros_t = torch.zeros(B, T, dtype=y.dtype, device=y.device)
+        c_i = zeros_t.scatter_add(1, src, y_q)
+        c_j = zeros_t.scatter_add(1, dst, y_q)
+        W2 = torch.zeros(B, T * T, dtype=y.dtype, device=y.device).scatter_add_(
+            1, pair, y_q
+        ).view(B, T, T)
         # X-X block: Σ_e y_e · sym(D ⊗ (p δ_iᵀ) + C ⊗ (δ_i δ_jᵀ))
-        M = 0.5 * (torch.outer(p, c_i) + torch.outer(c_i, p))
-        Z = torch.einsum("kl,k,ts->ktls", eyeK, d, M)
-        T1 = torch.einsum("kl,ts->ktls", C, W2)
-        Z = Z + 0.5 * (T1 + T1.permute(2, 3, 0, 1))
+        M = 0.5 * (p[:, :, None] * c_i[:, None, :] + c_i[:, :, None] * p[:, None, :])
+        Z = torch.einsum("kl,bk,bts->bktls", eyeK, d, M)
+        T1 = torch.einsum("bkl,bts->bktls", C, W2)
+        Z = Z + 0.5 * (T1 + T1.permute(0, 3, 4, 1, 2))
         # borders: Σ_e y_e q1_e + the A-row borders (0.5 per machine)
         g = 0.5 * (
-            S * dp
-            + torch.outer(C1 + P * d, c_i)
-            + torch.outer(Ct1, c_j)
-            + y_a[None, :].expand(K, T)
+            S[:, None, None] * dp
+            + Cu[:, :, None] * c_i[:, None, :]
+            + Ct1[:, :, None] * c_j[:, None, :]
+            + y_a[:, None, :].expand(B, K, T)
         )
-        g = g.reshape(-1)
-        corner_y = S * corner + (K - 2.0) * torch.sum(y_a)
-        Y1 = torch.zeros((n1, n1), dtype=y.dtype, device=y.device)
-        Y1[:n, :n] = Z.reshape(n, n)
-        Y1[:n, n] += g
-        Y1[n, :n] += g
-        Y1[n, n] += corner_y
-        Y1.diagonal().add_(y_d)
-        return torch.cat([Y1.reshape(-1), (-4.0 * torch.sum(y_raw))[None], y_raw])
+        g = g.reshape(B, -1)
+        corner_y = S * corner + (K - 2.0) * torch.sum(y_a, dim=1)
+        Y1 = torch.zeros((B, n1, n1), dtype=y.dtype, device=y.device)
+        Y1[:, :n, :n] = Z.reshape(B, n, n)
+        Y1[:, :n, n] += g
+        Y1[:, n, :n] += g
+        Y1[:, n, n] += corner_y
+        Y1.diagonal(dim1=1, dim2=2).add_(y_d)
+        return torch.cat(
+            [Y1.reshape(B, -1), (-4.0 * torch.sum(y_raw, dim=1))[:, None], y_raw], dim=1
+        )
 
     return matvec, rmatvec, b
 
 
 def _cone_full(Y: torch.Tensor, k: int):
-    """O(n³) projection; reseeds the basis with the k most-negative eigvecs."""
+    """O(n³) projection of each lane of (B, n, n); reseeds the basis with
+    the k most-negative eigenvectors."""
     ew, EV = torch.linalg.eigh(Y)
-    Yp = (EV * torch.clamp_min(ew, 0.0)) @ EV.T
-    return Yp, EV[:, :k].contiguous()
+    Yp = (EV * torch.clamp_min(ew, 0.0)[:, None, :]) @ EV.transpose(1, 2)
+    return Yp, EV[:, :, :k].contiguous()
 
 
-def _cone_partial(Y: torch.Tensor, V: torch.Tensor, k: int, eig_iters: int,
-                  eig_tol: float):
-    """Partial-spectrum projection through the two kernels.
+def _cone_partial(Y: torch.Tensor, V: torch.Tensor, k: int, eig_iters: int, eig_tol: float):
+    """Partial-spectrum projection of each lane of (B, n, n) through the two
+    kernels, one launch over all lanes a sweep.
 
     Shifted subspace iteration on (σI - Y), σ = ‖Y‖_F ≥ λ_max: its top-k
     invariant subspace is Y's bottom k.  Each sweep's ``sdp_subspace`` call
     also yields the Rayleigh-Ritz Gram matrix for the next step.  Returns
-    ``ok`` (a device bool: False when the subspace saturates, num_neg == k,
-    or the Ritz residual of the negative pairs exceeds eig_tol·max(σ, 1)),
-    the clipped Y and the Ritz basis.
+    ``ok`` (a (B,) device bool: False where the subspace saturates, num_neg
+    == k, or the Ritz residual of the negative pairs exceeds
+    eig_tol·max(σ, 1)), the clipped Y and the Ritz basis.
     """
     YV, G, ss = sdp_subspace(Y, V)
-    sigma = torch.sqrt(ss)
+    sigma = torch.sqrt(ss)                                   # (B,)
     for _ in range(eig_iters):
-        V = torch.linalg.qr(sigma * V - YV).Q.contiguous()
+        V = torch.linalg.qr(sigma[:, None, None] * V - YV).Q.contiguous()
         YV, G, _ = sdp_subspace(Y, V)
-    theta, U = torch.linalg.eigh(0.5 * (G + G.T))   # Ritz values, ascending
+    theta, U = torch.linalg.eigh(0.5 * (G + G.transpose(1, 2)))   # Ritz values, ascending
     W = V @ U
     neg = theta < 0.0
-    R = YV @ U - W * theta
-    res = torch.sqrt(torch.sum(torch.where(neg, torch.sum(R * R, dim=0), 0.0)))
-    ok = (torch.sum(neg) < k) & (res <= eig_tol * torch.clamp_min(sigma, 1.0))
-    Yp = rank_k_update(Y, (W * torch.where(neg, theta, 0.0)).contiguous(), W)
+    R = YV @ U - W * theta[:, None, :]
+    res = torch.sqrt(torch.sum(torch.where(neg, torch.sum(R * R, dim=1), 0.0), dim=1))
+    ok = (torch.sum(neg, dim=1) < k) & (res <= eig_tol * torch.clamp_min(sigma, 1.0))
+    Yp = rank_k_update(Y, (W * torch.where(neg, theta, 0.0)[:, None, :]).contiguous(), W)
     return ok, Yp, W
 
 
@@ -420,23 +435,43 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _run_dr(w0, V0, matvec, rmatvec, b, CL, opts: SDPOptions, n1: int, k: int):
-    """The DR loop; returns (w, V, v_cone, iterations, residual, n_full, n_partial)."""
-    dim = w0.shape[0]
+def _run_dr(w0, V0, make_ops, CL, opts: SDPOptions, n1: int, k: int):
+    """The DR loop over B lanes.  ``make_ops(sel)`` gives the constraint
+    closures of the lanes ``sel`` (a slice or an index tensor).  Returns
+    (w, V, v_cone, it, res, done, it_conv, n_full, n_partial): the device
+    states (B, …) and, as numpy (B,) arrays, each lane's residual, whether
+    it converged, the iteration of its first crossing of ``tol`` and its
+    full / partial projection counts, frozen at that crossing."""
+    B, dim = w0.shape
     idx_t = n1 * n1
     rho, lam = _f32(opts.rho), _f32(opts.over_relax)
-    tol, eig_tol = _f32(opts.tol), _f32(opts.eig_tol)
-    CLT = CL.T
+    tol, eig_tol = np.float32(opts.tol), _f32(opts.eig_tol)
+    dev = w0.device
 
-    def affine(v):
-        resid = matvec(v) - b
-        z = torch.linalg.solve_triangular(CL, resid[:, None], upper=False)
-        y = torch.linalg.solve_triangular(CLT, z, upper=True)
-        return v - rmatvec(y[:, 0], dim)
+    w, V, vc = w0.clone(), V0.clone(), w0.clone()
+    it = 0
+    res = np.full(B, np.inf, np.float32)
+    done = np.zeros(B, bool)
+    it_conv = np.zeros(B, np.int64)
+    n_full = np.zeros(B, np.int64)
+    n_partial = np.zeros(B, np.int64)
+    live = None
+    while it < opts.max_iters and not done.all():
+        if live is None or done[live].any():          # lanes froze: leave them out
+            live = np.flatnonzero(~done)
+            sel = slice(None) if live.size == B else torch.as_tensor(live, device=dev)
+            matvec, rmatvec, b = make_ops(sel)
+            CL_l = CL[sel]
+            CLT_l = CL_l.transpose(1, 2)
+        nl = live.size
 
-    w, V, vc = w0, V0, w0
-    it, res, n_full, n_partial = 0, float("inf"), 0, 0
-    while it < opts.max_iters and res >= tol:
+        def affine(v):
+            resid = matvec(v) - b
+            z = torch.linalg.solve_triangular(CL_l, resid[:, :, None], upper=False)
+            yv = torch.linalg.solve_triangular(CLT_l, z, upper=True)
+            return v - rmatvec(yv[:, :, 0], dim)
+
+        wl, Vl = w[sel], V[sel]
         nsteps = min(opts.check_every, opts.max_iters - it)
         for j in range(nsteps):
             git = it + j
@@ -444,82 +479,47 @@ def _run_dr(w0, V0, matvec, rmatvec, b, CL, opts: SDPOptions, n1: int, k: int):
                 force = git % opts.eig_refresh == 0
             else:
                 force = git == 0
-            shifted = w.clone()
-            shifted[idx_t] -= rho
+            shifted = wl.clone()
+            shifted[:, idx_t] -= rho
             v_aff = affine(shifted)
-            y = 2.0 * v_aff - w
-            Y = y[:idx_t].view(n1, n1)
-            Y = 0.5 * (Y + Y.T)
-            use_full = force
-            if not force:
-                ok, Yp, Vn = _cone_partial(Y, V, k, opts.eig_iters, eig_tol)
-                use_full = not bool(ok)          # host sync, once per iteration
-            if use_full:
+            y = 2.0 * v_aff - wl
+            Y = y[:, :idx_t].view(nl, n1, n1)
+            Y = 0.5 * (Y + Y.transpose(1, 2))
+            if force:
+                use_full = np.ones(nl, bool)
                 Yp, Vn = _cone_full(Y, k)
-            vc = torch.cat(
-                [Yp.reshape(-1), y[idx_t: idx_t + 1], torch.clamp_min(y[idx_t + 1:], 0.0)]
+            else:
+                ok, Yp, Vn = _cone_partial(Y, Vl, k, opts.eig_iters, eig_tol)
+                use_full = ~ok.cpu().numpy()               # host sync, once per step
+                if use_full.any():                         # exactly the lanes that need it
+                    f = torch.as_tensor(np.flatnonzero(use_full), device=dev)
+                    Yp[f], Vn[f] = _cone_full(Y[f], k)
+            vcl = torch.cat(
+                [Yp.reshape(nl, -1), y[:, idx_t: idx_t + 1],
+                 torch.clamp_min(y[:, idx_t + 1:], 0.0)], dim=1,
             )
-            step = vc - v_aff
-            w = w + lam * step
-            V = Vn
-            n_full += int(use_full)
-            n_partial += int(not use_full)
+            step = vcl - v_aff
+            wl = wl + lam * step
+            Vl = Vn
+            n_full[live] += use_full
+            n_partial[live] += ~use_full
         it += nsteps
-        res = float(torch.sqrt(torch.sum(step * step) / dim))
-    return w, V, vc, it, res, n_full, n_partial
+        res_l = torch.sqrt(torch.sum(step * step, dim=1) / dim).cpu().numpy()
+        w[sel], V[sel], vc[sel] = wl, Vl, vcl
+        res[live] = res_l
+        newly = live[res_l < tol]
+        it_conv[newly] = it
+        done[newly] = True
+    return w, V, vc, it, res, done, it_conv, n_full, n_partial
 
 
 def _normalize_y(vc: torch.Tensor, n1: int) -> torch.Tensor:
-    Y = vc[: n1 * n1].view(n1, n1)
-    Y = 0.5 * (Y + Y.T)
-    d = torch.sqrt(torch.clamp_min(torch.diagonal(Y), 1e-12))
-    Y = Y / torch.outer(d, d)
-    Y.fill_diagonal_(1.0)
+    Y = vc[:, : n1 * n1].view(-1, n1, n1)
+    Y = 0.5 * (Y + Y.transpose(1, 2))
+    d = torch.sqrt(torch.clamp_min(torch.diagonal(Y, dim1=1, dim2=2), 1e-12))
+    Y = Y / (d[:, :, None] * d[:, None, :])
+    Y.diagonal(dim1=1, dim2=2).fill_(1.0)
     return Y
-
-
-def _solve_device(bqp, opts: SDPOptions, proj: _AffineProjector,
-                  warm_start: dict | None, dev: torch.device):
-    n1, dim = proj.n1, proj.dim
-    k = min(opts.eig_k, n1)
-    CL = torch.as_tensor(proj.cholesky_lower().astype(np.float32), device=dev)
-    kind, n_t, n_k, host_ops = _host_operands(bqp, proj)
-    operands = tuple(torch.as_tensor(a, device=dev) for a in host_ops)
-    matvec, rmatvec, b = _make_device_ops(kind, operands, n1, n_t, n_k)
-
-    w_np = _warm_w(warm_start, dim)
-    warm = w_np is not None
-    if w_np is None:
-        w_np = _identity_start(n1, dim)
-    V_np = warm_start.get("V") if warm_start else None
-    if V_np is None or np.asarray(V_np).shape != (n1, k):
-        V_np = np.eye(n1, k)   # placeholder; iteration 0 full-eigh reseeds it
-
-    t0 = time.perf_counter()
-    w, V, v_cone, it, residual, n_full, n_partial = _run_dr(
-        torch.as_tensor(np.asarray(w_np, np.float32), device=dev),
-        torch.as_tensor(np.asarray(V_np, np.float32), device=dev),
-        matvec, rmatvec, b, CL, opts, n1, k,
-    )
-    loop_seconds = time.perf_counter() - t0   # ends at the last residual read
-    Y_device = _normalize_y(v_cone, n1)
-    stats = {
-        "solver_backend": "torch",
-        "solver_dtype": "float32",
-        "device": str(dev),
-        "constraint_kind": kind,
-        "warm_started": warm,
-        "eig_full": n_full,
-        "eig_partial": n_partial,
-        "eig_k": k,
-        "loop_seconds": loop_seconds,
-    }
-    state = {
-        "w": w.cpu().numpy().astype(np.float64),
-        "V": V.cpu().numpy().astype(np.float64),
-    }
-    v_cone_host = v_cone.cpu().numpy().astype(np.float64)
-    return v_cone_host, it, residual, stats, state, Y_device
 
 
 def solve_sdp(
@@ -540,8 +540,8 @@ def solve_sdp(
     dev = resolve_device(device)
     t0 = time.perf_counter()
     proj = _AffineProjector(bqp)
-    v_cone, it, residual, bstats, state, Y_device = _solve_device(
-        bqp, opts, proj, warm_start, dev
+    (v_cone, it, residual, bstats, state, Y_device), = _solve_device(
+        [bqp], opts, [proj], [warm_start], dev
     )
     return _finish_solution(
         bqp, opts, proj, v_cone, it, residual, bstats, state, Y_device,
@@ -609,3 +609,145 @@ def _finish_solution(
         Y_device=Y_device,
         state=state,
     )
+
+
+class _BatchShapeError(ValueError):
+    """Same-shape instances whose device operands still disagree in shape
+    (e.g. dense operators with different sparsity counts): the caller falls
+    back to sequential solves."""
+
+
+def _solve_device(bqps, opts: SDPOptions, projs, warm_starts, dev: torch.device):
+    """Stack B same-shape instances (one for ``solve_sdp``) and run the DR
+    loop once; per lane (v_cone, iterations, residual, stats, state,
+    Y_device)."""
+    B = len(bqps)
+    n1, dim = projs[0].n1, projs[0].dim
+    k = min(opts.eig_k, n1)
+    host = [_host_operands(bqp, proj) for bqp, proj in zip(bqps, projs)]
+    kind, n_t, n_k, _ = host[0]
+    for kk, tt, mm, arrays in host[1:]:
+        if (kk, tt, mm) != (kind, n_t, n_k) or any(
+            a.shape != a0.shape for a, a0 in zip(arrays, host[0][3])
+        ):
+            raise _BatchShapeError("instance device operands disagree in kind or shape")
+    operands = tuple(
+        torch.as_tensor(np.stack([h[3][i] for h in host]), device=dev)
+        for i in range(len(host[0][3]))
+    )
+    CL = torch.as_tensor(
+        np.stack(lane_map(lambda p: p.cholesky_lower().astype(np.float32), projs)), device=dev
+    )
+
+    w_stack, V_stack, warm_flags = [], [], []
+    for ws in warm_starts:
+        w_np = _warm_w(ws, dim)
+        warm_flags.append(w_np is not None)
+        if w_np is None:
+            w_np = _identity_start(n1, dim)
+        V_np = ws.get("V") if ws else None
+        if V_np is None or np.asarray(V_np).shape != (n1, k):
+            V_np = np.eye(n1, k)   # placeholder; iteration 0 full-eigh reseeds
+        w_stack.append(np.asarray(w_np, np.float32))
+        V_stack.append(np.asarray(V_np, np.float32))
+
+    def make_ops(sel):
+        return _make_device_ops(kind, tuple(o[sel] for o in operands), n1, n_t, n_k)
+
+    w0 = torch.as_tensor(np.stack(w_stack), device=dev)
+    V0 = torch.as_tensor(np.stack(V_stack), device=dev)
+    t0 = time.perf_counter()
+    with torch.profiler.record_function("sdp: DR loop"):
+        w, V, v_cone, it, res, done, it_conv, n_full, n_partial = _run_dr(
+            w0, V0, make_ops, CL, opts, n1, k,
+        )
+    loop_seconds = time.perf_counter() - t0   # ends at the last residual read
+    Y_device = _normalize_y(v_cone, n1)
+    w_host = w.cpu().numpy().astype(np.float64)
+    V_host = V.cpu().numpy().astype(np.float64)
+    vc_host = v_cone.cpu().numpy()
+
+    out = []
+    for i in range(B):
+        stats = {
+            "solver_backend": "torch",
+            "solver_dtype": "float32",
+            "device": str(dev),
+            "constraint_kind": kind,
+            "warm_started": warm_flags[i],
+            "eig_full": int(n_full[i]),
+            "eig_partial": int(n_partial[i]),
+            "eig_k": k,
+            "loop_seconds": loop_seconds,
+        }
+        state = {"w": w_host[i], "V": V_host[i]}
+        # a converged lane reports the iteration of its first crossing of tol
+        it_i = int(it_conv[i]) if done[i] else it
+        out.append((vc_host[i].astype(np.float64), it_i, float(res[i]), stats, state,
+                    Y_device[i]))
+    return out
+
+
+def solve_sdp_batch(
+    bqps,
+    options: SDPOptions | None = None,
+    warm_starts=None,
+    *,
+    device: str | torch.device | None = None,
+) -> list[SDPSolution]:
+    """Solve B same-shape instances in one batched DR loop on ``device``
+    (None = the CUDA card, ``RuntimeError`` without one).
+
+    All instances must share representation type, ``n``, ``n_tasks``,
+    ``n_machines`` and constraint-edge count; their weights are free.  Each
+    lane freezes once its residual crosses ``tol`` (checked every
+    ``check_every`` iterations), so each ``SDPSolution`` matches its own
+    ``solve_sdp`` call (iterations, projection counts, iterate) to float32
+    tolerance.  ``warm_starts`` holds one ``state`` payload (or None) per
+    instance.  Instances whose device operands still disagree in shape are
+    solved one after another on the same device.
+
+    Per-instance ``solve_seconds`` is the batch wall time divided by B; the
+    whole wall time is ``stats["batch_seconds"]``.  The lanes' host set-up
+    (Gram matrices, Cholesky factors) runs in a pool of threads
+    (``repro_torch.core.lanes``).
+    """
+    opts = options or SDPOptions()
+    bqps = list(bqps)
+    if not bqps:
+        return []
+    if warm_starts is None:
+        warm_starts = [None] * len(bqps)
+    warm_starts = list(warm_starts)
+    if len(warm_starts) != len(bqps):
+        raise ValueError("warm_starts must have one entry per instance")
+    first = bqps[0]
+    for b in bqps[1:]:
+        if (
+            type(b) is not type(first)
+            or b.n != first.n
+            or b.n_tasks != first.n_tasks
+            or b.n_machines != first.n_machines
+            or len(b.edges) != len(first.edges)
+        ):
+            raise ValueError(
+                "solve_sdp_batch requires same-shape instances "
+                "(same type, n, n_tasks, n_machines, and edge count)"
+            )
+    dev = resolve_device(device)
+
+    t0 = time.perf_counter()
+    projs = lane_map(_AffineProjector, bqps)
+    try:
+        raw = _solve_device(bqps, opts, projs, warm_starts, dev)
+    except _BatchShapeError:
+        return [solve_sdp(b, opts, ws, device=dev) for b, ws in zip(bqps, warm_starts)]
+    total = time.perf_counter() - t0
+
+    def finish(i, bqp, proj, lane):
+        v_cone, it, residual, bstats, state, Y_dev = lane
+        bstats.update(batch=len(bqps), batch_index=i, batch_dispatches=1, batch_seconds=total)
+        return _finish_solution(bqp, opts, proj, v_cone, it, residual, bstats, state, Y_dev,
+                                total / len(bqps))
+
+    return lane_map(finish, range(len(bqps)), bqps, projs, raw)

@@ -38,12 +38,15 @@ _F = ctypes.c_float
 # C entry point -> (argtypes, restype)
 SIGNATURES = {
     "sdp_subspace_scratch_floats": ([_I, _I], _LL),
-    "sdp_subspace_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _P], _I),
-    "sdp_subspace_bf16": ([_P, _P, _P, _P, _P, _P, _I, _I, _P], _I),
-    "rank_k_update_f32": ([_P, _P, _P, _P, _I, _I, _P], _I),
-    "rank_k_update_bf16": ([_P, _P, _P, _P, _I, _I, _P], _I),
-    "bottleneck_eval_smem_bytes": ([_I, _I], _LL),
-    "bottleneck_eval": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    # Y, V, YV, G, ss, scratch, n, k, lanes, stream
+    "sdp_subspace_f32": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "sdp_subspace_bf16": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    # Y, A, B, out, n, k, lanes, stream
+    "rank_k_update_f32": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "rank_k_update_bf16": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "bottleneck_eval_smem_bytes": ([_I, _I, _I], _LL),
+    # assign, p, e, C, src, dst, out, B, S, T, K, E, stream
+    "bottleneck_eval": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "gossip_mix_all_scratch_floats": ([_I, _I], _LL),
     "gossip_mix_all_f32": ([_P, _P, _P, _P, _I, _I, _LL, _P], _I),
     "gossip_mix_all_bf16": ([_P, _P, _P, _I, _I, _LL, _P], _I),

@@ -60,6 +60,15 @@
 //   acc: the same on every run.  Output is in Y's dtype (bfloat16 Y is loaded
 //   and widened, not copied asynchronously).
 //
+// Lanes: the batched DR loop (src/repro/core/sdp.py::_dr_jax_batch_fn vmaps
+// both TPU kernels) passes B instances at once, Y (B, n, n), V / A / B
+// (B, n, k).  A lane is one more grid axis: blockIdx.z of the first kernel
+// (lane × column tile), blockIdx.y of the finishing kernel, blockIdx.z of
+// rank_k_kernel; each lane has its own scratch (partial YV, ΣY², partial G
+// and its own ticket), so lanes never meet.  One lane is the one-instance
+// call: the same grid as before, the row-1 kernels compiled without the lane
+// offsets (kBatched = false).
+//
 // Y, V, A, B are float32 or bfloat16 (one dtype per call); every sum is
 // float32.  Each entry point returns the cudaError_t of its launches.
 
@@ -135,10 +144,11 @@ __device__ __forceinline__ void cp_async_wait() {
 // split) for V columns j0 … j0 + 15, and (blockIdx.z == 0) the block's ΣY².
 // Every copy is issued up front: the V slab with the first 16 rows of Y, then
 // rows 16-31, groups that are waited for in turn.
-template <typename T>
+template <typename T, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 subspace_part_kernel(const T* __restrict__ Y, const T* __restrict__ V, float* __restrict__ YVp,
-                     float* __restrict__ ssp, unsigned* __restrict__ ticket, int n, int k) {
+                     float* __restrict__ ssp, unsigned* __restrict__ ticket, int n, int k,
+                     int ktiles, size_t lstride) {
   extern __shared__ float4 part_smem[];
   auto vs = reinterpret_cast<float (*)[kVPitch]>(part_smem);
   auto ys = reinterpret_cast<float (*)[kSplit]>(reinterpret_cast<float*>(part_smem) +
@@ -148,8 +158,19 @@ subspace_part_kernel(const T* __restrict__ Y, const T* __restrict__ V, float* __
   const int tid = threadIdx.x, lane = tid % kLanes, warp = tid / kLanes;
   const int split = blockIdx.x, c0 = split * kSplit;
   const int r0 = blockIdx.y * kPartRows;
-  const int j0 = blockIdx.z * kCols;
-  if (tid == 0 && split == 0 && blockIdx.y == 0 && blockIdx.z == 0) *ticket = 0u;
+  // blockIdx.z = lane × ktiles + column tile (one lane: the column tile)
+  int kt = blockIdx.z;
+  if constexpr (kBatched) {
+    const int lane_b = ktiles == 1 ? blockIdx.z : blockIdx.z / ktiles;   // k ≤ 16: one tile
+    kt -= lane_b * ktiles;
+    Y += (size_t)lane_b * n * n;
+    V += (size_t)lane_b * n * k;
+    YVp += lane_b * lstride;
+    ssp += lane_b * lstride;
+    ticket = reinterpret_cast<unsigned*>(reinterpret_cast<float*>(ticket) + lane_b * lstride);
+  }
+  const int j0 = kt * kCols;
+  if (tid == 0 && split == 0 && blockIdx.y == 0 && kt == 0) *ticket = 0u;
 
 #pragma unroll
   for (int q = 0; q < kSplit * kCols / kThreads; ++q) {
@@ -208,7 +229,7 @@ subspace_part_kernel(const T* __restrict__ Y, const T* __restrict__ V, float* __
     if (r < n && j < k) YVp[((size_t)split * n + r) * k + j] = acc[0];
   }
 
-  if (blockIdx.z == 0) {
+  if (kt == 0) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
     if (lane == 0) wss[warp] = ss;
@@ -247,13 +268,13 @@ __device__ __forceinline__ void sums_in_order(float (&t)[R], const float* p, siz
 // partial G; the last block sums the partial G in block order, and ΣY² over
 // the first kernel's blocks (each lane of the last warp a strided share in
 // order, then a fixed butterfly).
-template <typename T>
+template <typename T, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 subspace_finish_kernel(const T* __restrict__ V, const float* __restrict__ YVp,
                        const float* __restrict__ ssp, float* __restrict__ Gp,
                        unsigned* __restrict__ ticket, float* __restrict__ YV,
                        float* __restrict__ G, float* __restrict__ ss, int n, int k, int splits,
-                       int nss) {
+                       int nss, size_t lstride) {
   constexpr int kR = kFinRows / kCols;       // rows per thread
   __shared__ float yvs[kFinRows][kCols];
   __shared__ float vsm[kFinRows][kCols + 1];
@@ -262,6 +283,17 @@ subspace_finish_kernel(const T* __restrict__ V, const float* __restrict__ YVp,
   const int tid = threadIdx.x, a = tid / kCols, b = tid % kCols;
   const int r0 = blockIdx.x * kFinRows, nb = gridDim.x;
   const size_t kk = (size_t)k * k;
+  if constexpr (kBatched) {                  // lane blockIdx.y
+    const size_t lane_b = blockIdx.y;
+    V += lane_b * n * k;
+    YVp += lane_b * lstride;
+    ssp += lane_b * lstride;
+    Gp += lane_b * lstride;
+    ticket = reinterpret_cast<unsigned*>(reinterpret_cast<float*>(ticket) + lane_b * lstride);
+    YV += lane_b * n * k;
+    G += lane_b * kk;
+    ss += lane_b;
+  }
   float* gp = Gp + blockIdx.x * kk;
 
   float vr[kR];                              // V[rows][i0 + b] for the first tile, loaded early
@@ -357,6 +389,11 @@ rank_k_kernel(const T* __restrict__ Y, const T* __restrict__ A, const T* __restr
   const int width = (n + gridDim.x - 1) / gridDim.x;   // strips of equal width, ≤ kRkCols
   const int c = tid < width ? blockIdx.x * width + tid : n;
   const int r0 = blockIdx.y * kRkRows;
+  const size_t lane_b = blockIdx.z;
+  Y += lane_b * n * n;
+  out += lane_b * n * n;
+  A += lane_b * n * k;
+  B += lane_b * n * k;
 
   // this thread's column of the CTA's Y rows, first, in two groups (not
   // unrolled: a bfloat16 group's 16 loads are all the registers it holds)
@@ -419,18 +456,25 @@ int subspace_row_blocks(int n) { return (n + kPartRows - 1) / kPartRows; }
 int subspace_splits(int n) { return (n + kSplit - 1) / kSplit; }
 int subspace_finish_blocks(int n) { return (n + kFinRows - 1) / kFinRows; }
 
-// Scratch: the splits' partial YV, the first kernel's per-block ΣY², the
-// finishing blocks' partial G, and the ticket.
-template <typename T>
+long long subspace_lane_floats(int n, int k) {
+  const long long nb = subspace_row_blocks(n), splits = subspace_splits(n);
+  const long long fb = subspace_finish_blocks(n);
+  return splits * n * k + nb * splits + fb * k * k + 1;
+}
+
+// Scratch, per lane: the splits' partial YV, the first kernel's per-block ΣY²,
+// the finishing blocks' partial G, and the ticket.
+// One lane runs the kernels without the lane offsets (kBatched = false).
+template <typename T, bool kBatched>
 int launch_subspace(const void* Y, const void* V, void* YV, void* G, void* ss,
-                    void* scratch, int n, int k, void* stream) {
+                    void* scratch, int n, int k, int lanes, void* stream) {
   static bool ready[kMaxDevices];            // the first kernel's shared memory is allowed
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(subspace_part_kernel<T>,
+    err = cudaFuncSetAttribute(subspace_part_kernel<T, kBatched>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kPartSmem);
     if (err != cudaSuccess) return (int)err;
     ready[dev] = true;
@@ -442,20 +486,22 @@ int launch_subspace(const void* Y, const void* V, void* YV, void* G, void* ss,
   float* Gp = ssp + (size_t)nb * splits;
   unsigned* ticket = reinterpret_cast<unsigned*>(Gp + (size_t)fb * k * k);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(splits, nb, (k + kCols - 1) / kCols);
-  subspace_part_kernel<T><<<grid, kThreads, kPartSmem, s>>>(
-      static_cast<const T*>(Y), static_cast<const T*>(V), YVp, ssp, ticket, n, k);
+  const int ktiles = (k + kCols - 1) / kCols;
+  const size_t ls = (size_t)subspace_lane_floats(n, k);
+  const dim3 grid(splits, nb, ktiles * lanes);
+  subspace_part_kernel<T, kBatched><<<grid, kThreads, kPartSmem, s>>>(
+      static_cast<const T*>(Y), static_cast<const T*>(V), YVp, ssp, ticket, n, k, ktiles, ls);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  subspace_finish_kernel<T><<<fb, kThreads, 0, s>>>(
+  subspace_finish_kernel<T, kBatched><<<dim3(fb, lanes), kThreads, 0, s>>>(
       static_cast<const T*>(V), YVp, ssp, Gp, ticket, static_cast<float*>(YV),
-      static_cast<float*>(G), static_cast<float*>(ss), n, k, splits, nb * splits);
+      static_cast<float*>(G), static_cast<float*>(ss), n, k, splits, nb * splits, ls);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_rank_k(const void* Y, const void* A, const void* B, void* out, int n,
-                  int k, void* stream) {
-  const dim3 grid((n + kRkCols - 1) / kRkCols, (n + kRkRows - 1) / kRkRows);
+                  int k, int lanes, void* stream) {
+  const dim3 grid((n + kRkCols - 1) / kRkCols, (n + kRkRows - 1) / kRkRows, lanes);
   rank_k_kernel<T><<<grid, kRkCols, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(Y), static_cast<const T*>(A), static_cast<const T*>(B),
       static_cast<T*>(out), n, k);
@@ -466,31 +512,32 @@ int launch_rank_k(const void* Y, const void* A, const void* B, void* out, int n,
 
 extern "C" {
 
-// Float32 words of scratch that sdp_subspace needs (launch_subspace's layout).
-long long sdp_subspace_scratch_floats(int n, int k) {
-  const long long nb = subspace_row_blocks(n), splits = subspace_splits(n);
-  const long long fb = subspace_finish_blocks(n);
-  return splits * n * k + nb * splits + fb * k * k + 1;
-}
+// Float32 words of scratch that sdp_subspace needs for one lane
+// (launch_subspace's layout); B lanes take B times as many.
+long long sdp_subspace_scratch_floats(int n, int k) { return subspace_lane_floats(n, k); }
 
 int sdp_subspace_f32(const void* Y, const void* V, void* YV, void* G, void* ss,
-                     void* scratch, int n, int k, void* stream) {
-  return launch_subspace<float>(Y, V, YV, G, ss, scratch, n, k, stream);
+                     void* scratch, int n, int k, int lanes, void* stream) {
+  return lanes == 1 ? launch_subspace<float, false>(Y, V, YV, G, ss, scratch, n, k, 1, stream)
+                    : launch_subspace<float, true>(Y, V, YV, G, ss, scratch, n, k, lanes, stream);
 }
 
 int sdp_subspace_bf16(const void* Y, const void* V, void* YV, void* G, void* ss,
-                      void* scratch, int n, int k, void* stream) {
-  return launch_subspace<__nv_bfloat16>(Y, V, YV, G, ss, scratch, n, k, stream);
+                      void* scratch, int n, int k, int lanes, void* stream) {
+  return lanes == 1
+             ? launch_subspace<__nv_bfloat16, false>(Y, V, YV, G, ss, scratch, n, k, 1, stream)
+             : launch_subspace<__nv_bfloat16, true>(Y, V, YV, G, ss, scratch, n, k, lanes,
+                                                    stream);
 }
 
 int rank_k_update_f32(const void* Y, const void* A, const void* B, void* out, int n,
-                      int k, void* stream) {
-  return launch_rank_k<float>(Y, A, B, out, n, k, stream);
+                      int k, int lanes, void* stream) {
+  return launch_rank_k<float>(Y, A, B, out, n, k, lanes, stream);
 }
 
 int rank_k_update_bf16(const void* Y, const void* A, const void* B, void* out, int n,
-                       int k, void* stream) {
-  return launch_rank_k<__nv_bfloat16>(Y, A, B, out, n, k, stream);
+                       int k, int lanes, void* stream) {
+  return launch_rank_k<__nv_bfloat16>(Y, A, B, out, n, k, lanes, stream);
 }
 
 }  // extern "C"

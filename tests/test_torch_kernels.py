@@ -5,6 +5,10 @@ here against the Pallas kernels of ``repro`` in interpret mode, over the
 shape sweep and at the tolerances of ``tests/test_kernel_diff.py`` (ragged
 n, k ∈ {1, small, n}, float32 and bfloat16, degenerate spectra, E = 0).
 The inputs are made with numpy from a seed and handed to both packages.
+The three scheduler kernels also take a lane axis (the batched solver's and
+rounding's B instances): there the plain versions are held against the
+Pallas kernels under ``jax.vmap``, as ``repro``'s batched loop and rounding
+call them, and one lane against the 2-D call bit for bit.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_card.py.
@@ -87,12 +91,25 @@ def _basis(rng, n, k):
     return np.linalg.qr(rng.standard_normal((n, k)))[0]
 
 
+def _stack(make, lanes):
+    """One input (lanes None) or ``lanes`` of them stacked on a lane axis."""
+    return make() if lanes is None else np.stack([make() for _ in range(lanes)])
+
+
+def _fwd(fn, lanes, **kw):
+    """The Pallas kernel, or its ``jax.vmap`` over the lane axis."""
+    one = lambda *xs: fn(*xs, interpret=True, **kw)   # noqa: E731
+    return one if lanes is None else jax.vmap(one)
+
+
 @pytest.mark.parametrize("n,k,bn", SDP_SHAPES)
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_sdp_subspace_plain_matches_pallas(n, k, bn, dt):
+@pytest.mark.parametrize("lanes", [None, 3])
+def test_sdp_subspace_plain_matches_pallas(n, k, bn, dt, lanes):
     rng = np.random.default_rng(n * 31 + k)
-    (Yj, Yt), (Vj, Vt) = _both(_sym(rng, n), dt), _both(_basis(rng, n, k), dt)
-    want = sdp_subspace_fwd(Yj, Vj, block_rows=bn, interpret=True)
+    (Yj, Yt) = _both(_stack(lambda: _sym(rng, n), lanes), dt)
+    (Vj, Vt) = _both(_stack(lambda: _basis(rng, n, k), lanes), dt)
+    want = _fwd(sdp_subspace_fwd, lanes, block_rows=bn)(Yj, Vj)
     got = sdp_subspace(Yt, Vt)
     assert all(g.dtype == torch.float32 for g in got)
     for g, w in zip(got, want):
@@ -101,12 +118,14 @@ def test_sdp_subspace_plain_matches_pallas(n, k, bn, dt):
 
 @pytest.mark.parametrize("n,k,bn", SDP_SHAPES)
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_rank_k_update_plain_matches_pallas(n, k, bn, dt):
+@pytest.mark.parametrize("lanes", [None, 3])
+def test_rank_k_update_plain_matches_pallas(n, k, bn, dt, lanes):
     rng = np.random.default_rng(n * 37 + k)
+    lead = () if lanes is None else (lanes,)
     (Yj, Yt), (Aj, At), (Bj, Bt) = (
-        _both(rng.standard_normal(s), dt) for s in ((n, n), (n, k), (n, k))
+        _both(rng.standard_normal(lead + s), dt) for s in ((n, n), (n, k), (n, k))
     )
-    want = rank_k_update_fwd(Yj, Aj, Bj, block_rows=bn, interpret=True)
+    want = _fwd(rank_k_update_fwd, lanes, block_rows=bn)(Yj, Aj, Bj)
     got = rank_k_update(Yt, At, Bt)
     assert got.dtype == TORCH_DT[dt]
     atol = 0.05 if dt == "bf16" else 1e-5
@@ -149,18 +168,41 @@ def _bottleneck_inputs(s, n_t, n_k, n_edges, seed=0):
 
 
 @pytest.mark.parametrize("s,n_t,n_k,n_e,bs", BOTTLENECK_SHAPES)
-def test_bottleneck_plain_matches_pallas(s, n_t, n_k, n_e, bs):
-    a, p, e, C, src, dst = _bottleneck_inputs(s, n_t, n_k, n_e)
+@pytest.mark.parametrize("lanes", [None, 3])
+def test_bottleneck_plain_matches_pallas(s, n_t, n_k, n_e, bs, lanes):
+    """One instance, or 3 lanes of their own p, e, C and edges under
+    ``jax.vmap`` (as ``_fused_rounding_batch_fn`` calls the kernel)."""
+    seeds = [0] if lanes is None else range(lanes)
+    parts = [_bottleneck_inputs(s, n_t, n_k, n_e, seed) for seed in seeds]
+    a, p, e, C, src, dst = (x[0] if lanes is None else np.stack(x) for x in zip(*parts))
     oh = jax.nn.one_hot(jnp.asarray(a), n_k, dtype=jnp.float32)
     s_oh = jax.nn.one_hot(jnp.asarray(src), n_t, dtype=jnp.float32)
     d_oh = jax.nn.one_hot(jnp.asarray(dst), n_t, dtype=jnp.float32)
-    want = bottleneck_eval_fwd(
-        oh, jnp.asarray(p), jnp.asarray(e), jnp.asarray(C), s_oh, d_oh,
-        block_samples=bs, interpret=True,
+    want = _fwd(bottleneck_eval_fwd, lanes, block_samples=bs)(
+        oh, jnp.asarray(p), jnp.asarray(e), jnp.asarray(C), s_oh, d_oh
     )
     got = bottleneck_eval(*(torch.from_numpy(x) for x in (a, p, e, C, src, dst)))
     assert got.dtype == torch.float32
     _assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["sdp_subspace", "rank_k_update", "bottleneck_eval"])
+def test_one_lane_is_the_2d_call(which):
+    """A (1, …) call gives the 2-D call's result bit for bit."""
+    rng = np.random.default_rng(5)
+    if which == "bottleneck_eval":
+        args = [torch.from_numpy(x) for x in _bottleneck_inputs(9, 7, 3, 11, seed=5)]
+        fn = bottleneck_eval
+    else:
+        Y = torch.from_numpy(_sym(rng, 11).astype(np.float32))
+        V = torch.from_numpy(_basis(rng, 11, 3).astype(np.float32))
+        args = [Y, V] if which == "sdp_subspace" else [Y, V, 2 * V]
+        fn = sdp_subspace if which == "sdp_subspace" else rank_k_update
+    flat, lane = fn(*args), fn(*(x[None] for x in args))
+    for f, g in zip(flat if isinstance(flat, tuple) else [flat],
+                    lane if isinstance(lane, tuple) else [lane]):
+        assert tuple(g.shape) == (1,) + tuple(f.shape)
+        assert torch.equal(g[0], f)
 
 
 def test_cpu_path_launches_nothing():
@@ -207,6 +249,13 @@ def test_cpu_path_launches_nothing():
             torch.zeros(2, 2), torch.zeros(1, dtype=torch.int32),
             torch.zeros(2, dtype=torch.int32),
         ),
+        lambda: bottleneck_eval(                       # one lane's p for two lanes
+            torch.zeros(2, 4, 3, dtype=torch.int32), torch.zeros(1, 3), torch.ones(2, 2),
+            torch.zeros(2, 2, 2), torch.zeros(2, 1, dtype=torch.int32),
+            torch.zeros(2, 1, dtype=torch.int32),
+        ),
+        lambda: sdp_subspace(torch.zeros(2, 4, 4), torch.zeros(3, 4, 2)),
+        lambda: rank_k_update(torch.zeros(2, 4, 4), torch.zeros(2, 4, 2), torch.zeros(4, 2)),
     ],
 )
 def test_wrappers_reject_bad_shapes(call):
