@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port once on the card: the SDP scheduler, the
-gossip-FL engines (stacked, per-user reference, mesh-sharded) and the dense
-LM's serving path.
+gossip-FL engines (stacked, per-user reference, mesh-sharded, barrier-free)
+and the dense LM's serving path.
 
     python3 chip_smoke.py
 
@@ -98,7 +98,29 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      launch counts that do not depend on B, each lane's device Eq. 2 time
      against the host's, and the device's idle share of the DR loop (a
      profiled 25-iteration batched solve); a 4-lane 6×3 batch against one
-     ``schedule`` a lane.
+     ``schedule`` a lane;
+ 17. barrier-free FL and fig4: (a) ``run_fl_async`` on phase 7's instance
+     and HEFT / SDP schedules (CIFAR-10 CNN, TopK(0.05), 4 rounds) under
+     ``gossip_async_fl``'s execution (jitter 0.1, stragglers 0.15 × 3.0,
+     hinge staleness a = 0.5, b = 1) with token flow control (8, refill 4)
+     and one machine of both schedules failing at round 1 and recovering at
+     3: wall per round, its device split into local / compress / archive /
+     mix, losses, simulated time, active users, stale mixes, invalid edges,
+     the lag histogram, one ``gossip_mix_all`` and one ``topk_mask`` launch a
+     round a method exactly, and every down user's replica bit-equal across
+     its down rounds; (b) the same delivery record at MNIST width on the card
+     and the CPU, each round from the CPU's state, losses to rtol 1e-4 (the
+     runs left to themselves printed beside); (c) fresh versions and s ≡ 1 against
+     the stacked trainer at N_T = 10 and 128 (losses to rtol 1e-4; whether
+     the replicas and one mix are bit-equal); (d) the async trainer at N_T =
+     128, archive depth 8, replaying a HEFT schedule on 16 machines through
+     the event engine for 6 rounds: wall and split beside phase 8's stacked
+     round, the archive's bytes, peak memory, the mix launch's time beside
+     its bound, exact launch counts and a profiled round's idle share; (e)
+     ``schedule(method="sdp")`` on ``paper_instance(0, n_t)`` for n_t = 32,
+     64, 128 with ``benchmarks/fig4_tasks.py``'s budget beside HEFT, TP-HEFT
+     and the Eq. 24 bound (at 32 also the float64 host solve), each
+     assignment's Eq. 2 checked on the host.
 
 Each phase prints its wall time.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object with every kernel's numbers, and
@@ -127,6 +149,12 @@ FL_ROUNDS = 3                  # rounds of the FL path and of each population ru
 F32_TOL = 1e-5                 # relative Frobenius error, float32 kernels
 BF16_TOL = 0.05                # tests/test_kernel_diff.py's bfloat16 tolerance
 LONG_POS0 = 32736              # LM part (b): sequence b decodes from position 32,736 − 4,096·b
+ASYNC_ROUNDS = 4               # rounds of phase 17's run_fl_async
+# phase 17 (b): relative Frobenius differences, card against CPU, after one
+# round from the same state; about 5x the largest reading on the H100
+# (round 0: 1.65e-5, 6.16e-4, 2.17e-5; two users' local steps carry most of it)
+SYNC_LIMITS = {"replica": 1e-4, "momentum": 3e-3, "residual": 1e-4}
+STACKED_ROUND_MS: dict[int, list[float]] = {}   # phase 8's TopK round walls by N_T
 
 
 def smi() -> str:
@@ -215,13 +243,19 @@ def print_row(r, what="") -> None:
           f"max abs err {r['max_abs_err']:.3g}", flush=True)
 
 
-def slice_instance():
-    """The paper's §4.1.2 instance: N_T = 104 tasks, N_K = 16 machines."""
+def paper_instance(seed: int, num_tasks: int, num_machines: int = 4):
+    """The paper's §4.1.2 instance, drawn as ``benchmarks/common.py``'s
+    ``paper_instance`` draws it."""
     from repro_torch.core import random_compute_graph, random_task_graph
 
-    rng = np.random.default_rng(0)
-    tg = random_task_graph(rng, 104, degree_low=2, degree_high=4)
-    return tg, random_compute_graph(rng, 16)
+    rng = np.random.default_rng(seed)
+    tg = random_task_graph(rng, num_tasks, degree_low=2, degree_high=4)
+    return tg, random_compute_graph(rng, num_machines)
+
+
+def slice_instance():
+    """The paper's §4.1.2 instance: N_T = 104 tasks, N_K = 16 machines."""
+    return paper_instance(0, 104, 16)
 
 
 def kernel_phase(dev, gen) -> list[dict]:
@@ -782,6 +816,8 @@ def population_phase(dev, n: int = 128, num_samples: int = 16384) -> dict[str, i
                   f"split (ms) local {split['local']:.3f} compress {split['compress']:.3f} "
                   f"mix {split['mix']:.3f}; mean loss {info['mean_loss']:.6f}", flush=True)
             check(np.isfinite(info["mean_loss"]), f"population {name} loss finite")
+            if name == "TopK":
+                STACKED_ROUND_MS.setdefault(n, []).append(wall * 1e3)
         counts[name] = tk.launch_counts()
         kernel = "topk_mask" if name == "TopK" else "int8_roundtrip"
         expect = dict.fromkeys(counts[name], 0)
@@ -1695,6 +1731,420 @@ def batch_path_phase(dev) -> dict[str, int]:
     return counts
 
 
+def async_spec():
+    """``gossip_async_fl``'s execution (``src/repro/scenarios/presets.py``:
+    jitter 0.1, stragglers 0.15 × 3.0, the scenario's stream (seed, 1)) with
+    token flow control, capacity 8 and refill 4."""
+    from repro_torch.sim import ExecutionSpec
+
+    return ExecutionSpec(semantics="async", jitter_sigma=0.1, straggler_prob=0.15,
+                         straggler_factor=3.0, seed=(0, 1), token_capacity=8.0, token_refill=4.0)
+
+
+def hinge():
+    """``gossip_async_fl``'s staleness weights: hinge, a = 0.5, b = 1."""
+    from repro_torch.fl import StalenessWeights
+
+    return StalenessWeights(kind="hinge", a=0.5, b=1)
+
+
+def stage_split(events) -> dict[str, float]:
+    """Device ms of each stage from a round's ``(stage, event)`` marks."""
+    return {b[0]: a[1].elapsed_time(b[1]) for a, b in zip(events, events[1:])}
+
+
+def churn_events(schedules):
+    """One machine that every schedule uses fails at round 1 and recovers at 3."""
+    from repro_torch.sim import ControlEvent
+
+    shared = set.intersection(*(set(s.assignment.tolist()) for s in schedules.values()))
+    check(bool(shared), "a machine that every schedule uses")
+    machine = min(shared)
+    return machine, (ControlEvent(1, "fail", machine), ControlEvent(3, "recover", machine))
+
+
+def record_rounds(tg, cg, assignment, rounds: int, events=()):
+    """``run_fl_async``'s replay of one assignment: the ``simulate`` result
+    under (a)'s spec and each round's (active users, delivered versions
+    clamped to the round)."""
+    from repro_torch.sim import simulate
+
+    res = simulate(tg, cg, assignment, rounds, async_spec(), control_events=events)
+    up = np.ones(tg.num_tasks, dtype=bool)
+    return res, [(up if res.machine_down is None else ~res.machine_down[r, assignment],
+                  np.minimum(res.mix_versions[r], r)) for r in range(rounds)]
+
+
+def async_path_phase(dev, schedules) -> dict[str, int]:
+    """(a) ``run_fl_async`` on phase 7's §4.2 instance at CIFAR-10 width with
+    phase 7's HEFT and SDP schedules and a fail/recover trace, with exact
+    launch counts; then the same replay through ``AsyncGossipTrainer`` for
+    each round's wall and device split and a down user's replica bit-equal
+    across its down rounds."""
+    import dataclasses
+
+    from repro_torch import kernels as tk
+    from repro_torch.data import image_dataset
+    from repro_torch.fl import AsyncGossipTrainer, init_cnn_params, run_fl_async
+
+    tg, cg = fl_instance(10)
+    scheds = {m: schedules[m] for m in ("heft", "sdp")}
+    machine, events = churn_events(scheds)
+    exp = dataclasses.replace(fl_path_experiment("stacked"), rounds=ASYNC_ROUNDS)
+    tk.reset_launch_counts()
+    start = time.perf_counter()
+    out = run_fl_async(exp, task_graph=tg, compute_graph=cg, schedules=scheds,
+                       execution=async_spec(), control_events=events, staleness=hinge(),
+                       device=dev)
+    wall = time.perf_counter() - start
+    counts = tk.launch_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update(gossip_mix_all=2 * ASYNC_ROUNDS, topk_mask=2 * ASYNC_ROUNDS)
+    print(f"async path: run_fl_async, {len(tg.edges)} edges, machine {machine} fails at round "
+          f"1 and recovers at 3, {ASYNC_ROUNDS} rounds x 2 methods: {wall:.3f} s", flush=True)
+    for m in scheds:
+        hist = out["history"][m]
+        print(f"async path {m}: losses {[round(h['mean_loss'], 6) for h in hist]}; sim_time "
+              f"{[round(h['sim_time'], 4) for h in hist]}; active users "
+              f"{[h['active_users'] for h in hist]}; stale mixes "
+              f"{[h['stale_mixes'] for h in hist]}; invalid edges "
+              f"{[h['invalid_edges'] for h in hist]}; lag histogram {out['mix_lag_hist'][m]}; "
+              f"barrier stalls {out['barrier_stalls'][m]}", flush=True)
+        check(all(np.isfinite(h["mean_loss"]) for h in hist), f"async {m} losses finite")
+        check(all(hist[r]["active_users"] < 10 for r in (1, 2)), f"async {m}: users down in "
+              "rounds 1-2")
+        check(hist[-1]["active_users"] == 10, f"async {m}: recovered")
+    print(f"async path: launches {counts}, expected {expect}", flush=True)
+    check(counts == expect, f"async path launch counts {counts} != {expect}")
+
+    train, _ = image_dataset(exp.dataset, exp.num_samples, seed=exp.seed)
+    shards = train.split(exp.num_users, np.random.default_rng(exp.seed))
+    for m, sched in scheds.items():
+        _, plan = record_rounds(tg, cg, sched.assignment, ASYNC_ROUNDS, events)
+        tr = AsyncGossipTrainer(tg, lambda g: init_cnn_params(g, (32, 32, 3)), shards,
+                                exp.gossip, seed=exp.seed, staleness=hinge(), device=dev)
+        walls, losses, frozen, prev = [], [], 0, None
+        for r, (active, versions) in enumerate(plan):
+            tr.stage_events = []
+            t0 = time.perf_counter()
+            info = tr.step_round(active=active, edge_versions=versions)  # reads the loss back
+            walls.append(time.perf_counter() - t0)
+            losses.append(info["mean_loss"])
+            sp = stage_split(tr.stage_events)
+            print(f"async path {m}: round {r} wall {walls[-1] * 1e3:.2f} ms, device split (ms) "
+                  f"local {sp['local']:.3f} compress {sp['compress']:.3f} archive "
+                  f"{sp['archive']:.3f} mix {sp['mix']:.3f}", flush=True)
+            flat = tr._blocks[0].model.flat.detach()
+            for u in np.flatnonzero(~active):
+                check(prev is not None and torch.equal(flat[u], prev[u]),
+                      f"async {m}: down user {u}'s replica bit-equal in round {r}")
+                frozen += 1
+            prev = flat.clone()
+        want = [h["mean_loss"] for h in out["history"][m]]
+        rel = [float("%.3g" % (abs(x - y) / abs(y))) for x, y in zip(losses, want)]
+        print(f"async path {m}: the replay's losses {[round(x, 6) for x in losses]}, relative "
+              f"differences to run_fl_async's {rel}; down replicas checked bit-equal {frozen}",
+              flush=True)
+        check(frozen > 0, f"async {m}: down replicas were checked")
+        del tr, prev
+    torch.cuda.empty_cache()
+    return counts
+
+
+# attributes of a trainer and its block that hold configuration, not state
+STATIC_STATE = frozenset({"staleness", "g", "cfg", "shards", "layout", "opt", "user_mesh", "_fls",
+                          "edge_arrays", "halo_stats", "_halos", "device", "stage_events",
+                          "_epoch_perms"})
+
+
+def copy_state(dst, src) -> None:
+    """Make ``dst`` hold ``src``'s state, the two being the same kind of
+    trainer (or block) on any devices: every tensor, array, number and
+    generator it keeps, found by walking its attributes, its blocks and its
+    model's parameters.  Any other kind of attribute not named in
+    ``STATIC_STATE`` fails the run, so state added later cannot be left
+    behind."""
+    with torch.no_grad():
+        for name, v in vars(src).items():
+            w = getattr(dst, name)
+            if name in STATIC_STATE or v is None:
+                continue
+            if isinstance(v, torch.Tensor) and w is not None and w.is_contiguous():
+                w.copy_(v)
+            elif isinstance(v, torch.Tensor):     # unset, or an expanded view: a copy of its own
+                setattr(dst, name, v.to(dst.device, copy=True))
+            elif isinstance(v, np.ndarray):
+                setattr(dst, name, v.copy())
+            elif isinstance(v, (bool, int, float, str)):
+                setattr(dst, name, v)
+            elif isinstance(v, torch.Generator):
+                w.set_state(v.get_state())
+            elif isinstance(v, dict) and all(isinstance(t, torch.Tensor) for t in v.values()):
+                setattr(dst, name, {k: t.clone() for k, t in v.items()})   # host tables
+            elif name == "_blocks":
+                for b, a in zip(w, v, strict=True):
+                    copy_state(b, a)
+            elif name == "model":
+                for q, p in zip(w.parameters(), v.parameters(), strict=True):
+                    q.copy_(p)
+            else:
+                check(False, f"copy_state: {type(src).__name__}.{name} ({type(v).__name__}) "
+                      "is neither copied nor listed as configuration")
+
+
+def async_card_vs_cpu_phase(dev, schedules, rounds: int = 3) -> None:
+    """(b) The same delivery record (phase 7's instance, HEFT, (a)'s spec
+    and churn) at MNIST width on the card and the CPU, from the same
+    parameters.  Each round starts the card from the CPU's state; the two
+    losses must agree to rtol 1e-4, and the replicas, momenta and residuals
+    after the round to ``SYNC_LIMITS``.  The runs left to themselves are
+    printed beside (ROADMAP Queue 3: they part by more)."""
+    from repro_torch.data import image_dataset
+    from repro_torch.fl import AsyncGossipTrainer, GossipConfig, init_cnn_params
+    from repro_torch.train import TopK
+
+    tg, cg = fl_instance(10)
+    a = schedules["heft"].assignment
+    _, events = churn_events({"heft": schedules["heft"]})
+    _, plan = record_rounds(tg, cg, a, rounds, events)
+    train, _ = image_dataset("mnist", 1280, seed=0)
+    shards = train.split(10, np.random.default_rng(0))
+    cfg = GossipConfig(local_steps=4, batch_size=64, compressor=TopK(0.05))
+
+    def trainer(where):
+        return AsyncGossipTrainer(tg, lambda g: init_cnn_params(g, (28, 28, 1)), shards, cfg,
+                                  seed=0, staleness=hinge(), device=where)
+
+    def state(tr):
+        blk = tr._blocks[0]
+        return {"replica": blk.model.flat.detach(), "momentum": blk.momentum,
+                "residual": blk.residual}
+
+    free = {k: trainer(w) for k, w in (("card", dev), ("cpu", "cpu"))}
+    card, cpu = trainer(dev), trainer("cpu")
+    rels, free_losses = [], {k: [] for k in free}
+    for r, (active, versions) in enumerate(plan):
+        for k, tr in free.items():
+            free_losses[k].append(tr.step_round(active=active, edge_versions=versions)["mean_loss"])
+        copy_state(card, cpu)
+        x = card.step_round(active=active, edge_versions=versions)
+        y = cpu.step_round(active=active, edge_versions=versions)
+        for k in ("stale_mixes", "invalid_edges", "mix_lag_hist"):
+            check(x[k] == y[k], f"async card vs cpu round {r}: {k}")
+        rels.append(abs(x["mean_loss"] - y["mean_loss"]) / abs(y["mean_loss"]))
+        got, want = state(card), {k: t.to(dev) for k, t in state(cpu).items()}
+        diffs = {k: (rel_err(got[k], want[k]), max_abs(got[k], want[k])) for k in got}
+        slot, up = r % card.archive_depth, torch.from_numpy(active).to(dev)
+        flips = int(((card.archive[slot] != 0) != (cpu.archive[slot] != 0).to(dev))[up].sum())
+        print(f"async card vs cpu: round {r} from the CPU's state, {int(active.sum())} users "
+              f"up: loss relative difference {rels[-1]:.3g}; relative (max abs) differences "
+              + ", ".join(f"{k} {e:.3g} ({m:.3g})" for k, (e, m) in diffs.items())
+              + f"; top-k entries picked on one side only {flips}", flush=True)
+        for k, (e, _) in diffs.items():
+            check(e <= SYNC_LIMITS[k], f"async card vs cpu round {r}: {k} relative difference "
+                  f"{e} > {SYNC_LIMITS[k]}")
+    drift = [abs(p - q) / abs(q) for p, q in zip(free_losses["card"], free_losses["cpu"])]
+    print(f"async card vs cpu: left to themselves: card {free_losses['card']} cpu "
+          f"{free_losses['cpu']}, relative differences {[float('%.3g' % v) for v in drift]}",
+          flush=True)
+    check(max(rels) <= 1e-4, f"async card vs cpu losses differ by {max(rels)}")
+    del free, card, cpu
+    torch.cuda.empty_cache()
+
+
+def async_anchor_phase(dev, sizes=((10, 4096), (128, 16384))) -> None:
+    """(c) Fresh versions and s ≡ 1 against the stacked trainer on the card,
+    at each (N_T, CIFAR-10 samples) of ``sizes``."""
+    from repro_torch.data import image_dataset
+    from repro_torch.fl import AsyncGossipTrainer, GossipConfig, GossipTrainer, init_cnn_params
+    from repro_torch.kernels.gossip_mix import gossip_mix_all
+    from repro_torch.train import TopK
+
+    for n, samples in sizes:
+        tg, _ = fl_instance(n)
+        train, _ = image_dataset("cifar10", samples, seed=0)
+        shards = train.split(n, np.random.default_rng(1))
+        cfg = GossipConfig(local_steps=4, batch_size=64, compressor=TopK(0.05))
+
+        def init(g):
+            return init_cnn_params(g, (32, 32, 3))
+
+        sync = GossipTrainer(tg, init, shards, cfg, seed=0, device=dev)
+        asyn = AsyncGossipTrainer(tg, init, shards, cfg, seed=0, device=dev)
+        losses = [(sync.step_round()["mean_loss"], asyn.step_round()["mean_loss"])
+                  for _ in range(2)]
+        rel = max(abs(a - b) / abs(a) for a, b in losses)
+        same = torch.equal(sync._blocks[0].model.flat, asyn._blocks[0].model.flat)
+        # the exchange alone, on the same messages: slot-major archive under M
+        # against the stacked W product
+        S = asyn.archive_depth
+        msgs = asyn.archive[(asyn.round - 1) % S]
+        mixed = gossip_mix_all(asyn.archive.view(S * n, -1), asyn._M)
+        stacked = gossip_mix_all(msgs.contiguous(), sync._blocks[0].Wb)
+        torch.cuda.synchronize()
+        print(f"async anchor N_T={n}: losses stacked {[a for a, _ in losses]} async "
+              f"{[b for _, b in losses]}, largest relative difference {rel:.3e}; replicas "
+              f"bit-equal after 2 rounds: {same}; the mix of one round's messages bit-equal "
+              f"to the stacked product: {torch.equal(mixed, stacked)} (max abs difference "
+              f"{max_abs(mixed, stacked):.3g})", flush=True)
+        check(rel <= 1e-4, f"async anchor N_T={n}: losses differ by {rel}")
+        err = rel_err(mixed, stacked)
+        check(err <= F32_TOL, f"async anchor N_T={n}: the mix against the stacked product, "
+              f"rel error {err}")
+        del sync, asyn, mixed, stacked
+        torch.cuda.empty_cache()
+
+
+def async_population_phase(dev, rounds: int = 6, n: int = 128, K: int = 16,
+                           num_samples: int = 16384) -> None:
+    """(d) ``AsyncGossipTrainer`` at N_T = 128, S = 8, TopK(0.05), replaying a
+    HEFT schedule on 16 machines through the event engine."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as tk
+    from repro_torch.core import ComputeGraph
+    from repro_torch.data import image_dataset
+    from repro_torch.fl import AsyncGossipTrainer, GossipConfig, init_cnn_params
+    from repro_torch.kernels.gossip_mix import gossip_mix_all, gossip_mix_all_plain
+    from repro_torch.sched.heft import heft_assignment
+    from repro_torch.sim import simulate
+    from repro_torch.train import TopK
+
+    S = 8
+    tg, _ = fl_instance(n)
+    rng = np.random.default_rng(3)
+    C = rng.uniform(0.0, 1.0, size=(K, K))
+    np.fill_diagonal(C, 0.0)
+    cg = ComputeGraph(e=np.ones(K), C=C)
+    assignment = heft_assignment(tg, cg)
+    res = simulate(tg, cg, assignment, rounds + 1, async_spec())
+    train, _ = image_dataset("cifar10", num_samples, seed=0)
+    shards = train.split(n, np.random.default_rng(1))
+    cfg = GossipConfig(local_steps=4, batch_size=64, compressor=TopK(0.05))
+    trainer = AsyncGossipTrainer(tg, lambda g: init_cnn_params(g, (32, 32, 3)), shards, cfg,
+                                 seed=0, staleness=hinge(), archive_depth=S, device=dev)
+    L = trainer.layout.size
+    torch.cuda.synchronize()
+    tk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    print(f"async population: N_T={n}, S={S}, L={L}, {len(tg.edges)} edges, HEFT on {K} "
+          f"machines, simulated period {res.period:.4f}, staleness mean "
+          f"{res.staleness_mean:.3f} max {res.staleness_max}, send skips {res.send_skips}; "
+          f"archive {trainer.archive.numel() * 4 / 1e9:.3f} GB", flush=True)
+    for r in range(rounds):
+        trainer.stage_events = []
+        t0 = time.perf_counter()
+        info = trainer.step_round(edge_versions=np.minimum(res.mix_versions[r], r))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        sp = stage_split(trainer.stage_events)
+        print(f"async population: round {info['round']} wall {wall * 1e3:.2f} ms, device split "
+              f"(ms) local {sp['local']:.3f} compress {sp['compress']:.3f} archive "
+              f"{sp['archive']:.3f} mix {sp['mix']:.3f}; mean loss {info['mean_loss']:.6f}, "
+              f"stale mixes {info['stale_mixes']}, invalid edges {info['invalid_edges']}",
+              flush=True)
+        check(np.isfinite(info["mean_loss"]), "async population loss finite")
+    counts = tk.launch_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update(gossip_mix_all=rounds, topk_mask=rounds)
+    stacked = STACKED_ROUND_MS.get(n, [])
+    print(f"async population: launches {counts}, expected {expect}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; lag histogram "
+          f"{trainer.lag_hist.tolist()}; phase 8's stacked TopK rounds at N_T={n} (ms) "
+          f"{[round(x, 2) for x in stacked]}", flush=True)
+    check(counts == expect, f"async population launch counts {counts} != {expect}")
+
+    X, M, out = trainer.archive.view(S * n, L), trainer._M, trainer._blocks[0].incoming
+    ms = device_ms(lambda: gossip_mix_all(X, M, out=out), [()], reps=20)
+    bound, by = bound_ms(4.0 * (X.numel() + M.numel() + out.numel()), 2.0 * n * S * n * L,
+                         TF32_FLOPS)
+    used = int((M != 0).any(dim=0).sum())
+    print(f"kernel gossip_mix_all async mix (M={n}, N={S * n}, L={L}): {ms * 1e3:.2f} us "
+          f"(bound {bound * 1e3:.2f} us, {by}; {bound / ms:.2f} of it); the last round's "
+          f"weights reach {used} of the archive's {S * n} rows", flush=True)
+    # the kernel against its plain version on this archive and M
+    got = gossip_mix_all(X, M)
+    err = rel_err(got, gossip_mix_all_plain(X, M))
+    check(err <= F32_TOL, f"async mix at M={n}, N={S * n}: rel error {err}")
+    check(torch.equal(gossip_mix_all(X, M), got), "async mix: a second call gives another result")
+    empty = (M == 0).all(dim=1)              # receivers with no valid edge this round
+    M0 = M.clone()
+    M0[0] = 0.0
+    got0 = gossip_mix_all(X, M0)
+    err0 = rel_err(got0, gossip_mix_all_plain(X, M0))
+    check(err0 <= F32_TOL and bool(torch.all(got0[0] == 0)) and bool(torch.all(got[empty] == 0)),
+          f"async mix, receiver 0's row zeroed: rel error {err0}, zero rows not zero")
+    print(f"kernel gossip_mix_all async mix: rel error {err:.3g} against the plain version, "
+          f"{err0:.3g} with receiver 0's row zeroed; bit-equal on a second call; the rows of "
+          f"receiver 0 and of the {int(empty.sum())} receivers with no valid edge are zero",
+          flush=True)
+    del got, got0, M0
+
+    trainer.stage_events = None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step_round(edge_versions=np.minimum(res.mix_versions[rounds], rounds))
+        wall = time.perf_counter() - t0
+    busy = busy_seconds(prof)
+    if busy > 0:
+        print(f"async population: profiled round {wall * 1e3:.2f} ms wall, device busy "
+              f"{busy * 1e3:.2f} ms, idle share {1 - busy / wall:.3f}", flush=True)
+        for e in sorted(prof.key_averages(), key=dev_us, reverse=True)[:6]:
+            print(f"async population:   {dev_us(e) / 1e3:9.3f} ms {e.count:5d}x "
+                  f"{e.key[:80]}", flush=True)
+    else:
+        print("async population: profiler recorded no device time: idle share not measured",
+              flush=True)
+    del trainer, X, M, out
+    torch.cuda.empty_cache()
+
+
+def fig4_phase(dev, sizes=(32, 64, 128)) -> None:
+    """(e) ``schedule(method="sdp")`` on ``paper_instance(0, n_t)`` at the
+    fig4 scaling sizes with ``benchmarks/fig4_tasks.py``'s budget."""
+    from repro_torch.core import SDPOptions, bottleneck_time, schedule
+
+    for n_t in sizes:
+        tg, cg = paper_instance(0, n_t)
+        n = n_t * cg.num_machines
+        iters = int(np.clip(60_000 // n, 80, 1500))
+        base = {m: schedule(tg, cg, m, device=dev).bottleneck for m in ("heft", "tp_heft")}
+        t0 = time.perf_counter()
+        s = schedule(tg, cg, "sdp", seed=0, num_samples=2048,
+                     sdp_options=SDPOptions(max_iters=iters, check_every=10), device=dev)
+        wall = time.perf_counter() - t0
+        info = s.info
+        lb = info.get("lower_bound", info.get("lower_bound_uncertified"))
+        host = bottleneck_time(tg, cg, s.assignment)
+        check(s.bottleneck == host and np.isfinite(host), f"fig4 n_t={n_t}: host Eq. 2")
+        check(abs(info["rounding_bottleneck"] - host) <= 1e-5 * host,
+              f"fig4 n_t={n_t}: device Eq. 2 {info['rounding_bottleneck']} vs host {host}")
+        line = (f"fig4 n_t={n_t} (n={n}, {info['representation']}, {iters} iterations, "
+                f"residual {info['sdp_residual']:.3g}): sdp {s.bottleneck:.6f} in {wall:.3f} s, "
+                f"heft {base['heft']:.6f}, tp_heft {base['tp_heft']:.6f}, Eq. 24 lower bound "
+                f"{lb:.6f} ({'certified' if info['bound_certified'] else 'not certified'}); "
+                f"sdp beats tp_heft: {s.bottleneck < base['tp_heft']}")
+        if n_t == sizes[0]:
+            t0 = time.perf_counter()
+            h = schedule(tg, cg, "sdp", seed=0, num_samples=2048,
+                         sdp_options=SDPOptions(max_iters=iters, check_every=10),
+                         solver_backend="numpy", rounding_backend="numpy", device=dev)
+            check(h.bottleneck == bottleneck_time(tg, cg, h.assignment), "fig4 host Eq. 2")
+            line += (f"; float64 host solve and rounding {h.bottleneck:.6f} in "
+                     f"{time.perf_counter() - t0:.3f} s")
+        print(line, flush=True)
+
+
+def async_phase(dev, schedules) -> dict[str, int]:
+    """Phase 17: barrier-free FL and fig4, parts (a)-(e)."""
+    counts = async_path_phase(dev, schedules)
+    async_card_vs_cpu_phase(dev, schedules)
+    async_anchor_phase(dev)
+    async_population_phase(dev)
+    fig4_phase(dev)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1739,6 +2189,7 @@ def main() -> int:
     bottleneck_row = next(r for r in rows if r["name"] == "bottleneck_eval")
     phase("16 batched kernels", batch_kernel_phase, dev, gen, bottleneck_row)
     batch_counts = phase("16 batched schedule", batch_path_phase, dev)
+    async_counts = phase("17 barrier-free FL and fig4", async_phase, dev, fl_schedules)
 
     for r in rows:
         r["launches"] = counts[r["name"]]
@@ -1746,6 +2197,8 @@ def main() -> int:
     for r in fl_rows:
         # the exchange and top-k from the run_fl path; int8 from the population's Int8 run
         r["launches"] = (int8_counts if r["name"] == "int8_roundtrip" else fl_counts)[r["name"]]
+        if r["name"] in ("gossip_mix_all", "topk_mask"):
+            r["async_launches"] = async_counts[r["name"]]     # phase 17 (a)
     rows += fl_rows
     for r in lm_rows:
         r["launches"] = lm_counts[r["name"]]      # summed over phase 11's three runs
@@ -1757,7 +2210,9 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             # row 3 at the batched shape (phase 16)
             "batched_ms", "batched_bound_ms", "batched_plain_ms", "batched_per_lane_ms",
-            "batched_launches")
+            "batched_launches",
+            # rows 4 and 7 on the barrier-free path (phase 17 (a))
+            "async_launches")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -232,6 +232,163 @@ def _with_work(edges: Iterable[Edge], num_tasks: int, p) -> TaskGraph:
 
 
 # ---------------------------------------------------------------------------
+# Topology families (the scenario engine's instances).  Each generator
+# returns a ``TaskGraph`` over ``num_tasks`` vertices with unit work by
+# default; undirected families emit both directions of every link.
+# ---------------------------------------------------------------------------
+
+
+def ring_task_graph(
+    num_tasks: int, *, bidirectional: bool = True, p: np.ndarray | None = None
+) -> TaskGraph:
+    """Ring of ``num_tasks`` vertices: i -> (i+1) mod n (and back if bidirectional)."""
+    if num_tasks < 2:
+        raise ValueError("need >= 2 tasks")
+    edges = [(i, (i + 1) % num_tasks) for i in range(num_tasks)]
+    if bidirectional:
+        edges += [(j, i) for (i, j) in edges]
+    return _with_work(edges, num_tasks, p)
+
+
+def torus_task_graph(
+    rows: int, cols: int, *, p: np.ndarray | None = None
+) -> TaskGraph:
+    """2-D wraparound grid (rows x cols): every vertex exchanges with its
+    4 lattice neighbors (both directions), ``num_tasks = rows * cols``."""
+    if rows < 2 or cols < 2:
+        raise ValueError("torus needs rows, cols >= 2")
+    n = rows * cols
+    edges: list[Edge] = []
+    for r in range(rows):
+        for c in range(cols):
+            i = r * cols + c
+            for (dr, dc) in ((0, 1), (1, 0)):
+                j = ((r + dr) % rows) * cols + (c + dc) % cols
+                if i != j:                      # 2-wide axes collapse to self
+                    edges += [(i, j), (j, i)]
+    return _with_work(edges, n, p)
+
+
+def erdos_renyi_task_graph(
+    rng: np.random.Generator,
+    num_tasks: int,
+    *,
+    edge_prob: float = 0.2,
+    p: np.ndarray | None = None,
+) -> TaskGraph:
+    """Directed G(n, q): each ordered pair (i, j), i != j, independently
+    becomes an edge with probability ``edge_prob``."""
+    if num_tasks < 2:
+        raise ValueError("need >= 2 tasks")
+    mask = rng.random((num_tasks, num_tasks)) < edge_prob
+    np.fill_diagonal(mask, False)
+    edges = [(int(i), int(j)) for i, j in zip(*np.nonzero(mask))]
+    return _with_work(edges, num_tasks, p)
+
+
+def scale_free_task_graph(
+    rng: np.random.Generator,
+    num_tasks: int,
+    *,
+    attach: int = 2,
+    p: np.ndarray | None = None,
+) -> TaskGraph:
+    """Barabási–Albert preferential attachment (undirected, both directions).
+
+    Starts from a clique of ``attach + 1`` seed vertices; every later vertex
+    links to ``attach`` distinct existing vertices sampled proportionally to
+    their current degree — a few high-degree hubs emerge, the classic
+    "parameter-server-ish" extreme for gossip averaging.
+    """
+    seed_n = attach + 1
+    if num_tasks < seed_n + 1:
+        raise ValueError(f"need > {seed_n} tasks for attach={attach}")
+    und: set[tuple[int, int]] = {
+        (a, b) for a in range(seed_n) for b in range(a + 1, seed_n)
+    }
+    degree = np.zeros(num_tasks)
+    degree[:seed_n] = seed_n - 1
+    for v in range(seed_n, num_tasks):
+        targets: set[int] = set()
+        while len(targets) < attach:
+            w = degree[:v] / degree[:v].sum()
+            t = int(rng.choice(v, p=w))
+            targets.add(t)
+        for t in targets:
+            und.add((min(v, t), max(v, t)))
+            degree[v] += 1
+            degree[t] += 1
+    edges = [(a, b) for (a, b) in und] + [(b, a) for (a, b) in und]
+    return _with_work(edges, num_tasks, p)
+
+
+def small_world_task_graph(
+    rng: np.random.Generator,
+    num_tasks: int,
+    *,
+    k: int = 4,
+    rewire_prob: float = 0.1,
+    p: np.ndarray | None = None,
+) -> TaskGraph:
+    """Watts–Strogatz small world (undirected, both directions emitted).
+
+    Ring lattice where every vertex links to its ``k // 2`` nearest
+    neighbors on each side; each lattice edge is rewired to a uniform
+    random endpoint with probability ``rewire_prob``.
+    """
+    half = k // 2
+    if half < 1 or num_tasks <= k:
+        raise ValueError(f"need num_tasks > k >= 2, got n={num_tasks}, k={k}")
+    und: set[tuple[int, int]] = set()
+    for i in range(num_tasks):
+        for d in range(1, half + 1):
+            j = (i + d) % num_tasks
+            if rng.random() < rewire_prob:
+                choices = [
+                    c for c in range(num_tasks)
+                    if c != i and (min(i, c), max(i, c)) not in und
+                ]
+                if choices:
+                    j = int(rng.choice(choices))
+            und.add((min(i, j), max(i, j)))
+    edges = [(a, b) for (a, b) in und] + [(b, a) for (a, b) in und]
+    return _with_work(edges, num_tasks, p)
+
+
+def layered_dag_task_graph(
+    rng: np.random.Generator,
+    layers: int,
+    width: int,
+    *,
+    edge_prob: float = 0.5,
+    p: np.ndarray | None = None,
+) -> TaskGraph:
+    """Layered feed-forward DAG (``layers`` x ``width`` vertices).
+
+    Each vertex links to each vertex of the next layer with probability
+    ``edge_prob``; every non-final vertex is guaranteed an outgoing edge and
+    every non-first vertex an incoming one, so the pipeline is connected.
+    The result always passes ``TaskGraph.validate_is_dag``.
+    """
+    if layers < 2 or width < 1:
+        raise ValueError("need layers >= 2, width >= 1")
+    edges: list[Edge] = []
+    for l in range(layers - 1):
+        lo, nxt = l * width, (l + 1) * width
+        covered_in = set()
+        for a in range(lo, lo + width):
+            targets = [nxt + b for b in range(width) if rng.random() < edge_prob]
+            if not targets:                      # guarantee an outgoing edge
+                targets = [nxt + int(rng.integers(width))]
+            edges += [(a, t) for t in targets]
+            covered_in.update(targets)
+        for b in range(nxt, nxt + width):        # guarantee an incoming edge
+            if b not in covered_in:
+                edges.append((lo + int(rng.integers(width)), b))
+    return _with_work(edges, layers * width, p)
+
+
+# ---------------------------------------------------------------------------
 # Hierarchical (cluster) topology: dense-ish clusters, a sparse head graph.
 # The sharded FL engine maps clusters onto shards, so the only cross-shard
 # (halo) edges are head-to-head links.
@@ -405,3 +562,15 @@ def permute_task_graph(task_graph: TaskGraph, perm: np.ndarray) -> TaskGraph:
         ),
     )
 
+
+TOPOLOGY_FAMILIES = (
+    "ring",
+    "torus",
+    "erdos_renyi",
+    "scale_free",
+    "small_world",
+    "layered_dag",
+    "cluster",
+    "gossip",
+    "random",
+)

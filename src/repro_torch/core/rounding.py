@@ -16,6 +16,10 @@ Counterpart of the fused rounding of ``repro.core.rounding``:
     with one ``bottleneck_eval`` launch over all lanes and the B covariance
     roots from one batched ``eigh``; the analysis bounds per lane on the
     host in float64.
+  - ``backend="numpy"`` (both functions): ``repro``'s float64 host
+    rounding instead (``_sample_signs``, ``signs_to_assignments``, Eq. 2 of
+    every sample with ``bottleneck_time_batch``), lane by lane for a batch;
+    it ignores ``device`` and is chosen only when the caller asks for it.
   - ``naive_rounding``: per-task argmax of the relaxed solution (the paper's
     "SDP with naive rounding" baseline).
   - ``analysis_bounds``: Eq. (22)-(23) expected bottleneck, Eq. (24) lower
@@ -30,9 +34,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.bqp import BQPData, FactoredBQP
+from repro_torch.core.bqp import BQPData, FactoredBQP, bottleneck_time_batch
 from repro_torch.core.graphs import ComputeGraph, TaskGraph
 from repro_torch.core.lanes import lane_map
+from repro_torch.core.sdp import check_backend
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bottleneck import bottleneck_eval
 
@@ -54,6 +59,61 @@ def _covariance_root(Y: np.ndarray) -> np.ndarray:
     """Host eigen square root (float64), robust to a slightly indefinite Y."""
     w, V = np.linalg.eigh(0.5 * (Y + Y.T))
     return V * np.sqrt(np.clip(w, 0.0, None))
+
+
+def _sample_signs(
+    Y: np.ndarray, num_samples: int, rng: np.random.Generator
+) -> tuple[np.ndarray, np.ndarray]:
+    """Draw sign(z), z ~ N(0, Y), as a ±1 matrix (num_samples, n+1), and z."""
+    root = _covariance_root(Y)
+    g = rng.standard_normal((num_samples, Y.shape[0]))
+    z = g @ root.T
+    s = np.sign(z)
+    s[s == 0] = 1.0
+    return s, z
+
+
+def signs_to_assignments(
+    signs: np.ndarray, z: np.ndarray, n_tasks: int, n_machines: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """±1 samples -> (assignments (B, N_T), strict_feasible (B,) bool).
+
+    Folds u (last coordinate), reshapes column-major, and repairs:
+      - several machines selected for a task: keep the one with the largest
+        continuous score z;
+      - no machine selected: strictly infeasible (flagged), repaired to the
+        argmax-z machine so every sample yields some assignment.
+    """
+    u = signs[:, -1:]
+    x = signs[:, :-1] * u                          # fold homogenization
+    zx = z[:, :-1] * u
+    B = x.shape[0]
+    # column-major vec: index κ·N_T + τ  ->  (machine κ, task τ)
+    sel = (x.reshape(B, n_machines, n_tasks) > 0)  # (B, K, T)
+    score = zx.reshape(B, n_machines, n_tasks)     # continuous scores
+    masked = np.where(sel, score, -np.inf)
+    any_sel = sel.any(axis=1)                      # (B, T)
+    strict = any_sel.all(axis=1)
+    # repair: fall back to raw score where nothing was selected
+    choice = np.where(any_sel[:, None, :], masked, score)
+    assignments = np.argmax(choice, axis=1)        # (B, T)
+    return assignments, strict
+
+
+def _numpy_rounding(bqp, task_graph, compute_graph, Y, num_samples, rng, strict):
+    """``repro``'s float64 host rounding: (best assignment, its Eq. 2 time,
+    number of strictly feasible samples)."""
+    signs, z = _sample_signs(Y, num_samples, rng)
+    assignments, strict_mask = signs_to_assignments(signs, z, bqp.n_tasks, bqp.n_machines)
+    if strict and strict_mask.any():
+        # the paper discards infeasible samples; if none survive, the
+        # repaired samples stand in (never fail)
+        candidate = assignments[strict_mask]
+    else:
+        candidate = assignments
+    times = bottleneck_time_batch(task_graph, compute_graph, candidate)
+    best = int(np.argmin(times))
+    return candidate[best], float(times[best]), int(strict_mask.sum())
 
 
 def _device_covariance_root(Y: torch.Tensor) -> torch.Tensor:
@@ -120,10 +180,27 @@ def randomized_rounding(
     strict: bool = False,
     Y_device: torch.Tensor | None = None,
     device: str | torch.device | None = None,
+    backend: str = "device",
 ) -> RoundingResult:
-    """Fused randomized rounding on ``device`` (None = the CUDA card)."""
-    dev = resolve_device(device)
+    """Fused randomized rounding on ``device`` (None = the CUDA card), or
+    with ``backend="numpy"`` the float64 host rounding (``device`` ignored)."""
+    check_backend(backend, "rounding")
     rng = rng or np.random.default_rng(0)
+    if backend == "numpy":
+        assignment, bottleneck, num_feasible = _numpy_rounding(
+            bqp, task_graph, compute_graph, Y, num_samples, rng, strict
+        )
+        exp_b, lb, ub = analysis_bounds(bqp, Y)
+        return RoundingResult(
+            assignment=np.asarray(assignment, dtype=np.int64),
+            bottleneck=bottleneck,
+            num_feasible=num_feasible,
+            num_samples=num_samples,
+            expected_bottleneck=exp_b,
+            lower_bound=lb,
+            upper_bound=ub,
+        )
+    dev = resolve_device(device)
     if Y_device is not None:
         root = _device_covariance_root(Y_device.to(dev))
     else:
@@ -201,6 +278,7 @@ def randomized_rounding_batch(
     strict: bool = False,
     Y_devices=None,
     device: str | torch.device | None = None,
+    backend: str = "device",
 ) -> list[RoundingResult]:
     """Round B same-shape SDP solutions at once on ``device`` (None = the
     CUDA card).
@@ -213,8 +291,11 @@ def randomized_rounding_batch(
     come from one batched ``eigh``.  The Eq. (22)-(24)/(27) analysis bounds
     are computed per lane on the host in float64.  The lanes' host work
     (Gaussians, bounds) runs in a pool of threads (``repro_torch.core.lanes``).
+    ``backend="numpy"`` rounds the lanes one after another with the float64
+    host rounding.
     """
-    dev = resolve_device(device)
+    check_backend(backend, "rounding")
+    dev = None if backend == "numpy" else resolve_device(device)
     B = len(bqps)
     if not (len(task_graphs) == len(compute_graphs) == len(Ys) == B):
         raise ValueError("bqps, task_graphs, compute_graphs, Ys must align")
@@ -230,6 +311,12 @@ def randomized_rounding_batch(
                 "randomized_rounding_batch requires same-shape instances "
                 "(same n_tasks, n_machines, and task-graph edge count)"
             )
+    if backend == "numpy":
+        return [
+            randomized_rounding(bqp, tg, cg, Y, num_samples=num_samples, rng=rng,
+                                strict=strict, backend="numpy")
+            for bqp, tg, cg, Y, rng in zip(bqps, task_graphs, compute_graphs, Ys, rngs)
+        ]
 
     def stack(arrays, dtype):
         return torch.as_tensor(np.stack([np.asarray(a, dtype) for a in arrays]), device=dev)

@@ -18,7 +18,9 @@ Methods:
 The sdp family solves the SDP with the device loop of
 ``repro_torch.core.sdp`` and rounds with the fused device rounding of
 ``repro_torch.core.rounding``, on ``device`` (None = the CUDA card; without
-one every method raises ``RuntimeError``).  The representation is the dense
+one every method raises ``RuntimeError``); ``solver_backend="numpy"`` and
+``rounding_backend="numpy"`` run ``repro``'s float64 host solve and
+rounding instead.  The representation is the dense
 ``BQPData`` oracle for small instances and the matrix-free ``FactoredBQP``
 once the dense stacks would cross ``_DENSE_BYTES_LIMIT``.
 
@@ -176,6 +178,8 @@ def schedule(
     seed: int = 0,
     num_samples: int = 4000,
     sdp_options: SDPOptions | None = None,
+    rounding_backend: str = "device",
+    solver_backend: str | None = None,
     representation: str = "auto",
     warm_start: bool = False,
     device: str | torch.device | None = None,
@@ -184,9 +188,11 @@ def schedule(
     """Compute a task->machine assignment minimizing bottleneck time.
 
     ``device`` (None = the CUDA card) runs the sdp family's solve and
-    rounding; the other methods are host numpy.  ``warm_start=True``
-    resumes the solver from a cached iterate when the (N_T, N_K, edges)
-    structure was seen before.
+    rounding; the other methods are host numpy.  ``solver_backend`` (None
+    defers to ``sdp_options.backend``) and ``rounding_backend`` take
+    "device" or "numpy", the float64 host solve or rounding of ``repro``'s
+    numpy backends.  ``warm_start=True`` resumes the solver from a cached
+    iterate when the (N_T, N_K, edges) structure was seen before.
     """
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
@@ -206,7 +212,7 @@ def schedule(
             if ws is not None:
                 _WARM_STARTS[fp] = _WARM_STARTS.pop(fp)
             cache["sol"] = solve_sdp(
-                cache["bqp"], sdp_options or SDPOptions(), warm_start=ws, device=dev
+                cache["bqp"], _options(sdp_options, solver_backend), warm_start=ws, device=dev
             )
             # never cache a diverged iterate
             state = cache["sol"].state
@@ -248,6 +254,7 @@ def schedule(
                     rng=rng,
                     Y_device=sol.Y_device,
                     device=dev,
+                    backend=rounding_backend,
                 )
                 seconds = time.perf_counter() - t0
             info.update(
@@ -299,6 +306,11 @@ def schedule(
     )
 
 
+def _options(sdp_options: SDPOptions | None, solver_backend: str | None) -> SDPOptions:
+    opts = sdp_options or SDPOptions()
+    return opts if solver_backend is None else dataclasses.replace(opts, backend=solver_backend)
+
+
 def _remember(cache: dict, key, value, limit: int) -> None:
     """Insert ``key`` as the most recent entry of an LRU dict of ``limit``."""
     if key in cache:
@@ -317,6 +329,8 @@ def schedule_batch(
     seed: int = 0,
     num_samples: int = 4000,
     sdp_options: SDPOptions | None = None,
+    rounding_backend: str = "device",
+    solver_backend: str | None = None,
     representation: str = "auto",
     warm_start: bool = False,
     device: str | torch.device | None = None,
@@ -337,7 +351,9 @@ def schedule_batch(
     weight-only changes restores all lanes, a new composition falls back
     lane by lane to the single-instance cache, and every lane's state is
     written back to it.  Instances must share (n_tasks, n_machines, edge
-    count); other methods run ``schedule`` lane by lane.
+    count); other methods run ``schedule`` lane by lane.  ``solver_backend``
+    / ``rounding_backend`` "numpy" solve / round the lanes one after another
+    on the host in float64.
     """
     B = len(task_graphs)
     if len(compute_graphs) != B:
@@ -346,6 +362,7 @@ def schedule_batch(
         return []
     dev = resolve_device(device)
     kw = dict(seed=seed, num_samples=num_samples, sdp_options=sdp_options,
+              rounding_backend=rounding_backend, solver_backend=solver_backend,
               representation=representation, device=dev)
     if method not in ("sdp", "sdp_naive", "sdp_ls"):
         return [schedule(tg, cg, method, warm_start=warm_start, **kw)
@@ -370,8 +387,8 @@ def schedule_batch(
         else:
             warm_states = [_WARM_STARTS.get(fp) for fp in fps]
 
-    sols = solve_sdp_batch(bqps, sdp_options or SDPOptions(), warm_starts=warm_states,
-                           device=dev)
+    sols = solve_sdp_batch(bqps, _options(sdp_options, solver_backend),
+                           warm_starts=warm_states, device=dev)
 
     if warm_start:
         # never cache a diverged iterate
@@ -390,7 +407,7 @@ def schedule_batch(
         rounded = randomized_rounding_batch(
             bqps, task_graphs, compute_graphs, [sol.Y for sol in sols],
             num_samples=num_samples, rngs=[np.random.default_rng(seed) for _ in range(B)],
-            Y_devices=[sol.Y_device for sol in sols], device=dev,
+            Y_devices=[sol.Y_device for sol in sols], device=dev, backend=rounding_backend,
         )
         seconds = (time.perf_counter() - t0) / B
 

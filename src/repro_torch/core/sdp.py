@@ -39,6 +39,13 @@ crossing) and leaves the later launches.  On an iteration whose full
 ``eigh`` is forced anyway, the partial projection is skipped: the JAX loop
 computes and discards it there, so the iterates are the same.
 
+``SDPOptions(backend="numpy")`` runs ``repro``'s float64 host loop instead
+(``_solve_numpy``: the affine projection through a precomputed Gram
+inverse, or ``cho_solve`` past ``cholesky_above`` rows, and a full
+``eigh`` every iteration), on the host whatever ``device`` says; it is
+chosen only when the caller asks for it.  ``solve_sdp_batch`` then solves
+its lanes one after another.
+
 ``solve_sdp(..., warm_start=sol.state)`` resumes from a previous solve's
 (w, V) state, including one carried over from ``repro`` with
 ``repro_torch.convert.warm_start_from_arrays``.
@@ -65,6 +72,19 @@ class SDPOptions:
     rho: float = 3.0            # prox step on the linear objective
     over_relax: float = 1.7     # DR relaxation parameter λ ∈ (0, 2)
     check_every: int = 25
+    verbose: bool = False       # the host loop prints its residual now and then
+    # The dense operator's rows are ~97 % zeros: the host solver keeps them
+    # as CSR (False keeps the dense L; same iterates, slower matvec).
+    # ``FactoredBQP`` inputs are always sparse; the device loop always runs
+    # on the COO triplets.
+    sparse: bool = True
+    # Host solver: above this many constraint rows the Gram solve uses a
+    # Cholesky factorization (``cho_solve``) instead of a precomputed
+    # inverse.  The device loop always runs two triangular solves.
+    cholesky_above: int = 768
+    # "device": the float32 DR loop on ``device``; "numpy": the float64 host
+    # loop (``repro``'s ``backend="numpy"``), whatever ``device`` says.
+    backend: str = "device"
     # Size of the tracked negative-eigenspace basis (clamped to n+1); the
     # per-iteration cone projection costs O(n²·eig_k) instead of O(n³).
     eig_k: int = 16
@@ -88,9 +108,10 @@ class SDPSolution:
     bound_certified: ``lower_bound`` is the Eq. 24 certificate only when the
        solver converged.
     Y_device: the same normalized Y as a float32 tensor on the solve's
-       device, handed to the fused rounding so the covariance stays there.
-    state: warm-start payload (DR iterate ``w`` over (vec(Y), t, s) and the
-       tracked eigenbasis ``V``, float64 numpy).
+       device, handed to the fused rounding so the covariance stays there
+       (None from the host loop).
+    state: warm-start payload (DR iterate ``w`` over (vec(Y), t, s) and, from
+       the device loop, the tracked eigenbasis ``V``; float64 numpy).
     """
 
     Y: np.ndarray
@@ -122,6 +143,15 @@ class _CSR:
         self.row_of = np.repeat(np.arange(len(rows)), np.diff(self.indptr))
         self.shape = (len(rows), dim)
 
+    def matvec(self, v: np.ndarray) -> np.ndarray:
+        prod = self.values * v[self.indices]
+        return np.bincount(self.row_of, weights=prod, minlength=self.shape[0])
+
+    def rmatvec(self, y: np.ndarray) -> np.ndarray:
+        return np.bincount(
+            self.indices, weights=self.values * y[self.row_of], minlength=self.shape[1]
+        )
+
 
 class _AffineProjector:
     """The constraint operator L of {v : L v = b} and its Gram matrix.
@@ -129,12 +159,16 @@ class _AffineProjector:
     Accepts the dense ``BQPData`` oracle (rows from the materialized Q̃
     stack; also duck-typed SDPs with the same attributes) or the matrix-free
     ``FactoredBQP`` (CSR rows and the Gram matrix straight from the Kronecker
-    factors).  Exports the COO triplets of the dense L (``export_csr``) and
-    the lower Cholesky factor of the regularized Gram matrix
-    (``cholesky_lower``).
+    factors).  For the device loop (``host=False``) it exports the COO
+    triplets of the dense L (``export_csr``) and the lower Cholesky factor
+    of the regularized Gram matrix (``cholesky_lower``).  For the host loop
+    (``host=True``) calling it projects v in float64: through a precomputed
+    Gram inverse, or through ``cho_solve`` once there are more than
+    ``cholesky_above`` rows.
     """
 
-    def __init__(self, bqp):
+    def __init__(self, bqp, sparse: bool = True, cholesky_above: int = 768,
+                 host: bool = False):
         n1 = bqp.n + 1
         self.n1 = n1
         n_edges = len(bqp.edges)
@@ -145,12 +179,23 @@ class _AffineProjector:
         if isinstance(bqp, FactoredBQP):
             G = self._init_factored(bqp)
         else:
-            G = self._init_dense(bqp)
+            G = self._init_dense(bqp, sparse)
         G[np.diag_indices_from(G)] += 1e-10
         self.stats["gram_bytes"] = int(G.nbytes)
-        self._G = G
+        self._G = None if host else G
+        self._chol = host and self.m > cholesky_above
+        if not host:
+            return
+        if self._chol:
+            # two O(m²) triangular solves an iteration, no explicit inverse
+            import scipy.linalg as sla
 
-    def _init_dense(self, bqp) -> np.ndarray:
+            self._G_factor = sla.cho_factor(G, lower=True)
+            self._cho_solve = sla.cho_solve
+        else:
+            self._Ginv = np.linalg.inv(G)
+
+    def _init_dense(self, bqp, sparse: bool) -> np.ndarray:
         n1 = self.n1
         rows: list[np.ndarray] = []
         b: list[float] = []
@@ -183,7 +228,8 @@ class _AffineProjector:
         L = np.stack(rows)                            # (m, dim)
         # rows list + stacked L coexist here: the dense path's build peak
         self.stats["build_peak_bytes"] = int(2 * L.nbytes)
-        self.L = _CSR(rows, self.dim)
+        self._sparse = sparse
+        self.L = _CSR(rows, self.dim) if sparse else L
         self.stats["representation"] = "dense"
         return L @ L.T
 
@@ -223,25 +269,64 @@ class _AffineProjector:
             vals.append(np.concatenate([q_vals / fbqp.q_scale, [-4.0, 1.0]]))
 
         self.b = b
-        L = sp.csr_matrix(
+        self.L = sp.csr_matrix(
             (
                 np.concatenate(vals),
                 (np.concatenate(rows).astype(np.int64), np.concatenate(cols)),
             ),
             shape=(self.m, self.dim),
         )
+        self._sparse = True
         self.stats["representation"] = "factored"
-        self.stats["csr_nnz"] = int(L.nnz)
-        return np.asarray((L @ L.T).todense())
+        self.stats["csr_nnz"] = int(self.L.nnz)
+        return np.asarray((self.L @ self.L.T).todense())
 
     def export_csr(self) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """(rows, cols, vals, b) COO triplets of the dense operator's L (the
         factored operator runs on the device in closed form instead)."""
-        return self.L.row_of, self.L.indices, self.L.values, self.b
+        if isinstance(self.L, _CSR):
+            return self.L.row_of, self.L.indices, self.L.values, self.b
+        rows, cols = np.nonzero(self.L)
+        return rows, cols, self.L[rows, cols], self.b
 
     def cholesky_lower(self) -> np.ndarray:
         """Lower Cholesky factor of the regularized Gram matrix (float64)."""
+        if self._G is None:
+            raise RuntimeError("a host projector keeps no Gram matrix; build it with host=False")
         return np.linalg.cholesky(self._G)
+
+    def _solve_gram(self, resid: np.ndarray) -> np.ndarray:
+        if self._chol:
+            return self._cho_solve(self._G_factor, resid)
+        return self._Ginv @ resid
+
+    def __call__(self, v: np.ndarray) -> np.ndarray:
+        """The float64 projection of v onto {L v = b} (``host=True`` only)."""
+        if self.stats["representation"] == "factored":
+            resid = self.L @ v - self.b
+            return v - self.L.T @ self._solve_gram(resid)
+        if self._sparse:
+            resid = self.L.matvec(v) - self.b
+        else:
+            resid = self.L @ v - self.b
+        y = self._solve_gram(resid)
+        if self._sparse:
+            return v - self.L.rmatvec(y)
+        return v - self.L.T @ y
+
+
+def _project_cone(v: np.ndarray, n1: int, n_edges: int) -> np.ndarray:
+    """Π onto {Y ⪰ 0 (symmetric), t free, s >= 0}: a full float64 ``eigh``."""
+    out = v.copy()
+    Y = v[: n1 * n1].reshape(n1, n1)
+    Y = 0.5 * (Y + Y.T)
+    w, V = np.linalg.eigh(Y)
+    w = np.maximum(w, 0.0)
+    out[: n1 * n1] = ((V * w) @ V.T).reshape(-1)
+    if n_edges:
+        s = v[n1 * n1 + 1 :]
+        out[n1 * n1 + 1 :] = np.maximum(s, 0.0)
+    return out
 
 
 def _identity_start(n1: int, dim: int) -> np.ndarray:
@@ -522,6 +607,57 @@ def _normalize_y(vc: torch.Tensor, n1: int) -> torch.Tensor:
     return Y
 
 
+BACKENDS = ("device", "numpy")      # the solver and rounding backends the port takes
+
+
+def check_backend(backend: str, what: str) -> None:
+    """``ValueError`` unless ``backend`` is one of ``BACKENDS``."""
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"unknown {what} backend {backend!r}; the port takes 'device' (float32 on "
+            "the card, or on the CPU with device='cpu') or 'numpy' (float64 on the host)"
+        )
+
+
+def _projector(bqp, opts: SDPOptions) -> _AffineProjector:
+    return _AffineProjector(bqp, sparse=opts.sparse, cholesky_above=opts.cholesky_above,
+                            host=opts.backend == "numpy")
+
+
+def _solve_numpy(bqp, opts: SDPOptions, proj: _AffineProjector, warm_start: dict | None):
+    """``repro``'s float64 host loop: one full ``eigh`` an iteration."""
+    n1, n_edges, dim = proj.n1, proj.n_edges, proj.dim
+
+    c = np.zeros(dim)
+    c[n1 * n1] = 1.0                     # objective: min t
+    rho_c = opts.rho * c
+
+    w = _warm_w(warm_start, dim)
+    warm = w is not None
+    if w is None:
+        w = _identity_start(n1, dim)
+
+    v_cone = w
+    residual = np.inf
+    it = 0
+    lam = opts.over_relax
+    for it in range(1, opts.max_iters + 1):
+        v_aff = proj(w - rho_c)
+        v_cone = _project_cone(2.0 * v_aff - w, n1, n_edges)
+        step = v_cone - v_aff
+        w = w + lam * step
+        if it % opts.check_every == 0 or it == opts.max_iters:
+            residual = float(np.linalg.norm(step) / np.sqrt(dim))
+            if opts.verbose and it % (opts.check_every * 10) == 0:
+                print(f"  sdp iter {it:5d} residual {residual:.3e}")
+            if residual < opts.tol:
+                break
+
+    stats = {"solver_backend": "numpy", "solver_dtype": "float64", "warm_started": warm}
+    state = {"w": w.copy()}
+    return v_cone, it, residual, stats, state, None
+
+
 def solve_sdp(
     bqp: BQPData | FactoredBQP,
     options: SDPOptions | None = None,
@@ -529,20 +665,26 @@ def solve_sdp(
     *,
     device: str | torch.device | None = None,
 ) -> SDPSolution:
-    """Douglas-Rachford splitting for the relaxed problem (20) on ``device``
-    (None = the CUDA card, ``RuntimeError`` without one).
+    """Douglas-Rachford splitting for the relaxed problem (20): the float32
+    loop on ``device`` (None = the CUDA card, ``RuntimeError`` without one),
+    or with ``SDPOptions(backend="numpy")`` the float64 host loop, which
+    ignores ``device``.
 
     ``warm_start`` takes the ``state`` payload of a previous ``SDPSolution``
     (same problem dimensions); mismatched payloads are ignored and the solve
     cold-starts from the identity.
     """
     opts = options or SDPOptions()
-    dev = resolve_device(device)
+    check_backend(opts.backend, "SDP")
+    dev = None if opts.backend == "numpy" else resolve_device(device)
     t0 = time.perf_counter()
-    proj = _AffineProjector(bqp)
-    (v_cone, it, residual, bstats, state, Y_device), = _solve_device(
-        [bqp], opts, [proj], [warm_start], dev
-    )
+    proj = _projector(bqp, opts)
+    if dev is None:
+        v_cone, it, residual, bstats, state, Y_device = _solve_numpy(bqp, opts, proj, warm_start)
+    else:
+        (v_cone, it, residual, bstats, state, Y_device), = _solve_device(
+            [bqp], opts, [proj], [warm_start], dev
+        )
     return _finish_solution(
         bqp, opts, proj, v_cone, it, residual, bstats, state, Y_device,
         time.perf_counter() - t0,
@@ -558,7 +700,7 @@ def _finish_solution(
     residual: float,
     bstats: dict,
     state: dict,
-    Y_device: torch.Tensor,
+    Y_device: torch.Tensor | None,
     seconds: float,
 ) -> SDPSolution:
     """Host post-processing in float64."""
@@ -583,11 +725,12 @@ def _finish_solution(
 
     stats = dict(proj.stats)
     stats.update(bstats)
-    # largest tensor the solve touched: the stacked DR variable (float32)
-    # for factored instances; the constraint-matrix build and the Q̃ stack
-    # for dense ones.
+    # largest tensor the solve touched: the stacked DR variable (float32 on
+    # the device, float64 on the host) for factored instances; the
+    # constraint-matrix build and the Q̃ stack for dense ones.
+    itemsize = 8 if stats.get("solver_backend") == "numpy" else 4
     peak = max(
-        3 * proj.dim * 4,
+        3 * proj.dim * itemsize,
         stats.get("gram_bytes", 0),
         stats.get("build_peak_bytes", 0),
     )
@@ -710,9 +853,11 @@ def solve_sdp_batch(
     Per-instance ``solve_seconds`` is the batch wall time divided by B; the
     whole wall time is ``stats["batch_seconds"]``.  The lanes' host set-up
     (Gram matrices, Cholesky factors) runs in a pool of threads
-    (``repro_torch.core.lanes``).
+    (``repro_torch.core.lanes``).  ``SDPOptions(backend="numpy")`` solves
+    the lanes one after another on the host in float64.
     """
     opts = options or SDPOptions()
+    check_backend(opts.backend, "SDP")
     bqps = list(bqps)
     if not bqps:
         return []
@@ -734,10 +879,12 @@ def solve_sdp_batch(
                 "solve_sdp_batch requires same-shape instances "
                 "(same type, n, n_tasks, n_machines, and edge count)"
             )
+    if opts.backend == "numpy":
+        return [solve_sdp(b, opts, ws) for b, ws in zip(bqps, warm_starts)]
     dev = resolve_device(device)
 
     t0 = time.perf_counter()
-    projs = lane_map(_AffineProjector, bqps)
+    projs = lane_map(lambda b: _projector(b, opts), bqps)
     try:
         raw = _solve_device(bqps, opts, projs, warm_starts, dev)
     except _BatchShapeError:

@@ -205,9 +205,11 @@ class _Block:
         self.rows_idx = torch.arange(self.rows, device=self.device)[:, None]
         self.perm = torch.arange(xs.shape[1], device=self.device).expand(self.rows, -1)
 
-    def local_step(self, opt: SGDM, cursor: int, batch: int) -> torch.Tensor:
-        """One SGDM step of every user; the (masked) sum of their losses."""
-        idx = self.perm[:, cursor:cursor + batch]
+    def local_step(self, opt: SGDM, cursor: int | torch.Tensor, batch: int) -> torch.Tensor:
+        """One SGDM step of every user; the (masked) sum of their losses.
+        ``cursor`` is the offset into every user's data order, or a
+        (rows, batch) tensor of each user's sample indices."""
+        idx = self.perm[:, cursor:cursor + batch] if isinstance(cursor, int) else cursor
         x, y = self.xs[self.rows_idx, idx], self.ys[self.rows_idx, idx]
         flat = self.model.flat
         flat.grad = None

@@ -759,3 +759,129 @@ def test_lm_on_card_matches_cpu(cuda, arch):
         assert _max_abs(got.cpu(), want) <= 1e-4 * float(want.abs().max()), t
     assert tk.launch_counts()["decode_attention"] == 8 * L
     assert tk.launch_counts()["rmsnorm"] == 8 * norms
+
+
+# ---------------------------------------------------------------------------
+# barrier-free FL: the staleness-weighted mix over the slot-major archive
+# ---------------------------------------------------------------------------
+
+
+def _archive_mix(n, S, l, seed, empty=False):
+    """A slot-major (S, n, l) archive and an (n, S·n) mixing matrix with the
+    async trainer's layout (n > 1): an edge (src, dst) delivered at slot s
+    weighs in at column s·n + src; receiver 0 takes nothing."""
+    r = np.random.default_rng(seed)
+    X = torch.from_numpy(r.standard_normal((S, n, l)).astype(np.float32))
+    M = np.zeros((n, S * n), np.float32)
+    if not empty:
+        e = 3 * n
+        src, dst, slot = r.integers(0, n, e), r.integers(1, n, e), r.integers(0, S, e)
+        np.add.at(M, (dst, slot * n + src), r.random(e).astype(np.float32) * 0.3)
+    return X, torch.from_numpy(M)
+
+
+@pytest.mark.parametrize("n", [10, 37, 128])
+@pytest.mark.parametrize("S", [1, 3, 8])
+@pytest.mark.parametrize("empty", [False, True], ids=["edges", "all-zero"])
+def test_async_mix_on_slot_major_archive_on_card(cuda, n, S, empty):
+    """One ``gossip_mix_all`` launch over the archive seen as (S·N_T, L)
+    against its plain version, with ragged N_T; an all-zero M mixes to exact
+    zeros and a receiver without edges gets an exact zero row."""
+    X, M = _archive_mix(n, S, 20011, seed=n * S, empty=empty)
+    X, M = X.to(cuda), M.to(cuda)
+    before = tk.launch_counts()["gossip_mix_all"]
+    out = torch.full((n, X.shape[2]), float("nan"), device=cuda)
+    got = gossip_mix_all(X.view(S * n, -1), M, out=out)
+    want = gossip_mix_all_plain(X.view(S * n, -1), M)
+    torch.cuda.synchronize()
+    assert got is out and tk.launch_counts()["gossip_mix_all"] == before + 1
+    if empty:
+        assert torch.all(got == 0)
+    else:
+        assert _rel(got, want) <= 1e-5
+        assert torch.all(got[0] == 0)
+
+
+def _async_fl_pair(dev, n=10, comp="topk", rounds=0):
+    from repro_torch.data import image_dataset
+    from repro_torch.fl import AsyncGossipTrainer, GossipConfig, GossipTrainer, init_cnn_params
+    from repro_torch.train import TopK
+
+    rng = np.random.default_rng(0)
+    tg = P.gossip_task_graph(rng, n, degree_low=3, degree_high=4)
+    shards = image_dataset("mnist", 128 * n, seed=0)[0].split(n, np.random.default_rng(1))
+    cfg = GossipConfig(local_steps=2, batch_size=32,
+                       compressor=TopK(0.05) if comp == "topk" else None)
+
+    def init(g):
+        return init_cnn_params(g, (28, 28, 1))
+
+    return (GossipTrainer(tg, init, shards, cfg, seed=0, device=dev),
+            AsyncGossipTrainer(tg, init, shards, cfg, seed=0, device=dev), tg)
+
+
+@pytest.mark.parametrize("comp", [None, "topk"])
+def test_async_degenerate_anchor_on_card(cuda, comp):
+    """Fresh versions and s ≡ 1 against the stacked trainer on the card,
+    over an epoch wrap: one mix and one compression launch a round."""
+    sync, asyn, _ = _async_fl_pair(cuda, comp=comp)
+    tk.reset_launch_counts()
+    for _ in range(3):
+        a, b = sync.step_round()["mean_loss"], asyn.step_round()["mean_loss"]
+        assert b == pytest.approx(a, rel=1e-4)
+    counts = tk.launch_counts()
+    assert counts["gossip_mix_all"] == 6
+    assert counts["topk_mask"] == (6 if comp else 0)
+    for i in range(sync.n):
+        torch.testing.assert_close(asyn.user_flat(i), sync.user_flat(i), rtol=0, atol=1e-4)
+
+
+def test_async_down_user_bit_equal_on_card(cuda):
+    _, asyn, _ = _async_fl_pair(cuda)
+    blk = asyn._blocks[0]
+    asyn.step_round()
+    active = np.ones(asyn.n, bool)
+    active[[2, 7]] = False
+    before = [t[~torch.from_numpy(active).to(cuda)].clone()
+              for t in (blk.model.flat.detach(), blk.momentum, blk.residual)]
+    for _ in range(2):
+        asyn.step_round(active=active, edge_versions=np.zeros(len(asyn._src), np.int64))
+        now = [t[~torch.from_numpy(active).to(cuda)]
+               for t in (blk.model.flat.detach(), blk.momentum, blk.residual)]
+        assert all(torch.equal(a, b) for a, b in zip(before, now))
+    asyn.step_round()
+    assert not torch.equal(before[0], blk.model.flat.detach()[[2, 7]])
+
+
+def test_run_fl_async_on_card_matches_cpu(cuda):
+    from repro_torch.fl import FLExperiment, GossipConfig, run_fl_async
+    from repro_torch.sim import ControlEvent, ExecutionSpec
+    from repro_torch.train import TopK
+
+    exp = FLExperiment(dataset="mnist", num_users=8, num_machines=3, degree_low=2,
+                       degree_high=3, rounds=4, num_samples=1024, seed=1,
+                       gossip=GossipConfig(local_steps=2, batch_size=32, compressor=TopK(0.1)))
+    kw = dict(methods=("heft",), execution=ExecutionSpec(semantics="async", jitter_sigma=0.1,
+                                                         token_capacity=4.0, seed=2),
+              control_events=(ControlEvent(1, "fail", 0), ControlEvent(3, "recover", 0)))
+    card = run_fl_async(exp, device=cuda, **kw)
+    cpu = run_fl_async(exp, schedules=card["schedules"], device="cpu", **kw)
+    for a, b in zip(card["history"]["heft"], cpu["history"]["heft"]):
+        assert a["mean_loss"] == pytest.approx(b["mean_loss"], rel=1e-4)
+        for k in ("sim_time", "active_users", "stale_mixes", "invalid_edges", "mix_lag_hist"):
+            assert a[k] == b[k], k
+    assert card["barrier_stalls"] == cpu["barrier_stalls"] == {"heft": 0}
+
+
+def test_host_solver_on_a_cuda_device(cuda):
+    """``backend="numpy"`` runs the float64 host loop whatever ``device`` says."""
+    tg, cg = _small()
+    opts = SDPOptions(backend="numpy", max_iters=300)
+    on_cuda = P.solve_sdp(P.build_bqp(tg, cg), opts, device=cuda)
+    on_cpu = P.solve_sdp(P.build_bqp(tg, cg), opts, device="cpu")
+    assert on_cuda.Y_device is None and on_cuda.stats["solver_backend"] == "numpy"
+    np.testing.assert_array_equal(on_cuda.Y, on_cpu.Y)
+    a = P.schedule(tg, cg, "sdp", sdp_options=opts, rounding_backend="numpy", device=cuda)
+    b = P.schedule(tg, cg, "sdp", sdp_options=opts, rounding_backend="numpy", device="cpu")
+    np.testing.assert_array_equal(a.assignment, b.assignment)
+    assert a.bottleneck == b.bottleneck

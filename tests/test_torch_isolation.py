@@ -5,7 +5,8 @@
   - an AST scan of ``src/repro_torch/`` and ``chip_smoke.py`` finds no such
     import;
   - the entry points, called without ``device``, raise ``RuntimeError`` when
-    there is no CUDA device instead of carrying on on the CPU.
+    there is no CUDA device instead of carrying on on the CPU (the event
+    engine ``repro_torch.sim`` and the host solver touch no device).
 """
 
 import ast
@@ -48,6 +49,8 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.models.transformer, repro_torch.launch.serve\n"
         "import repro_torch.kernels.rmsnorm, repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.decode_attention, repro_torch.launch.sharding\n"
+        "import repro_torch.sim, repro_torch.sim.engine, repro_torch.fl.async_gossip\n"
+        "import repro_torch.fl.staleness, repro_torch.fl.simulator\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'repro'"
         " or m.split('.')[0].startswith('jax'))\n"
         "assert not bad, bad\n"
@@ -73,6 +76,9 @@ def _imports(path: Path) -> list[str]:
 def test_sources_import_no_jax_and_no_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    for name in ("sim/engine.py", "sim/events.py", "sim/flow.py", "fl/async_gossip.py",
+                 "fl/staleness.py"):
+        assert PORT / name in files
     for path in files:
         bad = [n for n in _imports(path) if _forbidden(n)]
         assert not bad, (path, bad)
@@ -95,6 +101,12 @@ def _sharded_trainer(tg, cg):
                             FL.GossipConfig(batch_size=8, num_shards=2), backend="sharded")
 
 
+def _async_trainer(tg, cg):
+    shards = image_dataset("mnist", 64, seed=0)[0].split(4, np.random.default_rng(0))
+    return FL.AsyncGossipTrainer(tg, lambda g: FL.init_cnn_params(g), shards,
+                                 FL.GossipConfig(batch_size=8))
+
+
 def _lm():
     return build_model(get_smoke_config("qwen3-8b"))
 
@@ -108,6 +120,11 @@ ENTRY_POINTS = {
     ),
     "GossipTrainer": _fl_trainer,
     "GossipTrainer(sharded)": _sharded_trainer,
+    "AsyncGossipTrainer": _async_trainer,
+    "run_fl_async": lambda tg, cg: FL.run_fl_async(
+        FL.FLExperiment(num_users=4, num_machines=2, rounds=1, num_samples=64),
+        task_graph=tg, compute_graph=cg,
+    ),
     "UserMesh.build": lambda tg, cg: UserMesh.build(),
     "run_fl": lambda tg, cg: FL.run_fl(
         FL.FLExperiment(num_users=4, num_machines=2, rounds=1, num_samples=64),

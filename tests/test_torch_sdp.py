@@ -148,8 +148,9 @@ def test_maxcut_matches_repro():
 
 def test_options_have_one_device_loop():
     fields = {f.name for f in dataclasses.fields(SDPOptions)}
-    assert not fields & {"backend", "jax_above", "kernel_backend"}
-    shared = {f.name for f in dataclasses.fields(ROptions)} & fields
+    assert not fields & {"jax_above", "kernel_backend"}   # no size switch, no kernel knob
+    assert SDPOptions().backend == "device"  # the float64 host loop only when asked for
+    shared = {f.name for f in dataclasses.fields(ROptions)} & fields - {"backend"}
     for name in shared:                      # same defaults as repro
         assert getattr(SDPOptions(), name) == getattr(ROptions(), name)
 
