@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port once on the card: the SDP scheduler, the
-gossip-FL engines (stacked, per-user reference, mesh-sharded, barrier-free)
-and the dense LM's serving path.
+gossip-FL engines (stacked, per-user reference, mesh-sharded, barrier-free),
+the orchestration layer (elastic scheduler, scenario sweep) and the dense
+LM's serving path.
 
     python3 chip_smoke.py
 
@@ -120,7 +121,25 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      ``schedule(method="sdp")`` on ``paper_instance(0, n_t)`` for n_t = 32,
      64, 128 with ``benchmarks/fig4_tasks.py``'s budget beside HEFT, TP-HEFT
      and the Eq. 24 bound (at 32 also the float64 host solve), each
-     assignment's Eq. 2 checked on the host.
+     assignment's Eq. 2 checked on the host;
+ 18. orchestration: (a) ``run_sweep`` over every registered scenario preset
+     at seed 0 and the quick budget (fig6 at its ``paper_setting`` full
+     budget) and seeds 1–2 of ``ring_uniform`` and ``torus_cluster``, in
+     this process, every method's bottleneck beside ``repro``'s stored record,
+     each record checked for ``repro``'s keys, finite values and, on static
+     sync presets, a simulated total of Eq. 2 × rounds; the batched
+     scenarios' records against ``run_scenario`` alone (the same
+     assignment or within 1e-5); ``smallworld_drift``'s re-solves as
+     ``schedule_batch`` calls on the card; (b) ``ElasticScheduler`` on phase
+     3's instance under a 12-round Markov churn trace (3 fails, 3
+     recovers), each consult's wall, iterations, warm start and bottleneck
+     beside HEFT's, the fleet checked against the original machines after
+     every event, the history's invariants, no fallback, then one
+     ``on_delay_updates`` backlog of 8 drifted delay matrices (one
+     ``schedule_batch`` of 8 lanes) and the peak memory; (c)
+     ``gossip_churn_fl``'s record replayed through ``AsyncGossipTrainer``
+     with every down user's replica bit-equal across its down rounds; the
+     launch counts of the whole phase (``orchestration_launches``).
 
 Each phase prints its wall time.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object with every kernel's numbers, and
@@ -2056,12 +2075,14 @@ def async_population_phase(dev, rounds: int = 6, n: int = 128, K: int = 16,
 
     X, M, out = trainer.archive.view(S * n, L), trainer._M, trainer._blocks[0].incoming
     ms = device_ms(lambda: gossip_mix_all(X, M, out=out), [()], reps=20)
+    lib = device_ms(lambda: torch.matmul(M, X, out=out), [()], reps=20)
     bound, by = bound_ms(4.0 * (X.numel() + M.numel() + out.numel()), 2.0 * n * S * n * L,
                          TF32_FLOPS)
     used = int((M != 0).any(dim=0).sum())
     print(f"kernel gossip_mix_all async mix (M={n}, N={S * n}, L={L}): {ms * 1e3:.2f} us "
-          f"(bound {bound * 1e3:.2f} us, {by}; {bound / ms:.2f} of it); the last round's "
-          f"weights reach {used} of the archive's {S * n} rows", flush=True)
+          f"(bound {bound * 1e3:.2f} us, {by}; {bound / ms:.2f} of it), torch.matmul on the "
+          f"same archive and M {lib * 1e3:.2f} us (TF32 off); the last round's weights reach "
+          f"{used} of the archive's {S * n} rows", flush=True)
     # the kernel against its plain version on this archive and M
     got = gossip_mix_all(X, M)
     err = rel_err(got, gossip_mix_all_plain(X, M))
@@ -2145,6 +2166,331 @@ def async_phase(dev, schedules) -> dict[str, int]:
     return counts
 
 
+# phase 18: the orchestration layer
+ORCH_SEEDS = 3                 # (a): seeds 0..2 of ring_uniform and torus_cluster
+ORCH_ROUNDS = 12               # (b): rounds of the churn trace on the 16 machines
+# (b): a Markov trace that fails 3 machines and recovers 3 in 12 rounds (stream (0, 2))
+ORCH_TRACE = {"model": "markov", "p_fail": 0.03, "p_recover": 0.5, "min_up": 8}
+ORCH_BACKLOG = 8               # (b): delay matrices in the on_delay_updates backlog
+REPRO_RECORDS = Path(__file__).resolve().parent / "BENCH_scenarios.json"
+# docs/benchmarks.md's record schema: keys every record, its axes, its graph
+# and each of its method entries carry
+RECORD_KEYS = {"scenario", "seed", "quick", "rounds", "axes", "graph", "methods",
+               "elapsed_seconds"}
+AXES_KEYS = {"topology", "num_tasks", "num_machines", "machine_profile", "delay_model",
+             "schedulers", "execution", "fl", "churn", "churn_policies"}
+GRAPH_KEYS = {"num_tasks", "num_edges", "constraint_edges", "is_dag", "num_machines",
+              "speed_min", "speed_max", "delay_mean"}
+METHOD_KEYS = {"predicted_bottleneck", "assignment", "execution", "mean_round_time",
+               "total_time", "num_reschedules", "num_migrations"}
+
+
+def finite_floats(x) -> bool:
+    if isinstance(x, dict):
+        return all(finite_floats(v) for v in x.values())
+    if isinstance(x, list):
+        return all(finite_floats(v) for v in x)
+    return not isinstance(x, float) or bool(np.isfinite(x))
+
+
+def record_schema_ok(rec: dict, stored: dict | None) -> bool:
+    """``docs/benchmarks.md``'s keys, and every key of ``repro``'s stored record
+    for the same (scenario, seed, quick) (written before the schema grew)."""
+    ok = (RECORD_KEYS <= set(rec) and AXES_KEYS <= set(rec["axes"])
+          and GRAPH_KEYS <= set(rec["graph"])
+          and all(METHOD_KEYS <= set(e) for e in rec["methods"].values()))
+    if stored is not None:
+        ok = ok and set(stored) <= set(rec) and set(stored["methods"]) == set(rec["methods"])
+        for k in ("axes", "graph"):
+            ok = ok and set(stored[k]) <= set(rec[k])
+        ok = ok and all(set(e) <= set(rec["methods"][m]) for m, e in stored["methods"].items())
+    return ok
+
+
+def static_sync(sc) -> bool:
+    """A scenario whose simulated rounds are Eq. 2 exactly: sync, static delays,
+    no perturbation, no churn."""
+    return (sc.execution == "sync" and sc.delay_model != "drift" and sc.churn is None
+            and not sc.execution_spec().perturbed)
+
+
+def sweep_part(dev, out: Path) -> dict:
+    """(a) ``run_sweep`` over every registered preset (seed 0, quick; fig6 at
+    its ``paper_setting`` full budget) and seeds 1..2 of ``ring_uniform`` and
+    ``torus_cluster``, on the card, in this process; returns the records."""
+    import repro_torch.launch.elastic as elastic
+    from repro_torch import kernels as tk
+    from repro_torch.scenarios import get_scenario, list_scenarios, run_scenario, run_sweep
+    from repro_torch.scenarios.engine import record_key, scenario_key
+
+    scs = list(list_scenarios().values())
+    scs += [get_scenario(n).with_seed(s) for n in ("ring_uniform", "torus_cluster")
+            for s in range(1, ORCH_SEEDS)]
+    batches = []
+    real = elastic.schedule_batch
+
+    def counted(tgs, cgs, method, *args, **kw):     # the drift re-solves' batched consults
+        batches.append((method, len(tgs), str(kw.get("device"))))
+        return real(tgs, cgs, method, *args, **kw)
+
+    launches = {}                  # "name@seed" -> the record's kernel launches
+    last = {}
+
+    def progress(msg: str) -> None:
+        print(f"sweep: {msg}", flush=True)
+        if msg.startswith("run "):
+            name, seed = msg.split()[1], msg.split()[2].removeprefix("seed=")
+            last.update(key=f"{name}@{seed}", counts=tk.launch_counts())
+        elif msg.startswith("  ") and "key" in last:
+            now = tk.launch_counts()
+            launches[last["key"]] = {k: now[k] - last["counts"][k] for k in now
+                                     if now[k] > last["counts"][k]}
+
+    t0 = time.perf_counter()
+    elastic.schedule_batch = counted
+    try:
+        payload = run_sweep(scs, out, quick=True, device=dev, resume=False, progress=progress)
+    finally:
+        elastic.schedule_batch = real
+    wall = time.perf_counter() - t0
+    records = {record_key(r): r for r in payload["records"]}
+    check(len(records) == len(scs), f"sweep: {len(records)} records for {len(scs)} scenarios")
+    stored = {record_key(r): r for r in json.loads(REPRO_RECORDS.read_text())["records"]}
+    print(f"sweep: {len(records)} records in {wall:.2f} s (one process); predicted bottleneck "
+          f"of each method: the float32 device solve and rounding against repro's float64 "
+          f"host solve (its stored record in BENCH_scenarios.json, where one exists; "
+          f"information, not a check)", flush=True)
+    for sc in scs:
+        key = scenario_key(sc, True)
+        rec, ref = records[key], stored.get(key)
+        cols = []
+        for m, e in rec["methods"].items():
+            theirs = ref["methods"].get(m) if ref else None
+            cols.append(f"{m} {e['predicted_bottleneck']:.6f}" + (
+                f" (repro {theirs['predicted_bottleneck']:.6f})" if theirs else ""))
+        sdp = [e for e in rec["methods"].values() if "sdp_seconds" in e]
+        solve = (f" (the first sdp solve {sdp[0]['sdp_seconds']:.3f} s, batch "
+                 f"{sdp[0].get('solve_batch', 1)})" if sdp else "")
+        print(f"sweep {key[0]} seed {key[1]} quick {key[2]}: {rec['elapsed_seconds']:.2f} s"
+              f"{solve}, launches {launches.get(f'{key[0]}@{key[1]}', {})}; " + ", ".join(cols)
+              + ("" if ref else "; no stored repro record"), flush=True)
+        json.dumps(rec)
+        check(record_schema_ok(rec, ref), f"sweep {key}: record keys")
+        check(finite_floats(rec["methods"]) and all(
+            np.isfinite(e["predicted_bottleneck"]) for e in rec["methods"].values()),
+            f"sweep {key}: finite values")
+        if static_sync(sc):
+            for m, e in rec["methods"].items():
+                p = e["predicted_bottleneck"]
+                check(abs(e["mean_round_time"] - p) <= 1e-12 * p
+                      and abs(e["total_time"] - p * rec["rounds"]) <= 1e-12 * p * rec["rounds"],
+                      f"sweep {key} {m}: sync total {e['total_time']} != Eq. 2 {p} x "
+                      f"{rec['rounds']} rounds")
+    drift = records[("smallworld_drift", 0, True)]["methods"]["sdp"]
+    sdp_batches = [b for b in batches if b[0] == "sdp"]
+    print(f"sweep: smallworld_drift's re-solves: {len(batches)} on_delay_updates consults "
+          f"(each scheduler's own), the sdp ones' schedule_batch (lanes, device) "
+          f"{[b[1:] for b in sdp_batches]}; sdp reschedules {drift['num_reschedules']}, "
+          f"migrations {drift['num_migrations']}", flush=True)
+    check(len(sdp_batches) == 3 and all(n > 1 and d == str(dev)
+                                        for _, n, d in sdp_batches),
+          f"smallworld_drift: 3 batched sdp consults on the card, got {batches}")
+    for name in ("ring_uniform", "torus_cluster"):
+        for seed in range(ORCH_SEEDS):
+            sc = get_scenario(name).with_seed(seed)
+            got = records[scenario_key(sc, True)]
+            # the async twin of the preset (the same instance) joins the batch
+            check(got["methods"]["sdp"].get("solve_batch", 1) >= ORCH_SEEDS,
+                  f"{name} seed {seed}: solved in a batch with its other seeds")
+            alone = run_scenario(sc, quick=True, device=dev)
+            rel = {}
+            for m, e in got["methods"].items():
+                a = alone["methods"][m]
+                rel[m] = abs(e["predicted_bottleneck"] - a["predicted_bottleneck"]) / (
+                    a["predicted_bottleneck"])
+                check(e["assignment"] == a["assignment"] or rel[m] <= 1e-5,
+                      f"{name} seed {seed} {m}: batched {e['predicted_bottleneck']} against "
+                      f"alone {a['predicted_bottleneck']}")
+            print(f"sweep {name} seed {seed}: the batch lane against run_scenario alone: same "
+                  f"assignment {[m for m in got['methods'] if got['methods'][m]['assignment'] == alone['methods'][m]['assignment']]}, "
+                  f"relative bottleneck differences {({m: float('%.3g' % v) for m, v in rel.items()})}",
+                  flush=True)
+    return records
+
+
+def elastic_part(dev, instance=None, max_iters: int = MAX_ITERS) -> None:
+    """(b) ``ElasticScheduler`` on phase 3's §4.1.2 instance (N_T = 104, N_K =
+    16, n = 1664): a Markov churn trace of 12 rounds, then one
+    ``on_delay_updates`` backlog of 8 drifted delay matrices (one
+    ``schedule_batch`` of 8 lanes)."""
+    import repro_torch.launch.elastic as elastic
+    from repro_torch.core import SDPOptions, schedule
+    from repro_torch.launch.elastic import ElasticScheduler
+    from repro_torch.scenarios import DelayDrift, churn_trace
+
+    tg, cg0 = instance or slice_instance()
+    K = cg0.num_machines
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def consult(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        return out, wall
+
+    def line(what, es, wall):
+        info = es.current.info
+        heft = schedule(tg, es.compute_graph, "heft", device=dev).bottleneck
+        print(f"elastic {what}: {wall:.3f} s wall, {len(es.machine_ids)} machines, "
+              f"{info.get('sdp_iterations')} iterations, warm_started "
+              f"{info.get('warm_started')}, bottleneck {es.current.bottleneck:.6f}, heft on the "
+              f"same fleet {heft:.6f}", flush=True)
+
+    es, wall = consult(lambda: ElasticScheduler(
+        tg, cg0, method="sdp", seed=0, warm_start=True, fallback="heft",
+        schedule_kwargs={"sdp_options": SDPOptions(max_iters=max_iters)}, device=dev))
+    line("init", es, wall)
+    trace = churn_trace(np.random.default_rng((0, 2)), K, ORCH_ROUNDS, **ORCH_TRACE)
+    print(f"elastic: churn trace {trace.counts} over {ORCH_ROUNDS} rounds on {K} machines",
+          flush=True)
+    check(trace.counts["fail"] >= 3 and trace.counts["recover"] >= 3, "3 fails, 3 recovers")
+    for ev in trace.control_events():
+        act = es.on_failure if ev.kind == "fail" else es.on_recovery
+        _, wall = consult(lambda: act(ev.machine, round=ev.round))
+        line(f"round {ev.round} {ev.kind}:{ev.machine}", es, wall)
+        live = es.machine_ids
+        check(np.array_equal(es.compute_graph.e, cg0.e[live])
+              and np.array_equal(es.compute_graph.C, cg0.C[np.ix_(live, live)]),
+              f"elastic: the fleet {live} is the original machines' speeds and delays")
+    check(es.machine_ids == [m for m in range(K) if trace.up_at[-1, m]], "elastic: final fleet")
+
+    rng = np.random.default_rng(5)
+    phase = rng.uniform(0.0, 2.0 * np.pi, (K, K))
+    drift = DelayDrift(base=cg0.C, amplitude=0.5, period=16.0, phase=0.5 * (phase + phase.T))
+    lanes = []
+    real = elastic.schedule_batch
+
+    def seen(tgs, cgs, *args, **kw):
+        out = real(tgs, cgs, *args, **kw)
+        lanes.extend(out)
+        return out
+
+    elastic.schedule_batch = seen
+    try:
+        _, wall = consult(lambda: es.on_delay_updates(
+            [drift.at(r) for r in range(1, ORCH_BACKLOG + 1)], round=ORCH_ROUNDS))
+    finally:
+        elastic.schedule_batch = real
+    check(len(lanes) == ORCH_BACKLOG, f"one schedule_batch of {ORCH_BACKLOG} lanes")
+    print(f"elastic on_delay_updates ({ORCH_BACKLOG} lanes, one schedule_batch): {wall:.3f} s "
+          f"wall, {es.history[-1]['event']} at bottleneck {es.history[-1]['bottleneck']:.6f}; "
+          f"lanes' iterations {[c.info['sdp_iterations'] for c in lanes]}, warm_started "
+          f"{[c.info['warm_started'] for c in lanes]}, bottlenecks "
+          f"{[round(c.bottleneck, 6) for c in lanes]}", flush=True)
+    rounds = [h["round"] for h in es.history if h["round"] is not None]
+    check(rounds == sorted(rounds) and all(h["event"] and np.isfinite(h["bottleneck"])
+                                           for h in es.history), "elastic history invariants")
+    check(es.fallback_count == 0 and not any(h["event"].startswith("fallback")
+                                             for h in es.history), "elastic: no fallback fired")
+    print(f"elastic: history {[h['event'] for h in es.history]}; cached compositions "
+          f"{len(es._comp_states)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB", flush=True)
+
+
+def churn_fl_part(dev, rec: dict) -> None:
+    """(c) ``gossip_churn_fl`` at its registered size: its record from (a), and
+    the same delivery record replayed through ``AsyncGossipTrainer`` with every
+    down user's replica checked bit-equal across its down rounds."""
+    from repro_torch.data import image_dataset
+    from repro_torch.fl import AsyncGossipTrainer, GossipConfig, init_cnn_params
+    from repro_torch.scenarios import get_scenario
+    from repro_torch.scenarios.engine import (
+        _churn_trace_for,
+        build_compute_graph,
+        build_task_graph,
+    )
+    from repro_torch.sim import simulate
+
+    sc = get_scenario("gossip_churn_fl")
+    fl = sc.fl
+    rng = np.random.default_rng(sc.seed)
+    tg = build_task_graph(sc, rng)
+    cg, _ = build_compute_graph(sc, rng)
+    trace = _churn_trace_for(sc, rounds=fl.rounds)
+    control = tuple(ev for ev in trace.control_events() if ev.kind in ("fail", "join", "recover"))
+    train, _ = image_dataset(fl.dataset, fl.num_samples, seed=sc.seed)
+    shards = train.split(sc.num_tasks, np.random.default_rng(sc.seed))
+    cfg = GossipConfig(local_steps=fl.local_steps, batch_size=fl.batch_size)
+    print(f"churn fl: {sc.num_tasks} users on {sc.num_machines} machines, trace "
+          f"{rec['churn']['counts']}, {fl.rounds} rounds", flush=True)
+    check(rec["churn"]["counts"]["fail"] >= 1, "churn fl: the trace fails a machine")
+    frozen = 0
+    for m, entry in rec["methods"].items():
+        a = np.asarray(entry["assignment"], dtype=np.int64)
+        res = simulate(tg, cg, a, fl.rounds, sc.execution_spec(), control_events=control,
+                       busy_factors=trace.busy_factors())
+        tr = AsyncGossipTrainer(tg, lambda g: init_cnn_params(g, train.x.shape[1:],
+                                                              train.num_classes),
+                                shards, cfg, seed=sc.seed, staleness=sc.staleness_weights(),
+                                archive_depth=fl.archive_depth, device=dev)
+        hist = rec["fl"]["per_method"][m]
+        losses, prev = [], None
+        for r in range(fl.rounds):
+            active = (~res.machine_down[r, a] if res.machine_down is not None
+                      else np.ones(sc.num_tasks, dtype=bool))
+            info = tr.step_round(active=active, edge_versions=np.minimum(res.mix_versions[r], r))
+            losses.append(info["mean_loss"])
+            check(int(active.sum()) == hist["active_users"][r], f"churn fl {m}: active users")
+            flat = tr._blocks[0].model.flat.detach()
+            for u in np.flatnonzero(~active):
+                check(prev is not None and torch.equal(flat[u], prev[u]),
+                      f"churn fl {m}: down user {u}'s replica bit-equal in round {r}")
+                frozen += 1
+            prev = flat.clone()
+        rel = [float("%.3g" % (abs(x - y) / abs(y))) for x, y in zip(losses, hist["losses"])]
+        print(f"churn fl {m}: record losses {[round(x, 6) for x in hist['losses']]}, active "
+              f"users {hist['active_users']}, stale mixes {hist['stale_mixes']}, invalid edges "
+              f"{hist['invalid_edges']}, barrier stalls {hist['barrier_stalls']}; the replay's "
+              f"losses differ by {rel} relative", flush=True)
+        check(all(np.isfinite(x) for x in hist["losses"] + losses), f"churn fl {m}: losses finite")
+        del tr, prev
+    check(frozen > 0, "churn fl: down replicas were checked")
+    print(f"churn fl: {frozen} down replicas bit-equal across their down rounds", flush=True)
+
+
+# the kernels the orchestration path drives (the FL presets train without compression)
+ORCH_PATH = ("sdp_subspace", "rank_k_update", "bottleneck_eval", "gossip_mix_all")
+
+
+def orchestration_phase(dev) -> dict[str, int]:
+    """Phase 18: (a) the scenario sweep, (b) the elastic scheduler at N_T =
+    104, (c) FL under churn, with the launch counters zeroed before and read
+    after."""
+    from repro_torch import kernels as tk
+
+    out_dir = Path(__file__).resolve().parent / "build"      # git-ignored
+    out_dir.mkdir(exist_ok=True)
+    tk.reset_launch_counts()
+    walls = {}
+    t0 = time.perf_counter()
+    records = sweep_part(dev, out_dir / "orchestration_sweep.json")
+    walls["(a) sweep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    elastic_part(dev)
+    walls["(b) elastic"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    churn_fl_part(dev, records[("gossip_churn_fl", 0, True)])
+    walls["(c) churn fl"] = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    print(f"orchestration: launches {counts}; wall {({k: round(v, 2) for k, v in walls.items()})}",
+          flush=True)
+    for name, n in counts.items():
+        check((n > 0) == (name in ORCH_PATH), f"orchestration: {name} launched {n} times")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2190,6 +2536,7 @@ def main() -> int:
     phase("16 batched kernels", batch_kernel_phase, dev, gen, bottleneck_row)
     batch_counts = phase("16 batched schedule", batch_path_phase, dev)
     async_counts = phase("17 barrier-free FL and fig4", async_phase, dev, fl_schedules)
+    orch_counts = phase("18 orchestration", orchestration_phase, dev)
 
     for r in rows:
         r["launches"] = counts[r["name"]]
@@ -2206,13 +2553,17 @@ def main() -> int:
     for r in shard_rows:
         r["launches"] = (shard_counts if r["name"] == "gossip_mix_block" else ref_counts)[r["name"]]
     rows += shard_rows
+    for r in rows:
+        r["orchestration_launches"] = orch_counts[r["name"]]     # phase 18
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
             # row 3 at the batched shape (phase 16)
             "batched_ms", "batched_bound_ms", "batched_plain_ms", "batched_per_lane_ms",
             "batched_launches",
             # rows 4 and 7 on the barrier-free path (phase 17 (a))
-            "async_launches")
+            "async_launches",
+            # every row on the orchestration path (phase 18)
+            "orchestration_launches")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -49,7 +49,7 @@ from repro_torch.core.rounding import (
     randomized_rounding,
     randomized_rounding_batch,
 )
-from repro_torch.core.sdp import SDPOptions, solve_sdp, solve_sdp_batch
+from repro_torch.core.sdp import SDPOptions, solve_sdp, solve_sdp_batch, state_is_finite
 from repro_torch.device import resolve_device
 
 METHODS = (
@@ -216,7 +216,7 @@ def schedule(
             )
             # never cache a diverged iterate
             state = cache["sol"].state
-            if warm_start and np.all(np.isfinite(state.get("w", np.inf))):
+            if warm_start and state_is_finite(state):
                 if fp not in _WARM_STARTS:
                     while len(_WARM_STARTS) >= _WARM_STARTS_MAX:
                         _WARM_STARTS.pop(next(iter(_WARM_STARTS)))
@@ -393,7 +393,7 @@ def schedule_batch(
     if warm_start:
         # never cache a diverged iterate
         states = [sol.state for sol in sols]
-        finite = [bool(np.all(np.isfinite(st.get("w", np.inf)))) for st in states]
+        finite = [state_is_finite(st) for st in states]
         if all(finite):
             _remember(_WARM_STARTS_BATCH, batch_key, states, _WARM_STARTS_BATCH_MAX)
         for fp, st, ok in zip(fps, states, finite):

@@ -20,9 +20,9 @@ to float32 and every iteration runs on the device in float32, for B
 same-shape instances at once (``solve_sdp`` is one lane):
 
   - the affine projection: L·v and Lᵀ·y in closed form from the Kronecker
-    factors for ``FactoredBQP`` ("factored"), or from the COO triplets with
-    ``index_add_`` for the dense ``BQPData`` and duck-typed SDPs ("csr"),
-    and two batched triangular solves;
+    factors for ``FactoredBQP`` ("factored"), or from the COO triplets as
+    sorted segment sums for the dense ``BQPData`` and duck-typed SDPs
+    ("csr"), and two triangular solves;
   - the PSD-cone projection: a full ``eigh`` on the first iteration, every
     ``eig_refresh`` iterations and, per lane, whenever the partial
     projection fails; otherwise the partial-spectrum projection, which
@@ -39,6 +39,21 @@ crossing) and leaves the later launches.  On an iteration whose full
 ``eigh`` is forced anyway, the partial projection is skipped: the JAX loop
 computes and discards it there, so the iterates are the same.
 
+**The dense operator's lanes are exact.**  cuBLAS and cuSOLVER choose their
+algorithm by the batch size (a batched QR below 257 rows, GEMM and
+reduction tilings), so a batched call can give a lane other bits than the
+same lane alone.  For the dense operator ("csr": the small instances that
+``repro``'s ``_presolve_groups`` batches and promises equal to their
+sequential solves) every linear-algebra step (triangular solves, QR,
+``eigh``, matrix products, reductions over a lane) therefore runs once a
+lane (``_per_lane``), and the sums are segment sums over triplets sorted
+once by destination: each lane of a batch takes its lone solve's bits, and
+a solve on the card takes the same bits on every run.  The two kernels take
+every lane in one launch, each lane's arithmetic as it is alone.  The
+factored operator (the large instances) keeps one batched call a step for
+all lanes (``einsum``, ``scatter_add`` with atomics, batched QR and
+``eigh``): there a lane matches its lone solve to float32 noise only.
+
 ``SDPOptions(backend="numpy")`` runs ``repro``'s float64 host loop instead
 (``_solve_numpy``: the affine projection through a precomputed Gram
 inverse, or ``cho_solve`` past ``cholesky_above`` rows, and a full
@@ -48,7 +63,10 @@ its lanes one after another.
 
 ``solve_sdp(..., warm_start=sol.state)`` resumes from a previous solve's
 (w, V) state, including one carried over from ``repro`` with
-``repro_torch.convert.warm_start_from_arrays``.
+``repro_torch.convert.warm_start_from_arrays``.  The device loop's state
+stays on its device as float32 tensors (a warm re-solve there copies
+nothing through the host); the host loop's is float64 numpy.  Either
+warm-starts either loop.
 """
 
 from __future__ import annotations
@@ -111,7 +129,8 @@ class SDPSolution:
        device, handed to the fused rounding so the covariance stays there
        (None from the host loop).
     state: warm-start payload (DR iterate ``w`` over (vec(Y), t, s) and, from
-       the device loop, the tracked eigenbasis ``V``; float64 numpy).
+       the device loop, the tracked eigenbasis ``V``: float32 tensors on the
+       solve's device; float64 numpy from the host loop).
     """
 
     Y: np.ndarray
@@ -336,18 +355,21 @@ def _identity_start(n1: int, dim: int) -> np.ndarray:
     return w
 
 
-def _warm_w(warm_start: dict | None, dim: int) -> np.ndarray | None:
-    """Validated warm-start iterate; None when absent, shape-mismatched, or
-    non-finite (a diverged solve must not poison subsequent re-solves)."""
-    if not warm_start:
+def state_is_finite(state: dict | None) -> bool:
+    """Whether a solve's warm-start ``state`` holds a finite iterate ``w``
+    (numpy or a tensor on any device); a diverged one is never cached."""
+    w = state.get("w") if state else None
+    return w is not None and bool(torch.isfinite(torch.as_tensor(w)).all())
+
+
+def _warm_w(warm_start: dict | None, dim: int, dev: torch.device) -> torch.Tensor | None:
+    """Validated warm-start iterate on ``dev``, in the dtype it was kept in;
+    None when absent, shape-mismatched, or non-finite (a diverged solve must
+    not poison subsequent re-solves)."""
+    if not state_is_finite(warm_start):
         return None
-    w = warm_start.get("w")
-    if w is None:
-        return None
-    w = np.asarray(w, dtype=np.float64)
-    if w.shape != (dim,) or not np.all(np.isfinite(w)):
-        return None
-    return w
+    w = torch.as_tensor(warm_start["w"], device=dev)
+    return w if w.shape == (dim,) else None
 
 
 def _host_operands(bqp, proj: _AffineProjector):
@@ -373,31 +395,55 @@ def _host_operands(bqp, proj: _AffineProjector):
     return "csr", 0, 0, arrays
 
 
-def _make_device_ops(kind: str, operands, n1: int, n_tasks: int, n_machines: int):
+def _per_lane(exact: bool, fn, *xs):
+    """``fn`` on each lane alone (a batch of one, ``x[i:i + 1]``), the
+    results stacked, so a lane's bits do not depend on the batch around it;
+    or, not ``exact``, ``fn`` on the whole batch at once."""
+    if not exact or xs[0].shape[0] == 1:
+        return fn(*xs)
+    outs = [fn(*(x[i:i + 1] for x in xs)) for i in range(xs[0].shape[0])]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def _segment_sums(keys: torch.Tensor, n_out: int, vals: torch.Tensor, src: torch.Tensor):
+    """(vals, src, offsets) that sum ``vals[i] * x[src[i]]`` into ``n_out``
+    outputs by ``keys``: the terms sorted by key (stable, so a key's terms
+    keep their order) and each key's segment offsets.  ``torch.segment_reduce``
+    then reduces each segment on its own, the same on every run and whatever
+    the other segments; given offsets it checks nothing on the host."""
+    keys = keys.reshape(-1)
+    order = torch.argsort(keys, stable=True)
+    offsets = torch.zeros(n_out + 1, dtype=torch.int64, device=keys.device)
+    torch.cumsum(torch.bincount(keys, minlength=n_out), 0, out=offsets[1:])
+    return vals.reshape(-1)[order], src.reshape(-1)[order], offsets
+
+
+def _make_device_ops(kind: str, operands, n1: int, dim: int, n_tasks: int, n_machines: int):
     """Constraint-operator closures (matvec, rmatvec, b) of B lanes on the
     operands' device; every operand carries one lane a row, and matvec /
-    rmatvec map (B, dim) <-> (B, m).  ``kind`` "csr" (COO triplets,
-    ``index_add_``) or "factored" (closed forms from the Kronecker factors;
-    row layout [diag (n1) | A (n_tasks) | Q̃/q_scale with -4t + s (|E|)])."""
+    rmatvec map (B, dim) <-> (B, m).  ``kind`` "csr" (COO triplets, summed
+    as sorted segments) or "factored" (closed forms from the Kronecker
+    factors; row layout [diag (n1) | A (n_tasks) | Q̃/q_scale with -4t + s
+    (|E|)])."""
     idx_t = n1 * n1
 
     if kind == "csr":
         Lval, Lrow, Lcol, b = operands
         B, m = b.shape
         lane = torch.arange(B, device=b.device)[:, None]
+        row, col = Lrow + lane * m, Lcol + lane * dim          # flat over the lanes
+        r_val, r_src, r_off = _segment_sums(row, B * m, Lval, col)
+        c_val, c_src, c_off = _segment_sums(col, B * dim, Lval, row)
 
         def matvec(v):
-            dim = v.shape[1]
-            return torch.zeros(B * m, dtype=v.dtype, device=v.device).index_add_(
-                0, (Lrow + lane * m).reshape(-1),
-                (Lval * v.reshape(-1)[Lcol + lane * dim]).reshape(-1),
-            ).view(B, m)
+            terms = r_val * v.reshape(-1)[r_src]
+            return torch.segment_reduce(terms, "sum", offsets=r_off).view(B, m)
 
-        def rmatvec(y, dim):
-            return torch.zeros(B * dim, dtype=y.dtype, device=y.device).index_add_(
-                0, (Lcol + lane * dim).reshape(-1),
-                (Lval * y.reshape(-1)[Lrow + lane * m]).reshape(-1),
-            ).view(B, dim)
+        def rmatvec(y):
+            terms = c_val * y.reshape(-1)[c_src]
+            return torch.segment_reduce(terms, "sum", offsets=c_off).view(B, dim)
 
         return matvec, rmatvec, b
 
@@ -441,7 +487,7 @@ def _make_device_ops(kind: str, operands, n1: int, n_tasks: int, n_machines: int
         r_q = inner / qs[:, None] - 4.0 * v[:, idx_t, None] + v[:, idx_t + 1:]
         return torch.cat([r_diag, r_a, r_q], dim=1)
 
-    def rmatvec(y, dim):
+    def rmatvec(y):
         y_d = y[:, :n1]
         y_a = y[:, n1: n1 + T]
         y_raw = y[:, n1 + T:]
@@ -480,15 +526,31 @@ def _make_device_ops(kind: str, operands, n1: int, n_tasks: int, n_machines: int
     return matvec, rmatvec, b
 
 
-def _cone_full(Y: torch.Tensor, k: int):
-    """O(n³) projection of each lane of (B, n, n); reseeds the basis with
-    the k most-negative eigenvectors."""
+def _cone_full_lane(Y: torch.Tensor, k: int):
     ew, EV = torch.linalg.eigh(Y)
     Yp = (EV * torch.clamp_min(ew, 0.0)[:, None, :]) @ EV.transpose(1, 2)
     return Yp, EV[:, :, :k].contiguous()
 
 
-def _cone_partial(Y: torch.Tensor, V: torch.Tensor, k: int, eig_iters: int, eig_tol: float):
+def _cone_full(Y: torch.Tensor, k: int, exact: bool):
+    """O(n³) projection of each lane of (B, n, n); reseeds the basis with
+    the k most-negative eigenvectors."""
+    return _per_lane(exact, lambda y: _cone_full_lane(y, k), Y)
+
+
+def _ritz(V, YV, G):
+    """One lane's Ritz pairs: values θ (ascending), vectors W = V U, the
+    residuals R = YV U − W θ and the negative pairs' residual norm."""
+    theta, U = torch.linalg.eigh(0.5 * (G + G.transpose(1, 2)))
+    W = V @ U
+    neg = theta < 0.0
+    R = YV @ U - W * theta[:, None, :]
+    res = torch.sqrt(torch.sum(torch.where(neg, torch.sum(R * R, dim=1), 0.0), dim=1))
+    return theta, W, res
+
+
+def _cone_partial(Y: torch.Tensor, V: torch.Tensor, k: int, eig_iters: int, eig_tol: float,
+                  exact: bool):
     """Partial-spectrum projection of each lane of (B, n, n) through the two
     kernels, one launch over all lanes a sweep.
 
@@ -502,13 +564,11 @@ def _cone_partial(Y: torch.Tensor, V: torch.Tensor, k: int, eig_iters: int, eig_
     YV, G, ss = sdp_subspace(Y, V)
     sigma = torch.sqrt(ss)                                   # (B,)
     for _ in range(eig_iters):
-        V = torch.linalg.qr(sigma[:, None, None] * V - YV).Q.contiguous()
+        V = _per_lane(exact, lambda x: torch.linalg.qr(x).Q,
+                      sigma[:, None, None] * V - YV).contiguous()
         YV, G, _ = sdp_subspace(Y, V)
-    theta, U = torch.linalg.eigh(0.5 * (G + G.transpose(1, 2)))   # Ritz values, ascending
-    W = V @ U
+    theta, W, res = _per_lane(exact, _ritz, V, YV, G)
     neg = theta < 0.0
-    R = YV @ U - W * theta[:, None, :]
-    res = torch.sqrt(torch.sum(torch.where(neg, torch.sum(R * R, dim=1), 0.0), dim=1))
     ok = (torch.sum(neg, dim=1) < k) & (res <= eig_tol * torch.clamp_min(sigma, 1.0))
     Yp = rank_k_update(Y, (W * torch.where(neg, theta, 0.0)[:, None, :]).contiguous(), W)
     return ok, Yp, W
@@ -520,9 +580,10 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _run_dr(w0, V0, make_ops, CL, opts: SDPOptions, n1: int, k: int):
+def _run_dr(w0, V0, make_ops, CL, opts: SDPOptions, n1: int, k: int, exact: bool):
     """The DR loop over B lanes.  ``make_ops(sel)`` gives the constraint
-    closures of the lanes ``sel`` (a slice or an index tensor).  Returns
+    closures of the lanes ``sel`` (a slice or an index tensor); ``exact``
+    runs each linear-algebra step once a lane (``_per_lane``).  Returns
     (w, V, v_cone, it, res, done, it_conv, n_full, n_partial): the device
     states (B, …) and, as numpy (B,) arrays, each lane's residual, whether
     it converged, the iteration of its first crossing of ``tol`` and its
@@ -550,11 +611,13 @@ def _run_dr(w0, V0, make_ops, CL, opts: SDPOptions, n1: int, k: int):
             CLT_l = CL_l.transpose(1, 2)
         nl = live.size
 
+        def gram_solve(cl, clt, r):
+            z = torch.linalg.solve_triangular(cl, r[:, :, None], upper=False)
+            return torch.linalg.solve_triangular(clt, z, upper=True)[:, :, 0]
+
         def affine(v):
             resid = matvec(v) - b
-            z = torch.linalg.solve_triangular(CL_l, resid[:, :, None], upper=False)
-            yv = torch.linalg.solve_triangular(CLT_l, z, upper=True)
-            return v - rmatvec(yv[:, :, 0], dim)
+            return v - rmatvec(_per_lane(exact, gram_solve, CL_l, CLT_l, resid))
 
         wl, Vl = w[sel], V[sel]
         nsteps = min(opts.check_every, opts.max_iters - it)
@@ -572,13 +635,13 @@ def _run_dr(w0, V0, make_ops, CL, opts: SDPOptions, n1: int, k: int):
             Y = 0.5 * (Y + Y.transpose(1, 2))
             if force:
                 use_full = np.ones(nl, bool)
-                Yp, Vn = _cone_full(Y, k)
+                Yp, Vn = _cone_full(Y, k, exact)
             else:
-                ok, Yp, Vn = _cone_partial(Y, Vl, k, opts.eig_iters, eig_tol)
+                ok, Yp, Vn = _cone_partial(Y, Vl, k, opts.eig_iters, eig_tol, exact)
                 use_full = ~ok.cpu().numpy()               # host sync, once per step
                 if use_full.any():                         # exactly the lanes that need it
                     f = torch.as_tensor(np.flatnonzero(use_full), device=dev)
-                    Yp[f], Vn[f] = _cone_full(Y[f], k)
+                    Yp[f], Vn[f] = _cone_full(Y[f], k, exact)
             vcl = torch.cat(
                 [Yp.reshape(nl, -1), y[:, idx_t: idx_t + 1],
                  torch.clamp_min(y[:, idx_t + 1:], 0.0)], dim=1,
@@ -589,7 +652,9 @@ def _run_dr(w0, V0, make_ops, CL, opts: SDPOptions, n1: int, k: int):
             n_full[live] += use_full
             n_partial[live] += ~use_full
         it += nsteps
-        res_l = torch.sqrt(torch.sum(step * step, dim=1) / dim).cpu().numpy()
+        res_l = torch.sqrt(
+            _per_lane(exact, lambda x: torch.sum(x * x, dim=1), step) / dim
+        ).cpu().numpy()
         w[sel], V[sel], vc[sel] = wl, Vl, vcl
         res[live] = res_l
         newly = live[res_l < tol]
@@ -632,10 +697,9 @@ def _solve_numpy(bqp, opts: SDPOptions, proj: _AffineProjector, warm_start: dict
     c[n1 * n1] = 1.0                     # objective: min t
     rho_c = opts.rho * c
 
-    w = _warm_w(warm_start, dim)
+    w = _warm_w(warm_start, dim, torch.device("cpu"))
     warm = w is not None
-    if w is None:
-        w = _identity_start(n1, dim)
+    w = _identity_start(n1, dim) if w is None else w.double().numpy()
 
     v_cone = w
     residual = np.inf
@@ -784,30 +848,28 @@ def _solve_device(bqps, opts: SDPOptions, projs, warm_starts, dev: torch.device)
 
     w_stack, V_stack, warm_flags = [], [], []
     for ws in warm_starts:
-        w_np = _warm_w(ws, dim)
-        warm_flags.append(w_np is not None)
-        if w_np is None:
-            w_np = _identity_start(n1, dim)
-        V_np = ws.get("V") if ws else None
-        if V_np is None or np.asarray(V_np).shape != (n1, k):
-            V_np = np.eye(n1, k)   # placeholder; iteration 0 full-eigh reseeds
-        w_stack.append(np.asarray(w_np, np.float32))
-        V_stack.append(np.asarray(V_np, np.float32))
+        w_t = _warm_w(ws, dim, dev)
+        warm_flags.append(w_t is not None)
+        if w_t is None:
+            w_t = torch.as_tensor(_identity_start(n1, dim), device=dev)
+        V_t = ws.get("V") if ws else None
+        if V_t is None or tuple(V_t.shape) != (n1, k):
+            V_t = np.eye(n1, k)    # placeholder; iteration 0 full-eigh reseeds
+        w_stack.append(w_t.to(torch.float32))
+        V_stack.append(torch.as_tensor(V_t, device=dev).to(torch.float32))
 
     def make_ops(sel):
-        return _make_device_ops(kind, tuple(o[sel] for o in operands), n1, n_t, n_k)
+        return _make_device_ops(kind, tuple(o[sel] for o in operands), n1, dim, n_t, n_k)
 
-    w0 = torch.as_tensor(np.stack(w_stack), device=dev)
-    V0 = torch.as_tensor(np.stack(V_stack), device=dev)
+    w0 = torch.stack(w_stack)
+    V0 = torch.stack(V_stack)
     t0 = time.perf_counter()
     with torch.profiler.record_function("sdp: DR loop"):
         w, V, v_cone, it, res, done, it_conv, n_full, n_partial = _run_dr(
-            w0, V0, make_ops, CL, opts, n1, k,
+            w0, V0, make_ops, CL, opts, n1, k, exact=kind == "csr",
         )
     loop_seconds = time.perf_counter() - t0   # ends at the last residual read
     Y_device = _normalize_y(v_cone, n1)
-    w_host = w.cpu().numpy().astype(np.float64)
-    V_host = V.cpu().numpy().astype(np.float64)
     vc_host = v_cone.cpu().numpy()
 
     out = []
@@ -823,7 +885,7 @@ def _solve_device(bqps, opts: SDPOptions, projs, warm_starts, dev: torch.device)
             "eig_k": k,
             "loop_seconds": loop_seconds,
         }
-        state = {"w": w_host[i], "V": V_host[i]}
+        state = {"w": w[i].clone(), "V": V[i].clone()}
         # a converged lane reports the iteration of its first crossing of tol
         it_i = int(it_conv[i]) if done[i] else it
         out.append((vc_host[i].astype(np.float64), it_i, float(res[i]), stats, state,

@@ -4,10 +4,12 @@ Each wrapper launches its kernel on a CUDA tensor (building the library at
 first use, ``build.py``) and runs its plain PyTorch version on a CPU
 tensor.  ``launch_counts`` / ``reset_launch_counts`` read and zero the
 per-wrapper launch counters, so a run can show that it went through the
-kernels.
+kernels.  A wrapper refuses inputs its kernel cannot take with
+``KernelInputError`` (a ``ValueError``).
 """
 
 from repro_torch.kernels.bottleneck import bottleneck_eval
+from repro_torch.kernels.build import KernelInputError
 from repro_torch.kernels.compress import int8_roundtrip, topk_mask
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
@@ -29,6 +31,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "KernelInputError",
     "WRAPPERS",
     "bottleneck_eval",
     "decode_attention",

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import KernelInputError
 
 MAX_MACHINES = 32          # the kernel keeps one register per machine
 MAX_TASKS = 65535          # an edge's two endpoints share one 32-bit word
@@ -34,22 +35,22 @@ _MAX_SMEM = 227 * 1024     # an H100 block's dynamic shared memory
 def _check(assign, p, e, C, src, dst) -> tuple[int, int, int, int, int]:
     """(B, S, T, K, E) of a (B, S, T) call."""
     if assign.dim() != 3:
-        raise ValueError(f"bottleneck_eval: assignments must be (S, T) or (B, S, T), "
-                         f"got {tuple(assign.shape)}")
+        raise KernelInputError(f"bottleneck_eval: assignments must be (S, T) or (B, S, T), "
+                               f"got {tuple(assign.shape)}")
     B, S, T = assign.shape
     K = e.shape[1] if e.dim() == 2 and e.shape[0] == B else -1
     E = src.shape[1] if src.dim() == 2 and src.shape[0] == B else -1
     if p.shape != (B, T) or K < 1 or C.shape != (B, K, K):
-        raise ValueError(
+        raise KernelInputError(
             f"bottleneck_eval: need p (T,), e (K,), C (K, K) per lane; got {tuple(p.shape)}, "
             f"{tuple(e.shape)}, {tuple(C.shape)} for {B} lanes of T={T}"
         )
     if E < 0 or dst.shape != (B, E):
-        raise ValueError(f"bottleneck_eval: src, dst must be (E,) per lane, got "
-                         f"{tuple(src.shape)}, {tuple(dst.shape)}")
+        raise KernelInputError(f"bottleneck_eval: src, dst must be (E,) per lane, got "
+                               f"{tuple(src.shape)}, {tuple(dst.shape)}")
     for x in (p, e, C, src, dst):
         if x.device != assign.device:
-            raise ValueError("bottleneck_eval: all inputs must be on one device")
+            raise KernelInputError("bottleneck_eval: all inputs must be on one device")
     return B, S, T, K, E
 
 
@@ -100,16 +101,18 @@ def bottleneck_eval(assign, p, e, C, src, dst) -> torch.Tensor:
             (torch.float32, "C"), (torch.int32, "src"), (torch.int32, "dst"))
     for x, (dtype, name) in zip(args, want):
         if x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(f"bottleneck_eval: {name} must be contiguous {dtype}, got {x.dtype}")
+            raise KernelInputError(f"bottleneck_eval: {name} must be contiguous {dtype}, "
+                                   f"got {x.dtype}")
     if K > MAX_MACHINES:
-        raise ValueError(f"bottleneck_eval: K={K} machines exceed the kernel's limit of "
-                         f"{MAX_MACHINES}")
+        raise KernelInputError(f"bottleneck_eval: K={K} machines exceed the kernel's limit of "
+                               f"{MAX_MACHINES}")
     if T > MAX_TASKS:
-        raise ValueError(f"bottleneck_eval: T={T} tasks exceed the kernel's limit of {MAX_TASKS}")
+        raise KernelInputError(f"bottleneck_eval: T={T} tasks exceed the kernel's limit of "
+                               f"{MAX_TASKS}")
     lib = build.library()
     if lib.bottleneck_eval_smem_bytes(T, K, E) > _MAX_SMEM:
-        raise ValueError(f"bottleneck_eval: T={T}, K={K}, E={E} exceed the kernel's shared "
-                         f"memory ({_MAX_SMEM} bytes a block)")
+        raise KernelInputError(f"bottleneck_eval: T={T}, K={K}, E={E} exceed the kernel's shared "
+                               f"memory ({_MAX_SMEM} bytes a block)")
     with torch.cuda.device(assign.device):
         out = torch.empty((B, S), dtype=torch.float32, device=assign.device)
         if B and S:

@@ -72,6 +72,14 @@ _LIB: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None   # wall time of this process's build, if it built
 
 
+class KernelInputError(ValueError):
+    """A kernel wrapper refusing its inputs: a shape, dtype, device or
+    layout it does not take, or a size past its kernel's limits.  A
+    ``ValueError``, so argument checks catch it as before; a caller that
+    retries failed solves (``repro_torch.launch.elastic``) lets it pass,
+    since running the same inputs again cannot help."""
+
+
 def tool(name: str = "nvcc") -> str:
     """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     for cand in (

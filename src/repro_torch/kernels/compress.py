@@ -33,6 +33,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import KernelInputError
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_LEAVES = 16   # csrc/compress.cu kMaxLeaves: the leaf table is a kernel parameter
@@ -82,12 +83,12 @@ def int8_roundtrip_plain(X: torch.Tensor, scale: torch.Tensor, *, columns=None, 
 def _ranges(name, columns, L) -> list[tuple[int, int]]:
     ranges = [(int(a), int(b)) for a, b in columns]
     if not 1 <= len(ranges) <= MAX_LEAVES:
-        raise ValueError(f"{name}: need 1 to {MAX_LEAVES} column ranges, got {len(ranges)}")
+        raise KernelInputError(f"{name}: need 1 to {MAX_LEAVES} column ranges, got {len(ranges)}")
     end = 0
     for a, b in sorted(ranges):
         if a < end or b < a or b > L:
-            raise ValueError(f"{name}: column ranges must be disjoint (a, b) with 0 ≤ a ≤ b ≤ "
-                             f"L = {L}, got {columns}")
+            raise KernelInputError(f"{name}: column ranges must be disjoint (a, b) with "
+                                   f"0 ≤ a ≤ b ≤ L = {L}, got {columns}")
         end = b
     return ranges
 
@@ -95,27 +96,28 @@ def _ranges(name, columns, L) -> list[tuple[int, int]]:
 def _rowstat(wrapper, plain, X, stat, columns, out):
     name = wrapper.__name__
     if X.dim() != 2:
-        raise ValueError(f"{name}: need X (N, L), got {tuple(X.shape)}")
+        raise KernelInputError(f"{name}: need X (N, L), got {tuple(X.shape)}")
     N, L = X.shape
     ranges = None if columns is None else _ranges(name, columns, L)
     want = (N,) if ranges is None else (N, len(ranges))
     if stat.shape != want:
-        raise ValueError(f"{name}: need a statistic of shape {want} for X {tuple(X.shape)} "
-                         f"and {'no' if ranges is None else len(ranges)} column ranges, got "
-                         f"{tuple(stat.shape)}")
+        raise KernelInputError(f"{name}: need a statistic of shape {want} for X {tuple(X.shape)} "
+                               f"and {'no' if ranges is None else len(ranges)} column ranges, got "
+                               f"{tuple(stat.shape)}")
     if stat.device != X.device:
-        raise ValueError(f"{name}: the statistic is on {stat.device}, X on {X.device}")
+        raise KernelInputError(f"{name}: the statistic is on {stat.device}, X on {X.device}")
     if out is not None:
         for o in out:
             if o.shape != X.shape or o.dtype != X.dtype or o.device != X.device:
-                raise ValueError(f"{name}: out tensors must match X's shape, dtype and device")
+                raise KernelInputError(f"{name}: out tensors must match X's shape, dtype "
+                                       "and device")
     if X.device.type == "cpu":
         return plain(X, stat, columns=ranges, out=out)
     if X.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {X.device}")
     if X.dtype not in _DTYPES or stat.dtype != torch.float32 or not stat.is_contiguous():
-        raise ValueError(f"{name}: X must be float32 or bfloat16 and the statistic "
-                         f"contiguous float32, got {X.dtype}, {stat.dtype}")
+        raise KernelInputError(f"{name}: X must be float32 or bfloat16 and the statistic "
+                               f"contiguous float32, got {X.dtype}, {stat.dtype}")
     if out is None:
         out = ((torch.empty_like(X, memory_format=torch.contiguous_format),
                 torch.empty_like(X, memory_format=torch.contiguous_format)) if ranges is None
@@ -123,7 +125,7 @@ def _rowstat(wrapper, plain, X, stat, columns, out):
                      torch.zeros_like(X, memory_format=torch.contiguous_format)))
     for t in (X, *out):
         if L > 1 and t.stride(1) != 1:
-            raise ValueError(f"{name}: rows must be contiguous (stride 1 along L)")
+            raise KernelInputError(f"{name}: rows must be contiguous (stride 1 along L)")
     ranges = ranges or [(0, L)]
     if N and any(b > a for a, b in ranges):
         msg, resid = out

@@ -22,6 +22,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import KernelInputError
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instantiations (csrc/decode_attention.cu)
@@ -46,31 +47,32 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                      valid_len: torch.Tensor) -> torch.Tensor:
     """q (B, H, D), caches (B, S, Hkv, D), valid_len (B,) -> (B, H, D)."""
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
-        raise ValueError(f"decode_attention: need q (B, H, D) and caches (B, S, Hkv, D), got "
-                         f"{tuple(q.shape)}, {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+        raise KernelInputError(f"decode_attention: need q (B, H, D) and caches (B, S, Hkv, D), got "
+                               f"{tuple(q.shape)}, {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
     B, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     if k_cache.shape[0] != B or k_cache.shape[3] != D or H % Hkv:
-        raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)} do not fit q "
-                         f"{tuple(q.shape)} (same B and D; H a multiple of Hkv)")
+        raise KernelInputError(f"decode_attention: caches {tuple(k_cache.shape)} do not fit q "
+                               f"{tuple(q.shape)} (same B and D; H a multiple of Hkv)")
     if valid_len.shape != (B,) or valid_len.dtype != torch.int32:
-        raise ValueError(f"decode_attention: valid_len must be ({B},) int32, got "
-                         f"{tuple(valid_len.shape)} {valid_len.dtype}")
+        raise KernelInputError(f"decode_attention: valid_len must be ({B},) int32, got "
+                               f"{tuple(valid_len.shape)} {valid_len.dtype}")
     if not (q.device == k_cache.device == v_cache.device == valid_len.device):
-        raise ValueError("decode_attention: q, the caches and valid_len must be on one device")
+        raise KernelInputError("decode_attention: q, the caches and valid_len must be on one "
+                               "device")
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, valid_len)
     if q.device.type != "cuda":
         raise RuntimeError(f"decode_attention: no kernel for device {q.device}")
     if q.dtype not in _DTYPES or not (q.dtype == k_cache.dtype == v_cache.dtype):
-        raise ValueError(f"decode_attention: q and the caches must share float32 or bfloat16, "
-                         f"got {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
+        raise KernelInputError(f"decode_attention: q and the caches must share float32 or "
+                               f"bfloat16, got {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head dim {D} not in {HEAD_DIMS}")
+        raise KernelInputError(f"decode_attention: head dim {D} not in {HEAD_DIMS}")
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache, valid_len)):
-        raise ValueError("decode_attention: q, the caches and valid_len must be contiguous")
+        raise KernelInputError("decode_attention: q, the caches and valid_len must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
-        raise ValueError("decode_attention: q and the caches must be 16-byte aligned")
+        raise KernelInputError("decode_attention: q and the caches must be 16-byte aligned")
     out = torch.empty_like(q)
     if B * H and S:
         lib = build.library()

@@ -29,6 +29,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import KernelInputError
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instantiations (csrc/flash_attention.cu)
@@ -66,16 +67,16 @@ def split_bf16(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _check(q, k, v, window):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: need q (B, H, S, D) and k, v (B, Hkv, S, D), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+        raise KernelInputError(f"flash_attention: need q (B, H, S, D) and k, v (B, Hkv, S, D), got "
+                               f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, s, d = q.shape
     if k.shape[0] != b or k.shape[2] != s or k.shape[3] != d or h % k.shape[1]:
-        raise ValueError(f"flash_attention: k, v {tuple(k.shape)} do not fit q {tuple(q.shape)}"
-                         " (same B, S and D; H a multiple of Hkv)")
+        raise KernelInputError(f"flash_attention: k, v {tuple(k.shape)} do not fit q "
+                               f"{tuple(q.shape)} (same B, S and D; H a multiple of Hkv)")
     if window < 0:
-        raise ValueError(f"flash_attention: window={window} must be >= 0")
+        raise KernelInputError(f"flash_attention: window={window} must be >= 0")
     if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention: q, k and v must be on one device")
+        raise KernelInputError("flash_attention: q, k and v must be on one device")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -87,17 +88,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"flash_attention: q, k, v must share float32 or bfloat16, got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+        raise KernelInputError(f"flash_attention: q, k, v must share float32 or bfloat16, got "
+                               f"{q.dtype}, {k.dtype}, {v.dtype}")
     B, H, S, D = q.shape
     if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+        raise KernelInputError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
     out = torch.empty_like(q)
     per_load = 16 // q.element_size()
     for t in (q, k, v, out):
         if t.stride(3) != 1 or any(st % per_load for st in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError("flash_attention: the head dim must be contiguous, the other "
-                             f"strides multiples of {per_load} and the data 16-byte aligned")
+            raise KernelInputError("flash_attention: the head dim must be contiguous, the other "
+                                   f"strides multiples of {per_load} and the data 16-byte aligned")
     if B * H and S:
         strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
         lib = build.library()

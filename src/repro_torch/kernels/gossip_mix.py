@@ -43,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import KernelInputError
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -83,17 +84,17 @@ def _check_cuda(name: str, senders, weights, out) -> None:
     dt = senders[0].dtype
     if dt not in _DTYPES or any(x.dtype != dt for x in senders) or any(
             w.dtype != torch.float32 for w in weights):
-        raise ValueError(f"{name}: senders must be float32 or bfloat16 (one dtype) and "
-                         f"weights float32, got {[x.dtype for x in senders]}, "
-                         f"{[w.dtype for w in weights]}")
+        raise KernelInputError(f"{name}: senders must be float32 or bfloat16 (one dtype) and "
+                               f"weights float32, got {[x.dtype for x in senders]}, "
+                               f"{[w.dtype for w in weights]}")
     if not all(t.is_contiguous() for t in (*senders, *weights, out)):
-        raise ValueError(f"{name}: every tensor must be contiguous")
+        raise KernelInputError(f"{name}: every tensor must be contiguous")
 
 
 def _check_out(name: str, out, shape, like: torch.Tensor) -> None:
     if out is not None and (tuple(out.shape) != shape or out.dtype != like.dtype
                             or out.device != like.device):
-        raise ValueError(f"{name}: out must be {shape} {like.dtype} on {like.device}")
+        raise KernelInputError(f"{name}: out must be {shape} {like.dtype} on {like.device}")
 
 
 def _no_kernel(name: str, device: torch.device) -> RuntimeError:
@@ -103,11 +104,11 @@ def _no_kernel(name: str, device: torch.device) -> RuntimeError:
 def gossip_mix_all(X: torch.Tensor, W: torch.Tensor, *, out: torch.Tensor | None = None):
     """(N, L) senders, (M, N) weights -> (M, L) mixes (into ``out`` if given)."""
     if X.dim() != 2 or W.dim() != 2 or W.shape[1] != X.shape[0]:
-        raise ValueError(
+        raise KernelInputError(
             f"gossip_mix_all: need X (N, L) and W (M, N), got {tuple(X.shape)}, {tuple(W.shape)}"
         )
     if W.device != X.device:
-        raise ValueError(f"gossip_mix_all: W is on {W.device}, X on {X.device}")
+        raise KernelInputError(f"gossip_mix_all: W is on {W.device}, X on {X.device}")
     (M, N), L = W.shape, X.shape[1]
     _check_out("gossip_mix_all", out, (M, L), X)
     if X.device.type == "cpu":
@@ -143,15 +144,15 @@ def gossip_mix_block(local: torch.Tensor, w_block: torch.Tensor, halo: torch.Ten
     """One shard's exchange: (m, L) local senders under the (m, m) block,
     (H, L) halo rows under the (m, H) block -> (m, L) (into ``out`` if given)."""
     if local.dim() != 2 or halo.dim() != 2 or halo.shape[1] != local.shape[1]:
-        raise ValueError(f"gossip_mix_block: need local (m, L) and halo (H, L), got "
-                         f"{tuple(local.shape)}, {tuple(halo.shape)}")
+        raise KernelInputError(f"gossip_mix_block: need local (m, L) and halo (H, L), got "
+                               f"{tuple(local.shape)}, {tuple(halo.shape)}")
     m, H, L = local.shape[0], halo.shape[0], local.shape[1]
     if tuple(w_block.shape) != (m, m) or tuple(w_halo.shape) != (m, H):
-        raise ValueError(f"gossip_mix_block: need w_block ({m}, {m}) and w_halo ({m}, {H}), "
-                         f"got {tuple(w_block.shape)}, {tuple(w_halo.shape)}")
+        raise KernelInputError(f"gossip_mix_block: need w_block ({m}, {m}) and w_halo ({m}, {H}), "
+                               f"got {tuple(w_block.shape)}, {tuple(w_halo.shape)}")
     if any(t.device != local.device for t in (w_block, halo, w_halo)):
-        raise ValueError("gossip_mix_block: local, w_block, halo and w_halo must be on one "
-                         "device")
+        raise KernelInputError("gossip_mix_block: local, w_block, halo and w_halo must be on one "
+                               "device")
     _check_out("gossip_mix_block", out, (m, L), local)
     if H == 0:
         return gossip_mix_all(local, w_block, out=out)
@@ -186,11 +187,11 @@ gossip_mix_block.launches = 0
 def gossip_mix(X: torch.Tensor, w: torch.Tensor, *, out: torch.Tensor | None = None):
     """(N, L) senders, (N,) weights -> (L,) mix (into ``out`` if given)."""
     if X.dim() != 2 or w.dim() != 1 or w.shape[0] != X.shape[0]:
-        raise ValueError(
+        raise KernelInputError(
             f"gossip_mix: need X (N, L) and w (N,), got {tuple(X.shape)}, {tuple(w.shape)}"
         )
     if w.device != X.device:
-        raise ValueError(f"gossip_mix: w is on {w.device}, X on {X.device}")
+        raise KernelInputError(f"gossip_mix: w is on {w.device}, X on {X.device}")
     N, L = X.shape
     _check_out("gossip_mix", out, (L,), X)
     if X.device.type == "cpu":

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import KernelInputError
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_LOADS_PER_ROW = 8192      # 16-byte loads a row may take (csrc/rmsnorm.cu's dispatch)
@@ -32,23 +33,23 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     """(..., D) rows and a (D,) scale -> (..., D) in x's dtype."""
     D = x.shape[-1] if x.dim() else 0
     if x.dim() == 0 or scale.shape != (D,):
-        raise ValueError(f"rmsnorm: need x (..., D) and scale (D,), got {tuple(x.shape)}, "
-                         f"{tuple(scale.shape)}")
+        raise KernelInputError(f"rmsnorm: need x (..., D) and scale (D,), got {tuple(x.shape)}, "
+                               f"{tuple(scale.shape)}")
     if scale.device != x.device:
-        raise ValueError(f"rmsnorm: scale is on {scale.device}, x on {x.device}")
+        raise KernelInputError(f"rmsnorm: scale is on {scale.device}, x on {x.device}")
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
     if x.device.type != "cuda":
         raise RuntimeError(f"rmsnorm: no kernel for device {x.device}")
     if x.dtype not in _DTYPES or scale.dtype not in _DTYPES:
-        raise ValueError(f"rmsnorm: x and scale must be float32 or bfloat16, got {x.dtype}, "
-                         f"{scale.dtype}")
+        raise KernelInputError(f"rmsnorm: x and scale must be float32 or bfloat16, got {x.dtype}, "
+                               f"{scale.dtype}")
     if not (x.is_contiguous() and scale.is_contiguous()):
-        raise ValueError("rmsnorm: x and scale must be contiguous")
+        raise KernelInputError("rmsnorm: x and scale must be contiguous")
     per_load = 16 // x.element_size()
     if D % per_load or x.data_ptr() % 16 or D > _MAX_LOADS_PER_ROW * per_load:
-        raise ValueError(f"rmsnorm: D={D} must be a multiple of {per_load} and at most "
-                         f"{_MAX_LOADS_PER_ROW * per_load}, and the rows 16-byte aligned")
+        raise KernelInputError(f"rmsnorm: D={D} must be a multiple of {per_load} and at most "
+                               f"{_MAX_LOADS_PER_ROW * per_load}, and the rows 16-byte aligned")
     out = torch.empty_like(x)
     R = x.numel() // D
     if R:

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import KernelInputError
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _MAX_GRID_Z = 65535          # lanes (× 16-column tiles of V for sdp_subspace) on blockIdx.z
@@ -33,7 +34,8 @@ _MAX_GRID_Z = 65535          # lanes (× 16-column tiles of V for sdp_subspace) 
 
 def _check_square(Y: torch.Tensor, name: str) -> int:
     if Y.dim() not in (2, 3) or Y.shape[-1] != Y.shape[-2] or Y.shape[-1] < 1:
-        raise ValueError(f"{name}: Y must be (n, n) or (B, n, n) with n >= 1, got {tuple(Y.shape)}")
+        raise KernelInputError(f"{name}: Y must be (n, n) or (B, n, n) with n >= 1, "
+                               f"got {tuple(Y.shape)}")
     return Y.shape[-1]
 
 
@@ -41,14 +43,14 @@ def _check_factor(X: torch.Tensor, Y: torch.Tensor, n: int, k: int | None,
                   name: str, what: str) -> int:
     lead = tuple(Y.shape[:-2])
     if X.dim() != Y.dim() or tuple(X.shape[:-2]) != lead or X.shape[-2] != n or X.shape[-1] < 1:
-        raise ValueError(f"{name}: {what} must be {lead + (n,)} + (k,) with k >= 1, "
-                         f"got {tuple(X.shape)}")
+        raise KernelInputError(f"{name}: {what} must be {lead + (n,)} + (k,) with k >= 1, "
+                               f"got {tuple(X.shape)}")
     if k is not None and X.shape[-1] != k:
-        raise ValueError(f"{name}: {what} has {X.shape[-1]} columns, expected {k}")
+        raise KernelInputError(f"{name}: {what} has {X.shape[-1]} columns, expected {k}")
     if X.device != Y.device:
-        raise ValueError(f"{name}: {what} is on {X.device}, Y on {Y.device}")
+        raise KernelInputError(f"{name}: {what} is on {X.device}, Y on {Y.device}")
     if X.dtype != Y.dtype:
-        raise ValueError(f"{name}: {what} is {X.dtype}, Y is {Y.dtype}")
+        raise KernelInputError(f"{name}: {what} is {X.dtype}, Y is {Y.dtype}")
     return X.shape[-1]
 
 
@@ -56,13 +58,13 @@ def _check_launchable(name: str, z: int, *xs: torch.Tensor) -> str:
     if xs[0].device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {xs[0].device}")
     if xs[0].dtype not in _DTYPES:
-        raise ValueError(f"{name}: dtype {xs[0].dtype} not supported (float32, bfloat16)")
+        raise KernelInputError(f"{name}: dtype {xs[0].dtype} not supported (float32, bfloat16)")
     for x in xs:
         if not x.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
+            raise KernelInputError(f"{name}: inputs must be contiguous")
     if not 1 <= z <= _MAX_GRID_Z:
-        raise ValueError(f"{name}: {_lanes(xs[0])} lanes make {z} grid rows on blockIdx.z; the "
-                         f"kernel takes 1 to {_MAX_GRID_Z}")
+        raise KernelInputError(f"{name}: {_lanes(xs[0])} lanes make {z} grid rows on "
+                               f"blockIdx.z; the kernel takes 1 to {_MAX_GRID_Z}")
     return _DTYPES[xs[0].dtype]
 
 

@@ -3,9 +3,12 @@
 ``message_bytes``).
 
 The scheduler's delay matrix is C[j, j'] = message_bytes / bandwidth, so
-``compressed_bytes`` sizes C for a compressed run.  ``roundtrip`` is the
-per-leaf decompress(compress(x)) of ``repro``: ``TopK`` keeps exactly k
-entries per leaf.  The stacked trainer does not call it: it compresses with
+``compressed_bytes`` sizes C for a compressed run.  ``compress`` gives the
+wire form of each leaf and the error-feedback residual, ``decompress`` reads
+the wire form back: ``TopK`` sends the k kept entries' flat indices and
+values (and the leaf's shape), ``Int8`` the int8 codes and the leaf's
+float32 scale.  ``roundtrip`` is the per-leaf decompress(compress(x)) of
+``repro``: ``TopK`` keeps exactly k entries per leaf.  The stacked trainer does not call it: it compresses with
 the fused kernels of ``repro_torch.kernels.compress``, whose top-k mask keeps
 every entry at or above the k-th largest magnitude (the same k entries
 wherever that value is not tied).
@@ -40,11 +43,40 @@ def int8_scale(rows: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(torch.amax(torch.abs(rows.float()), dim=1), 1e-12) / 127.0
 
 
+def _unzip(pairs: Any) -> tuple[Any, Any]:
+    """A tree of (a, b) leaves -> (tree of a, tree of b)."""
+    return tree_map(lambda pair: pair[0], pairs), tree_map(lambda pair: pair[1], pairs)
+
+
 @dataclasses.dataclass(frozen=True)
 class TopK:
     """Keep the top ``fraction`` entries (by magnitude) of each leaf."""
 
     fraction: float = 0.05
+
+    def compress(self, tree: Any) -> tuple[Any, Any]:
+        """-> (wire form, residual): per leaf (flat int64 indices of the k
+        largest |x|, their values, the leaf's shape), and x with those k
+        entries zeroed."""
+
+        def one(x):
+            flat = x.reshape(-1)
+            idx = torch.topk(torch.abs(flat), topk_count(self.fraction, flat.numel())).indices
+            kept = flat[idx]
+            mask = torch.zeros_like(flat).index_copy_(0, idx, kept)
+            return (idx, kept, tuple(x.shape)), (flat - mask).reshape(x.shape)
+
+        return _unzip(tree_map(one, tree))
+
+    def decompress(self, comp: Any) -> Any:
+        """Wire form -> dense leaves, zero off the kept indices."""
+
+        def one(c):
+            idx, kept, shape = c
+            flat = torch.zeros(int(np.prod(shape)), dtype=kept.dtype, device=kept.device)
+            return flat.index_copy_(0, idx, kept).reshape(shape)
+
+        return tree_map(one, comp)
 
     def compressed_bytes(self, tree: Any) -> int:
         n = sum(_numel(leaf) for leaf in leaves(tree))
@@ -64,6 +96,22 @@ class TopK:
 @dataclasses.dataclass(frozen=True)
 class Int8:
     """Symmetric per-leaf int8 quantization with a float32 scale."""
+
+    def compress(self, tree: Any) -> tuple[Any, Any]:
+        """-> (wire form, residual): per leaf (int8 codes clip(round(x/s),
+        ±127) with round half to even, the leaf's scale s = max(max|x|,
+        1e-12) / 127 as a float32 scalar), and x − codes·s."""
+
+        def one(x):
+            scale = int8_scale(x.reshape(1, -1))[0]
+            q = torch.clamp(torch.round(x.float() / scale), -127.0, 127.0).to(torch.int8)
+            return (q, scale), x - (q.float() * scale).to(x.dtype)
+
+        return _unzip(tree_map(one, tree))
+
+    def decompress(self, comp: Any) -> Any:
+        """Wire form -> float32 leaves codes·s."""
+        return tree_map(lambda c: c[0].float() * c[1], comp)
 
     def compressed_bytes(self, tree: Any) -> int:
         ls = leaves(tree)

@@ -11,10 +11,14 @@ where the delivery record keeps the top-k thresholds clear of float32 ties
 over the rounds compared (a flipped entry at the k-th magnitude changes the
 residual discretely): ``TopK(0.05)``, the fraction the card runs, on the
 stale, evicted and down-user record, each top-k checked to select the
-same entries of both deltas.  ``Int8`` runs here only in the port's own
-down-user test: its rounding flips an element by one quantization step
-wherever x/scale lies within float32 error of a half-integer, and MNIST's
-401,408-entry dense leaf holds such elements from round 0 on.
+same entries of both deltas.  ``Int8``'s rounding flips an element by one
+quantization step wherever x/scale lies within float32 error of a
+half-integer, and MNIST's 401,408-entry dense leaf holds such elements from
+round 0 on, so the two runs' messages part after the first round; on the
+same record the port's quantizer (the kernel the async path launches, on
+its plain version here) is held to ``repro``'s messages on ``repro``'s own
+deltas, round by round: every element equal or exactly one step apart at
+such a boundary (``test_int8_messages_match_repro_to_one_step``).
 """
 
 import jax
@@ -34,8 +38,9 @@ from repro.train.compression import Int8 as JInt8
 from repro.train.compression import TopK as JTopK
 from repro_torch.core.graphs import TaskGraph
 from repro_torch.data.synthetic import image_dataset
+from repro_torch.kernels.compress import int8_roundtrip
 from repro_torch.sim import ExecutionSpec
-from repro_torch.train.compression import Int8, TopK, topk_count
+from repro_torch.train.compression import Int8, TopK, int8_scale, topk_count
 from repro_torch.train.tree import leaves
 
 N, SAMPLES, SEED = 4, 512, 0
@@ -172,6 +177,60 @@ def test_stale_evicted_and_down_edges_match_repro(comp):
     np.testing.assert_array_equal(ta.lag_hist, ja.lag_hist)
     assert _param_diff(ja, ta) < 1e-5
     np.testing.assert_array_equal(ta._versions, np.asarray(ja._state[7]))
+
+
+def test_int8_messages_match_repro_to_one_step():
+    """Int8 on the stale, evicted and down-user record.  Each round, each
+    active user's delta in ``repro`` (its message plus its residual) goes
+    through the port's path (per-leaf ``int8_scale`` statistics, one
+    ``int8_roundtrip`` over every leaf, as ``_Block.compress`` does):
+
+      - the port's scale is ``repro``'s formula max(max|x|, 1e-12) / 127 bit
+        for bit; ``repro``'s jitted round evaluates it as max · fl(1/127)
+        (XLA's rewrite of a division by a constant), at most one ulp away;
+      - given that jitted scale, the kernel's message equals ``repro``'s at
+        every element but those one quantization step apart, and those lie
+        where delta/scale is within float32 error of a half-integer."""
+    ja, ta, _, tg = _trainers("int8", staleness={"kind": "hinge", "a": 1.0, "b": 0},
+                              archive_depth=2)
+    columns = ta.layout.columns()
+    ne = len(tg.edges)
+    plans = [(None, None), (np.array([1, 1, 0, 1], bool), np.zeros(ne, np.int64)),
+             (np.array([1, 0, 1, 1], bool), np.r_[np.full(ne // 2, -1),
+                                                 np.ones(ne - ne // 2, np.int64)]),
+             (None, np.zeros(ne, np.int64))]
+    checked = flips = 0
+    for act, ver in plans:
+        a = ja.step_round(active=act, edge_versions=ver)
+        b = ta.step_round(active=act, edge_versions=ver)
+        assert np.isfinite(a["mean_loss"]) and np.isfinite(b["mean_loss"])
+        slot = (ja.round - 1) % 2
+        residual, archive = ja._state[5], ja._state[6]
+        for u in np.flatnonzero(np.ones(N, bool) if act is None else act):
+            msg_j = ta.layout.flatten(_user(archive, u, slot))
+            delta = torch.from_numpy(msg_j + ta.layout.flatten(_user(residual, u)))[None]
+            amax = np.array([max(float(np.max(np.abs(delta[0, lo:hi].numpy()))), 1e-12)
+                             for lo, hi in columns], np.float32)
+            scales = torch.stack([int8_scale(delta[:, lo:hi]) for lo, hi in columns], dim=1)
+            np.testing.assert_array_equal(scales[0].numpy(), amax / np.float32(127.0))
+            jitted = amax * np.float32(1.0 / 127.0)
+            assert np.all(np.abs(jitted.view(np.int32) - scales[0].numpy().view(np.int32)) <= 1)
+            msg, resid = torch.empty_like(delta), torch.empty_like(delta)
+            int8_roundtrip(delta, torch.from_numpy(jitted)[None], columns=columns,
+                           out=(msg, resid))
+            for (lo, hi), sc in zip(columns, jitted):
+                got, ref = msg[0, lo:hi].numpy(), msg_j[lo:hi]
+                off = got != ref
+                step = np.rint(got[off] / sc) - np.rint(ref[off] / sc)
+                assert np.all(np.abs(step) == 1), (u, lo)
+                ratio = delta[0, lo:hi].numpy()[off].astype(np.float64) / np.float64(sc)
+                frac = np.abs(ratio - np.floor(ratio) - 0.5)    # 0 at a half-integer
+                assert np.all(frac <= 4 * np.finfo(np.float32).eps * np.maximum(1, np.abs(ratio)))
+                flips += int(off.sum())
+            checked += delta.shape[1]
+    users = sum(N if act is None else int(act.sum()) for act, _ in plans)
+    assert checked == users * ta.layout.size
+    assert flips <= checked // 1000
 
 
 @pytest.mark.parametrize("comp", ["topk", "int8"])

@@ -885,3 +885,148 @@ def test_host_solver_on_a_cuda_device(cuda):
     b = P.schedule(tg, cg, "sdp", sdp_options=opts, rounding_backend="numpy", device="cpu")
     np.testing.assert_array_equal(a.assignment, b.assignment)
     assert a.bottleneck == b.bottleneck
+
+
+# ---------------------------------------------------------------------------
+# The orchestration layer on the card: ElasticScheduler and the scenario engine
+# ---------------------------------------------------------------------------
+
+
+def _slice_instance():
+    """The paper's §4.1.2 instance: N_T = 104 tasks on N_K = 16 machines (n = 1664)."""
+    rng = np.random.default_rng(0)
+    return (P.random_task_graph(rng, 104, degree_low=2, degree_high=4),
+            P.random_compute_graph(rng, 16))
+
+
+def test_elastic_fail_recover_round_trip_at_n1664_on_card(cuda):
+    """Three failures and three recoveries at n = 1664: every consult's fleet is
+    the original machines' speeds and delays, the round trip restores the
+    fleet exactly, the recovery resumes from the cached composition's solver
+    state (float32 on the card), and no fallback fires."""
+    from repro_torch.launch.elastic import ElasticScheduler
+
+    tg, cg = _slice_instance()
+    es = ElasticScheduler(tg, cg, method="sdp", fallback="heft", device=cuda,
+                          schedule_kwargs={"sdp_options": SDPOptions(max_iters=60)})
+    for r, m in enumerate((3, 11, 7)):
+        es.on_failure(m, round=r)
+    for r, m in enumerate((7, 11, 3), start=3):
+        es.on_recovery(m, round=r)
+        live = es.machine_ids
+        assert np.array_equal(es.compute_graph.e, cg.e[live])
+        assert np.array_equal(es.compute_graph.C, cg.C[np.ix_(live, live)])
+        assert es.current.info["warm_started"]
+    assert es.machine_ids == list(range(16))
+    assert es.fallback_count == 0
+    assert [h["event"] for h in es.history] == (
+        ["init", "fail:3", "fail:11", "fail:7", "recover:7", "recover:11", "recover:3"])
+    assert all(np.isfinite(h["bottleneck"]) for h in es.history)
+    state = es._comp_states[frozenset(range(16))]
+    assert state["w"].device.type == "cuda" and state["w"].dtype == torch.float32
+
+
+def test_elastic_delay_updates_is_one_batch_on_card(cuda):
+    """A backlog of delay matrices is one ``schedule_batch``: one
+    ``bottleneck_eval`` launch rounds every lane, the DR kernels run over the
+    lanes, and the last matrix becomes the live delays."""
+    from repro_torch.launch.elastic import ElasticScheduler
+
+    tg, cg = _small()
+    es = ElasticScheduler(tg, cg, method="sdp", device=cuda,
+                          schedule_kwargs={"num_samples": 256,
+                                           "sdp_options": SDPOptions(max_iters=100)})
+    mats = [cg.C * s for s in (0.5, 0.8, 1.2, 1.6)]
+    tk.reset_launch_counts()
+    es.on_delay_updates(mats, round=1)
+    counts = tk.launch_counts()
+    assert counts["bottleneck_eval"] == 1
+    assert counts["sdp_subspace"] > 0 and counts["rank_k_update"] > 0
+    np.testing.assert_array_equal(es.compute_graph.C, mats[-1])
+    assert es.history[-1]["event"] in ("migrate", "keep")
+    assert np.isfinite(es.history[-1]["bottleneck"])
+
+
+def test_elastic_kernel_build_failure_propagates_on_card(cuda, tmp_path, monkeypatch):
+    """A kernel that fails to build (``nvcc`` refuses a flag) raises
+    ``RuntimeError`` out of the scheduler's consult: it is not retried into
+    the fallback."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.elastic import ElasticScheduler
+
+    tg, cg = _small()
+    es = ElasticScheduler(tg, cg, method="sdp", fallback="heft", device=cuda,
+                          schedule_kwargs={"num_samples": 256,
+                                           "sdp_options": SDPOptions(max_iters=50)})
+    events = list(es.history)
+    monkeypatch.setattr(build, "_LIB", None)
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(build, "CFLAGS", build.CFLAGS + ["--no-such-nvcc-flag"])
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        es.on_failure(1, round=1)
+    assert es.fallback_count == 0 and es.history == events
+
+
+def test_elastic_fleet_past_kernel_limit_raises_on_card(cuda):
+    """A fleet grown past ``bottleneck_eval``'s 32 machines: the kernel's
+    ``KernelInputError`` leaves the consult (it is not retried into the
+    fallback), and no event enters the history."""
+    from repro_torch.kernels import KernelInputError
+    from repro_torch.launch.elastic import ElasticScheduler
+
+    r = np.random.default_rng(7)
+    tg = P.random_task_graph(r, 6, degree_low=1, degree_high=3)
+    cg = P.random_compute_graph(r, 32)
+    es = ElasticScheduler(tg, cg, method="sdp", fallback="heft", device=cuda,
+                          schedule_kwargs={"num_samples": 256,
+                                           "sdp_options": SDPOptions(max_iters=50)})
+    events = list(es.history)
+    with pytest.raises(KernelInputError, match="K=33 machines"):
+        es.on_arrival(32, speed=1.5, delays_to=np.full(32, 0.25), round=1)
+    assert es.fallback_count == 0 and es.history == events
+
+
+def test_scenario_batch_lanes_match_single_runs_on_card(cuda, tmp_path):
+    """Seeds 0..2 of ``ring_uniform`` are one batched solve on the card; each
+    record equals ``run_scenario`` alone up to the DR loop's atomics (the
+    same assignment or a bottleneck within 1e-5 relative), and the simulated
+    total is Eq. 2 × rounds."""
+    from repro_torch.scenarios import get_scenario, run_scenario, run_sweep
+
+    scs = [get_scenario("ring_uniform").with_seed(s) for s in range(3)]
+    recs = run_sweep(scs, out_path=tmp_path / "s.json", quick=True, device=cuda)["records"]
+    for sc, rec in zip(scs, recs):
+        assert rec["methods"]["sdp"]["solve_batch"] == 3
+        alone = run_scenario(sc, quick=True, device=cuda)
+        for m, e in rec["methods"].items():
+            a = alone["methods"][m]
+            assert e["assignment"] == a["assignment"] or abs(
+                e["predicted_bottleneck"] - a["predicted_bottleneck"]) <= 1e-5 * a[
+                "predicted_bottleneck"]
+            p = e["predicted_bottleneck"]
+            assert np.isfinite(p) and e["total_time"] == pytest.approx(p * rec["rounds"],
+                                                                       rel=1e-12)
+        assert rec["methods"]["sdp"]["solver_backend"] == "torch"
+
+
+def test_dense_batch_lanes_are_their_lone_solves_on_card(cuda):
+    """The dense operator's DR loop is lane-exact and repeatable on the card:
+    each lane of a batch of 4 is its lone solve bit for bit (Y, iterations,
+    residual), and a second batch repeats the first (sorted segment sums
+    instead of atomics; every linear-algebra step a lane at a time)."""
+    from repro_torch.scenarios import build_compute_graph, build_task_graph, get_scenario
+
+    bqps = []
+    for seed in range(4):
+        sc = get_scenario("torus_cluster").with_seed(seed)
+        rng = np.random.default_rng(seed)
+        tg = build_task_graph(sc, rng)
+        bqps.append(P.build_bqp(tg, build_compute_graph(sc, rng)[0]))
+    opts = SDPOptions(max_iters=200)
+    first, again = (P.solve_sdp_batch(bqps, opts, device=cuda) for _ in range(2))
+    for lane, rerun, bqp in zip(first, again, bqps):
+        alone = P.solve_sdp(bqp, opts, device=cuda)
+        assert torch.equal(lane.Y_device, alone.Y_device)
+        assert torch.equal(lane.Y_device, rerun.Y_device)
+        assert lane.iterations == alone.iterations and lane.residual == alone.residual
+        assert lane.stats["constraint_kind"] == "csr" and lane.stats["batch"] == 4

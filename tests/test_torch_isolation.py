@@ -6,7 +6,9 @@
     import;
   - the entry points, called without ``device``, raise ``RuntimeError`` when
     there is no CUDA device instead of carrying on on the CPU (the event
-    engine ``repro_torch.sim`` and the host solver touch no device).
+    engine ``repro_torch.sim`` and the host solver touch no device), the
+    orchestration layer's ``ElasticScheduler``, ``run_scenario`` and
+    ``run_sweep`` included.
 """
 
 import ast
@@ -21,11 +23,13 @@ import torch
 
 import repro_torch.core as P
 import repro_torch.fl as FL
+import repro_torch.scenarios as SC
 from repro_torch.launch.sharding import UserMesh
 from repro_torch.configs import get_smoke_config
 from repro_torch.data import image_dataset
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve
+from repro_torch.launch.elastic import ElasticScheduler
 from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -51,6 +55,10 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.kernels.decode_attention, repro_torch.launch.sharding\n"
         "import repro_torch.sim, repro_torch.sim.engine, repro_torch.fl.async_gossip\n"
         "import repro_torch.fl.staleness, repro_torch.fl.simulator\n"
+        "import repro_torch.scenarios, repro_torch.scenarios.engine\n"
+        "import repro_torch.scenarios.presets, repro_torch.scenarios.__main__\n"
+        "import repro_torch.launch.elastic\n"
+        "repro_torch.scenarios.list_scenarios()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'repro'"
         " or m.split('.')[0].startswith('jax'))\n"
         "assert not bad, bad\n"
@@ -77,7 +85,9 @@ def test_sources_import_no_jax_and_no_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for name in ("sim/engine.py", "sim/events.py", "sim/flow.py", "fl/async_gossip.py",
-                 "fl/staleness.py"):
+                 "fl/staleness.py", "launch/elastic.py", "scenarios/engine.py",
+                 "scenarios/spec.py", "scenarios/presets.py", "scenarios/profiles.py",
+                 "scenarios/__main__.py"):
         assert PORT / name in files
     for path in files:
         bad = [n for n in _imports(path) if _forbidden(n)]
@@ -135,6 +145,10 @@ ENTRY_POINTS = {
                                                          {"tokens": np.zeros((1, 4), np.int32)}),
     "build_model.init_cache": lambda tg, cg: _lm().init_cache(1, 8),
     "serve.main": lambda tg, cg: serve.main(["--smoke", "--batch", "1", "--tokens", "1"]),
+    "ElasticScheduler": lambda tg, cg: ElasticScheduler(tg, cg, method="heft"),
+    "run_scenario": lambda tg, cg: SC.run_scenario(SC.get_scenario("ring_uniform"), quick=True),
+    "run_sweep": lambda tg, cg: SC.run_sweep([SC.get_scenario("ring_uniform")],
+                                             out_path=os.devnull, quick=True),
 }
 
 
