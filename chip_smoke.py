@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port once on the card: the SDP scheduler, the
 gossip-FL engines (stacked, per-user reference, mesh-sharded, barrier-free),
 the orchestration layer (elastic scheduler, scenario sweep) and the dense
-LM's serving path.
+LM's serving and training paths.
 
     python3 chip_smoke.py
 
@@ -139,7 +139,23 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      ``schedule_batch`` of 8 lanes) and the peak memory; (c)
      ``gossip_churn_fl``'s record replayed through ``AsyncGossipTrainer``
      with every down user's replica bit-equal across its down rounds; the
-     launch counts of the whole phase (``orchestration_launches``).
+     launch counts of the whole phase (``orchestration_launches``);
+ 19. LM train: (b) the flash kernel's logsumexp output (bfloat16 and
+     float32, S = 4096 causal and S = 1000 with a window): the output with it
+     requested bit-equal to the output without it, the logsumexp within
+     ``LSE_TOL`` of the plain version's, and the forward with and without it
+     timed in turns at the training shape (B = 2, S = 4096); the attention
+     and RMSNorm autograd Functions against autograd through the plain
+     versions (attention at (1, 32, 8, 2048, 128), both dtypes); (a)
+     qwen3-8b at full width, depth cut to 8 layers, 3 AdamW steps of 2 ×
+     4096 tokens through ``make_train_step`` (bfloat16 compute, float32
+     masters, remat): each step's wall, the device split forward / backward /
+     optimizer (CUDA events), tokens/s, peak memory, the idle share of the
+     last step (profiled), finite losses near ln V, every master changed and
+     exact launch counts (``train_launches``); (c) the smoke configs in
+     float32 on the card against the CPU for 3 steps at microbatches 1 and 2,
+     a checkpoint restart against the run straight through, and
+     ``repro_torch.launch.train`` on the card.
 
 Each phase prints its wall time.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object with every kernel's numbers, and
@@ -2491,6 +2507,337 @@ def orchestration_phase(dev) -> dict[str, int]:
     return counts
 
 
+# phase 19: dense-LM training
+TRAIN_LAYERS = 8               # (a): qwen3-8b's depth cut from 36
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 3    # (a): train_4k's seq_len, batch cut from 256
+# (b): the logsumexp output against the plain version's: |difference| at most
+# LSE_TOL · (1 + |lse|), which moves each recomputed p = exp(s − lse) by at
+# most ~1e-4 of itself at |lse| ≈ 9 (S = 4096)
+LSE_TOL = 1e-5
+# (b): the attention gradients against autograd through the plain version,
+# relative Frobenius error: float32 as the kernels' F32_TOL; bfloat16 2e-2
+# (both round dq, dk, dv to bfloat16 once, and the backward's delta =
+# rowsum(dout · out) reads the kernel's bfloat16 out, the plain autograd
+# float32 probabilities)
+ATTN_GRAD_TOL = {torch.float32: F32_TOL, torch.bfloat16: 2e-2}
+# (c): card against CPU, tests/test_trainer.py's microbatch bound at lr 1e-3
+TRAIN_LOSS_REL, TRAIN_PARAM_ABS = 1e-4, 5e-4
+
+
+def lse_part(dev, gen) -> dict:
+    """(b) The flash kernel's logsumexp output: the output with it requested
+    bit-equal to the output without it, the logsumexp against the plain
+    version's, at B = 1 and at the training path's shape (B = 2, S = 4096,
+    causal, bf16), where the output is also held against the plain
+    version's; the lse-writing forward timed beside the plain forward at the
+    training path's shape."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    H, D = 32, 128
+
+    def randn(*shape, dt):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        for S, window in ((4096, 0), (1000, 300)):
+            q = randn(1, S, H, D, dt=dt).transpose(1, 2)
+            k, v = (randn(1, S, 8, D, dt=dt).transpose(1, 2) for _ in range(2))
+            plain_out = flash_attention(q, k, v, window=window)
+            out, lse = flash_attention(q, k, v, window=window, return_lse=True)
+            _, want = flash_attention_plain(q, k, v, window=window, return_lse=True)
+            same = torch.equal(out, plain_out)
+            share = float(((lse - want).abs() / (LSE_TOL * (1 + want.abs()))).max())
+            worst = max(worst, share)
+            print(f"lm train (b) lse S={S} window={window} {dt}: output bit-equal with and "
+                  f"without lse {same}; lse max abs err {max_abs(lse, want):.3g}, {share:.3f} of "
+                  f"the bound", flush=True)
+            check(same and share <= 1 and lse.shape == (1, H, S) and lse.dtype == torch.float32,
+                  f"flash_attention lse S={S} window={window} {dt}")
+            del q, k, v, out, lse, want, plain_out
+    sets = [(randn(TRAIN_BATCH, TRAIN_SEQ, H, D, dt=torch.bfloat16).transpose(1, 2),
+             randn(TRAIN_BATCH, TRAIN_SEQ, 8, D, dt=torch.bfloat16).transpose(1, 2),
+             randn(TRAIN_BATCH, TRAIN_SEQ, 8, D, dt=torch.bfloat16).transpose(1, 2))
+            for _ in range(2)]
+    q, k, v = sets[0]
+    plain_out = flash_attention(q, k, v)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    want_out, want = flash_attention_plain(q, k, v, return_lse=True)
+    same = torch.equal(out, plain_out)
+    out_share = attn_share(out, want_out)
+    share = float(((lse - want).abs() / (LSE_TOL * (1 + want.abs()))).max())
+    print(f"lm train (b) lse (B, S) = ({TRAIN_BATCH}, {TRAIN_SEQ}) causal bf16: output bit-equal "
+          f"with and without lse {same}, {out_share:.3f} of its bound against the plain "
+          f"version; lse max abs err {max_abs(lse, want):.3g}, {share:.3f} of the bound",
+          flush=True)
+    check(same and out_share <= 1 and share <= 1 and lse.shape == (TRAIN_BATCH, H, TRAIN_SEQ),
+          f"flash_attention lse B={TRAIN_BATCH} S={TRAIN_SEQ} bf16")
+    del q, k, v, out, lse, want, want_out, plain_out
+    torch.cuda.empty_cache()
+    times = {}
+    for label in ("plain", "lse", "lse", "plain"):      # in turns
+        fn = ((lambda q_, k_, v_: flash_attention(q_, k_, v_)) if label == "plain" else
+              (lambda q_, k_, v_: flash_attention(q_, k_, v_, return_lse=True)))
+        times.setdefault(label, []).append(device_ms(fn, sets, 20))
+    print(f"lm train (b) flash forward (B, H, Hkv, S, D) = ({TRAIN_BATCH}, 32, 8, {TRAIN_SEQ}, "
+          f"128) causal bf16: with lse {[round(t * 1e3, 2) for t in times['lse']]} us, without "
+          f"{[round(t * 1e3, 2) for t in times['plain']]} us (in turns)", flush=True)
+    del sets
+    torch.cuda.empty_cache()
+    return {"train_ms": min(times["lse"]), "train_nolse_ms": min(times["plain"])}
+
+
+def grads_part(dev, gen) -> None:
+    """(b) The attention and RMSNorm autograd Functions on the card against
+    torch.autograd through the plain versions; the attention at S = 2048 in
+    float32 and bfloat16, and at the training path's (B, S) in bfloat16."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.rmsnorm import rmsnorm_plain
+    from repro_torch.models.attention import attention
+    from repro_torch.models.common import rms_norm
+
+    H, D, block = 32, 128, get_config("qwen3-8b").attn_chunk
+    for B, S, dt in ((1, 2048, torch.float32), (1, 2048, torch.bfloat16),
+                     (TRAIN_BATCH, TRAIN_SEQ, torch.bfloat16)):
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device=dev).to(dt)
+                   for h in (H, 8, 8))
+        dout = torch.randn(B, S, H, D, generator=gen, device=dev).to(dt)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(attention(*leaves, block=block), leaves, dout)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = flash_attention_plain(*(t.transpose(1, 2) for t in leaves)).transpose(1, 2)
+        want = torch.autograd.grad(out, leaves, dout)
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        print(f"lm train (b) attention grads ({B}, {H}, 8, {S}, {D}) causal {dt}, block {block}: "
+              f"dq, dk, dv relative error {[f'{e:.3g}' for e in errs]} (bound "
+              f"{ATTN_GRAD_TOL[dt]})", flush=True)
+        check(max(errs) <= ATTN_GRAD_TOL[dt] and all(g.dtype == dt for g in got),
+              f"attention gradients ({B}, {S}) {dt}: {errs}")
+        del q, k, v, dout, leaves, got, want, out
+        torch.cuda.empty_cache()
+    for R, Dn in ((TRAIN_BATCH * TRAIN_SEQ, 4096), (TRAIN_BATCH * TRAIN_SEQ * 32, 128)):
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(R, Dn, generator=gen, device=dev).to(dt)
+            s = (torch.randn(Dn, generator=gen, device=dev) * 0.5).to(dt)
+            dy = torch.randn(R, Dn, generator=gen, device=dev).to(dt)
+            a = [x.clone().requires_grad_(), s.clone().requires_grad_()]
+            got = torch.autograd.grad(rms_norm(*a), a, dy)
+            a = [x.clone().requires_grad_(), s.clone().requires_grad_()]
+            want = torch.autograd.grad(rmsnorm_plain(*a), a, dy)
+            errs = [rel_err(g, w) for g, w in zip(got, want)]
+            tol = F32_TOL if dt == torch.float32 else 2.0 ** -8    # one bfloat16 rounding
+            print(f"lm train (b) rmsnorm grads ({R}, {Dn}) {dt}: dx, dscale relative error "
+                  f"{[f'{e:.3g}' for e in errs]} (bound {tol})", flush=True)
+            check(max(errs) <= tol, f"rmsnorm gradients ({R}, {Dn}) {dt}: {errs}")
+            del x, s, dy, a, got, want
+    torch.cuda.empty_cache()
+
+
+def train_full_part(dev) -> dict[str, int]:
+    """(a) qwen3-8b at full width (depth cut to 8 layers) for 3 AdamW steps of
+    2 × 4096 tokens through ``make_train_step``, with exact launch counts."""
+    import dataclasses
+    import math
+
+    from repro_torch import kernels as tk
+    from repro_torch.configs import get_config
+    from repro_torch.data import LMStream
+    from repro_torch.models import build_model
+    from repro_torch.train.optim import AdamW, cosine_warmup_schedule
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    cfg = get_config("qwen3-8b").replace(num_layers=TRAIN_LAYERS)
+    L = cfg.num_layers
+    events = {}
+
+    def event(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.setdefault(name, []).append(e)
+
+    api = build_model(cfg)
+
+    def timed_loss(params, batch):          # the forward, between two events
+        event("forward start")
+        loss = api.loss_fn(params, batch)
+        event("forward end")
+        return loss
+
+    @dataclasses.dataclass(frozen=True)
+    class TimedAdamW(AdamW):
+        def update(self, grads, state, params):
+            event("optimizer start")
+            out = super().update(grads, state, params)
+            event("optimizer end")
+            return out
+
+    opt = TimedAdamW(learning_rate=cosine_warmup_schedule(3e-4, 20, TRAIN_STEPS))
+    t0 = time.perf_counter()
+    state = init_train_state(api, opt, 0, device=dev)
+    torch.cuda.synchronize()
+    named = dict(state["params"].named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    print(f"lm train (a): qwen3-8b, {L} layers, {n_params} float32 parameters and moments drawn "
+          f"in {time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB; "
+          f"dtype {cfg.dtype}, remat {cfg.remat}, attn_chunk {cfg.attn_chunk}", flush=True)
+    stride = {n: max(1, p.numel() // 65536) for n, p in named.items()}
+    before = {n: p.detach().reshape(-1)[::stride[n]].clone() for n, p in named.items()}
+    step = make_train_step(dataclasses.replace(api, loss_fn=timed_loss), opt)
+    stream = LMStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    batches = [stream.batch(i) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launch_counts()
+    walls, metrics, busy = [], [], 0.0
+    for i, batch in enumerate(batches):
+        event("step start")
+        if i < TRAIN_STEPS - 1:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        else:                                # the last step under the profiler
+            out = []
+            wall, busy = profiled(lambda: out.append(step(state, batch)))
+            state, m = out[0]
+            walls.append(wall)
+        event("step end")
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    counts = tk.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    split = {k: [round(a.elapsed_time(b), 2) for a, b in zip(events[f"{k} start"],
+                                                             events[f"{k} end"])]
+             for k in ("forward", "optimizer", "step")}
+    split["backward"] = [round(a.elapsed_time(b), 2) for a, b in
+                         zip(events["forward end"], events["optimizer start"])]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"lm train (a): {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: walls "
+          f"{[round(w, 4) for w in walls]} s (the last profiled), {tokens / walls[1]:.1f} tokens/s "
+          f"(step 2), peak device memory {peak:.2f} GB (predicted 55-65)", flush=True)
+    print(f"lm train (a): device split (CUDA events, ms) forward {split['forward']}, backward "
+          f"{split['backward']}, optimizer {split['optimizer']}, step {split['step']}", flush=True)
+    if busy > 0:
+        print(f"lm train (a): profiled step {walls[-1] * 1e3:.2f} ms wall, device busy "
+              f"{busy * 1e3:.2f} ms, idle share {1 - busy / walls[-1]:.3f}", flush=True)
+    else:
+        print("lm train (a): profiler recorded no device time: idle share not measured",
+              flush=True)
+    print(f"lm train (a): metrics {metrics}; ln V = {math.log(cfg.padded_vocab):.4f}", flush=True)
+    expect = dict.fromkeys(counts, 0)
+    # each step: a forward (4 norms a block and the final norm, one attention a
+    # block) and, under remat, each block's forward again in the backward
+    expect.update(rmsnorm=TRAIN_STEPS * (2 * 4 * L + 1), flash_attention=TRAIN_STEPS * 2 * L)
+    print(f"lm train (a): launches {counts}, expected {expect}", flush=True)
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) and m["grad_norm"] > 0
+              for m in metrics), "lm train (a): losses and gradient norms")
+    check(abs(metrics[0]["loss"] - math.log(cfg.padded_vocab)) <= 1.0,
+          f"lm train (a): step 1 loss {metrics[0]['loss']} not within 1 of ln V")
+    check(int(state["opt"].step) == TRAIN_STEPS and metrics[-1]["step"] == TRAIN_STEPS,
+          "lm train (a): optimizer step")
+    unchanged = [n for n, p in named.items()
+                 if torch.equal(p.detach().reshape(-1)[::stride[n]], before[n])]
+    check(not unchanged, f"lm train (a): masters unchanged: {unchanged}")
+    check(counts == expect, "lm train (a): launch counts")
+    del state, named, before, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_card_vs_cpu_part(dev) -> None:
+    """(c) The smoke configs in float32 from the same parameters on the card
+    and the CPU: 3 steps at microbatches 1 and 2; a checkpoint after step 2
+    restored into a fresh state continues as the run straight through; the
+    launcher on the card."""
+    import copy
+    import tempfile
+
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import LMStream
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import build_model
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    out_dir = Path(__file__).resolve().parent / "build"      # git-ignored
+    out_dir.mkdir(exist_ok=True)
+
+    def on_card(state):
+        opt_state = state["opt"]
+        return {"params": copy.deepcopy(state["params"]).to(dev),
+                "opt": type(opt_state)(opt_state.step.to(dev, copy=True),
+                                       {n: t.to(dev, copy=True) for n, t in opt_state.m.items()},
+                                       {n: t.to(dev, copy=True) for n, t in opt_state.v.items()})}
+
+    for arch in ("qwen3-8b", "granite-3-2b"):
+        cfg = get_smoke_config(arch).replace(dtype=torch.float32)
+        api, opt = build_model(cfg), AdamW(learning_rate=1e-3)
+        stream = LMStream(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4, seed=0)
+        on_cpu = init_train_state(api, opt, 0, device="cpu")
+        worst = {"loss": 0.0, "param": 0.0}
+        for mb in (1, 2):
+            states = {"cpu": copy.deepcopy(on_cpu), "card": on_card(on_cpu)}
+            step = make_train_step(api, opt, microbatches=mb)
+            for i in range(3):
+                losses = {}
+                for where in ("cpu", "card"):
+                    states[where], m = step(states[where], stream.batch(i))
+                    losses[where] = float(m["loss"])
+                worst["loss"] = max(worst["loss"],
+                                    abs(losses["card"] - losses["cpu"]) / losses["cpu"])
+            for (n, a), (_, b) in zip(states["card"]["params"].named_parameters(),
+                                      states["cpu"]["params"].named_parameters()):
+                worst["param"] = max(worst["param"], max_abs(a.cpu(), b))
+            if mb == 1:
+                straight = states["card"]
+        # restart: 2 steps, save, restore into a fresh state, step 3
+        step = make_train_step(api, opt)
+        part = on_card(on_cpu)
+        for i in range(2):
+            part, _ = step(part, stream.batch(i))
+        with tempfile.TemporaryDirectory(dir=out_dir) as d:
+            mgr = CheckpointManager(d)
+            mgr.save(2, part, metadata={"data_step": 2})
+            restored, manifest = mgr.load(init_train_state(api, opt, 7, device=dev))
+        restored, _ = step(restored, stream.batch(manifest["data_step"]))
+        restart = max(max_abs(a, b) for (_, a), (_, b) in zip(
+            straight["params"].named_parameters(), restored["params"].named_parameters()))
+        print(f"lm train (c): {arch} smoke f32, 3 steps at microbatches 1 and 2: largest relative "
+              f"loss difference {worst['loss']:.3e} (bound {TRAIN_LOSS_REL}), largest |parameter "
+              f"difference| {worst['param']:.3e} (bound {TRAIN_PARAM_ABS}); restart after step 2 "
+              f"against straight through: largest |difference| {restart:.3e}", flush=True)
+        check(worst["loss"] <= TRAIN_LOSS_REL and worst["param"] <= TRAIN_PARAM_ABS,
+              f"lm train (c) {arch}: card against cpu {worst}")
+        check(restart == 0.0, f"lm train (c) {arch}: restart differs by {restart}")
+    t0 = time.perf_counter()
+    out = train_launcher.main(["--arch", "qwen3-8b", "--smoke", "--steps", "4", "--seq", "64",
+                               "--batch", "4"])
+    print(f"lm train (c): launcher --smoke on the card: {out} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    check(np.isfinite(out["loss"]) and out["step"] == 4, "lm train (c): launcher")
+    torch.cuda.empty_cache()
+
+
+def train_phase(dev, gen) -> tuple[dict[str, int], dict]:
+    """Phase 19: (b) the kernel's lse output and the gradients, (a) qwen3-8b
+    training at full width, (c) card against CPU and the checkpoint restart."""
+    walls = {}
+    t0 = time.perf_counter()
+    lse_times = lse_part(dev, gen)
+    grads_part(dev, gen)
+    walls["(b)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = train_full_part(dev)
+    walls["(a)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train_card_vs_cpu_part(dev)
+    walls["(c)"] = time.perf_counter() - t0
+    print(f"lm train: wall {({k: round(v, 2) for k, v in walls.items()})}", flush=True)
+    return counts, lse_times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2537,6 +2884,7 @@ def main() -> int:
     batch_counts = phase("16 batched schedule", batch_path_phase, dev)
     async_counts = phase("17 barrier-free FL and fig4", async_phase, dev, fl_schedules)
     orch_counts = phase("18 orchestration", orchestration_phase, dev)
+    train_counts, lse_times = phase("19 LM train", train_phase, dev, gen)
 
     for r in rows:
         r["launches"] = counts[r["name"]]
@@ -2549,6 +2897,9 @@ def main() -> int:
     rows += fl_rows
     for r in lm_rows:
         r["launches"] = lm_counts[r["name"]]      # summed over phase 11's three runs
+        r["train_launches"] = train_counts[r["name"]]     # phase 19 (a), 3 steps
+        if r["name"] == "flash_attention":
+            r.update(lse_times)                   # phase 19 (b), B = 2, S = 4096
     rows += lm_rows
     for r in shard_rows:
         r["launches"] = (shard_counts if r["name"] == "gossip_mix_block" else ref_counts)[r["name"]]
@@ -2563,7 +2914,10 @@ def main() -> int:
             # rows 4 and 7 on the barrier-free path (phase 17 (a))
             "async_launches",
             # every row on the orchestration path (phase 18)
-            "orchestration_launches")
+            "orchestration_launches",
+            # rows 9 and 11 on the training path (phase 19 (a)); row 9's forward
+            # with and without its logsumexp output at the training shape (19 (b))
+            "train_launches", "train_ms", "train_nolse_ms")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

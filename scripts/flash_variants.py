@@ -218,7 +218,8 @@ def call(lib, q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:
     out = torch.empty_like(q)
     B, H, S, D = q.shape
     strides = (ctypes.c_longlong * 12)(*(x for t in (q, k, v, out) for x in t.stride()[:3]))
-    err = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+    err = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+                              strides,
                               B, H, k.shape[1], S, D, int(causal), int(window),
                               1.0 / math.sqrt(D), 1, torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention variant")

@@ -1,12 +1,13 @@
 """Time this tree's ``gossip_mix_all``, ``gossip_mix_block``, ``sdp_subspace``,
-``rank_k_update``, ``bottleneck_eval``, ``topk_mask`` and ``int8_roundtrip``
-kernels against another tree's (the parent commit's) on one card, in turns.
+``rank_k_update``, ``bottleneck_eval``, ``topk_mask``, ``int8_roundtrip`` and
+``flash_attention`` kernels against another tree's (the parent commit's) on
+one card, in turns.
 
     git archive <parent> src/repro_torch/kernels | tar -x -C build/parent
     python3 scripts/kernel_ab.py build/parent/src/repro_torch/kernels/csrc [groups]
 
-The other tree's ``gossip_mix.cu``, ``sdp_proj.cu``, ``bottleneck.cu`` and
-``compress.cu`` are
+The other tree's ``gossip_mix.cu``, ``sdp_proj.cu``, ``bottleneck.cu``,
+``compress.cu`` and ``flash_attention.cu`` are
 compiled by their own ``nvcc`` (the flags of ``repro_torch.kernels.build``) into
 ``build/kernel_ab/`` and called through their C entry points, with the
 signatures that the other tree's own ``build.py`` (beside its ``csrc``)
@@ -40,10 +41,16 @@ cold), beside ``torch.matmul`` for the exchange:
     rows as they lie in the flat buffer (stride 552,714 floats, odd rows 8
     bytes off 16-byte alignment) and with every row aligned (stride
     552,716), each launch on memory no other launch of the timing touched,
-    after a 128 MB write that pushes everything else out of the L2.
+    after a 128 MB write that pushes everything else out of the L2;
+  - ``flash_attention``, causal bfloat16 at the training path's shape (B =
+    2, S = 4096) and the prefill's (B = 1, S = 32,768), H = 32, Hkv = 8, D =
+    128: the other tree's C entry (with a null logsumexp pointer where it
+    takes one) against this tree's wrapper without and with the logsumexp
+    output, the three outputs bit-equal.
 
 A second argument picks groups of rows, comma-separated: ``exchange`` (rows
-4, 5), ``scheduler`` (rows 1-3), ``compression`` (rows 7, 8); all by default.
+4, 5), ``scheduler`` (rows 1-3), ``compression`` (rows 7, 8), ``attention``
+(row 9); all by default.
 
 Every result is also checked against the plain version (relative 1e-5;
 ``bottleneck_eval`` to the float32 rounding of its machine loads).
@@ -85,8 +92,9 @@ from repro_torch.train.tree import ParamLayout  # noqa: E402
 OUT = REPO / "build" / "kernel_ab"
 ENTRIES = ("gossip_mix_all_f32", "gossip_mix_all_scratch_floats", "gossip_mix_block_f32",
            "gossip_mix_block_scratch_floats", "sdp_subspace_f32", "sdp_subspace_scratch_floats",
-           "rank_k_update_f32", "topk_mask_f32", "int8_roundtrip_f32", "bottleneck_eval")
-SOURCES = ("gossip_mix", "sdp_proj", "compress", "bottleneck")
+           "rank_k_update_f32", "topk_mask_f32", "int8_roundtrip_f32", "bottleneck_eval",
+           "flash_attention")
+SOURCES = ("gossip_mix", "sdp_proj", "compress", "bottleneck", "flash_attention")
 
 
 def parent_signatures(csrc: Path) -> dict:
@@ -452,7 +460,46 @@ def compression_ab(old, gen, dev) -> None:
                       flush=True)
 
 
-GROUPS = {"exchange": exchange_ab, "scheduler": scheduler_ab, "compression": compression_ab}
+def attention_ab(old, gen, dev) -> None:
+    """Row 9: the other tree's bfloat16 flash forward against this tree's,
+    without and with the logsumexp output."""
+    import math
+
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    fn = old.flash_attention
+    with_lse = len(fn.argtypes) == len(build.SIGNATURES["flash_attention"][0])
+
+    def parent(q, k, v):
+        out = torch.empty_like(q)
+        B, H, S, D = q.shape
+        strides = (ctypes.c_longlong * 12)(*(x for t in (q, k, v, out) for x in t.stride()[:3]))
+        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()] + [None] * with_lse
+        build.check(fn(*ptrs, strides, B, H, k.shape[1], S, D, 1, 0, 1.0 / math.sqrt(D), 1,
+                       stream()), "parent flash_attention")
+        return out
+
+    def change(q, k, v):
+        return flash_attention(q, k, v)
+
+    def change_lse(q, k, v):
+        return flash_attention(q, k, v, return_lse=True)[0]
+
+    for B, S, reps in ((2, 4096, 20), (1, 32768, 3)):
+        sets = [tuple(torch.randn(B, S, h, 128, generator=gen, device=dev).to(torch.bfloat16)
+                      .transpose(1, 2) for h in (32, 8, 8)) for _ in range(2)]
+        a, b, c = (f(*sets[0]) for f in (parent, change, change_lse))
+        print(f"ab flash_attention B={B} S={S}: parent, change and change with lse bit-equal "
+              f"{torch.equal(a, b) and torch.equal(b, c)}", flush=True)
+        turns(f"flash_attention B={B} S={S} causal bf16", parent, change, sets, reps)
+        turns(f"flash_attention B={B} S={S} causal bf16, change with lse", parent, change_lse,
+              sets, reps)
+        del sets, a, b, c
+        torch.cuda.empty_cache()
+
+
+GROUPS = {"exchange": exchange_ab, "scheduler": scheduler_ab, "compression": compression_ab,
+          "attention": attention_ab}
 
 
 def main() -> int:

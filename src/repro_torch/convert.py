@@ -36,7 +36,12 @@ The dense LM keeps ``repro``'s parameter names and ``(in, out)`` layouts:
   - ``lm_params_from_numpy(params, cfg, device)``: ``repro``'s LM tree as
     numpy arrays (``embed``, ``final_norm``, ``lm_head`` and ``groups``,
     whose one block dict is stacked along a leading layer axis) -> the
-    port's ``DenseLM`` in ``cfg.param_dtype`` on ``device``.
+    port's ``DenseLM`` in ``cfg.param_dtype`` on ``device``;
+  - ``train_state_from_numpy(state, cfg, device)``: ``repro``'s train state
+    ``{"params", "opt": AdamWState(step, m, v)}`` as numpy arrays (m and v
+    are trees shaped like the parameters) -> the port's ``{"params":
+    DenseLM, "opt": AdamWState}``, the moments float32 and keyed by the
+    ``DenseLM``'s parameter names.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ import torch
 
 from repro_torch.core.graphs import ComputeGraph, TaskGraph
 from repro_torch.models.transformer import DenseLM
+from repro_torch.train.optim import AdamWState
 from repro_torch.train.tree import ParamLayout
 
 
@@ -101,30 +107,46 @@ _BLOCK_LEAVES = {"ln1": ("ln1",), "ln2": ("ln2",), "wq": ("attn", "wq"), "wk": (
                  "w_up": ("mlp", "w_up"), "w_down": ("mlp", "w_down")}
 
 
+def _lm_leaf(tree: dict, name: str) -> np.ndarray:
+    """The array of ``repro``'s LM tree behind a ``DenseLM`` parameter name."""
+    if not name.startswith("blocks."):
+        return np.asarray(tree[name])
+    groups, remainder = tree["groups"], tree.get("remainder", ())
+    if remainder or groups is None or len(groups) != 1:
+        raise ValueError("need one stacked 'attn' group and no remainder layers")
+    _, layer, leaf_name = name.split(".")
+    leaf = groups[0]
+    for key in _BLOCK_LEAVES[leaf_name]:
+        leaf = leaf[key]
+    return np.asarray(leaf)[int(layer)]
+
+
+def _put(dst: torch.Tensor, arr: np.ndarray) -> None:
+    if arr.shape != tuple(dst.shape):
+        raise ValueError(f"shape {arr.shape} does not fit {tuple(dst.shape)}")
+    dst.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+
+
 @torch.no_grad()
 def lm_params_from_numpy(params: dict, cfg, device):
     """``repro``'s dense-LM parameter tree (numpy arrays) -> a ``DenseLM``."""
     model = DenseLM(cfg, torch.device(device))
-    groups, remainder = params["groups"], params.get("remainder", ())
-    if remainder or groups is None or len(groups) != 1:
-        raise ValueError("need one stacked 'attn' group and no remainder layers")
-    stacked = groups[0]
-
-    def put(dst, arr):
-        arr = np.asarray(arr)
-        if arr.shape != tuple(dst.shape):
-            raise ValueError(f"shape {arr.shape} does not fit {tuple(dst.shape)}")
-        dst.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
-
-    put(model.embed, params["embed"])
-    put(model.final_norm, params["final_norm"])
-    if not cfg.tied_embeddings:
-        put(model.lm_head, params["lm_head"])
-    for i, blk in enumerate(model.blocks):
-        for name, path in _BLOCK_LEAVES.items():
-            if hasattr(blk, name):
-                leaf = stacked
-                for key in path:
-                    leaf = leaf[key]
-                put(getattr(blk, name), np.asarray(leaf)[i])
+    for name, dst in model.named_parameters():
+        _put(dst, _lm_leaf(params, name))
     return model
+
+
+@torch.no_grad()
+def train_state_from_numpy(state: dict, cfg, device) -> dict:
+    """``repro``'s ``{"params", "opt": (step, m, v)}`` (numpy) -> the port's train state."""
+    params = lm_params_from_numpy(state["params"], cfg, device)
+    step, m, v = state["opt"]
+    moments = []
+    for tree in (m, v):
+        out = {}
+        for name, p in params.named_parameters():
+            out[name] = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+            _put(out[name], _lm_leaf(tree, name))
+        moments.append(out)
+    step = torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=params.device)
+    return {"params": params, "opt": AdamWState(step=step, m=moments[0], v=moments[1])}

@@ -1,5 +1,6 @@
-"""Synthetic data of the gossip-FL slice (numpy; see ``synthetic``)."""
+"""Synthetic data (numpy; see ``synthetic``): the LM token stream and the
+gossip-FL images."""
 
-from repro_torch.data.synthetic import ImageDataset, image_dataset, stack_shards
+from repro_torch.data.synthetic import ImageDataset, LMStream, image_dataset, stack_shards
 
-__all__ = ["ImageDataset", "image_dataset", "stack_shards"]
+__all__ = ["ImageDataset", "LMStream", "image_dataset", "stack_shards"]

@@ -1,10 +1,16 @@
-"""Deterministic synthetic image data for the gossip-FL slice.
+"""Deterministic synthetic data: a numpy copy of ``repro.data.synthetic``.
 
-A numpy copy of ``repro.data.synthetic``'s image family (``ImageDataset``,
-``stack_shards``, ``image_dataset``): class-conditional Gaussian-blob
-images with the MNIST (28×28×1) and CIFAR-10 (32×32×3) shapes.  The data is
-pure numpy, so the two packages see bit-identical images, labels and shards
-from one seed (pinned by ``tests/test_torch_fl.py``).
+Two families, as in ``repro``:
+
+  - ``LMStream``: the deterministic, shardable Markov-chain token stream of
+    the LM trainer (``launch/train.py``);
+  - ``ImageDataset``, ``stack_shards``, ``image_dataset``: class-conditional
+    Gaussian-blob images with the MNIST (28×28×1) and CIFAR-10 (32×32×3)
+    shapes for the gossip-FL slice.
+
+The data is pure numpy, so the two packages see bit-identical batches,
+images, labels and shards from one seed (pinned by
+``tests/test_torch_fl.py`` and ``tests/test_torch_train.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +18,52 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# LM token stream
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LMStream:
+    """Deterministic Markov-chain token stream.
+
+    The same (seed, step, shard) always yields the same batch — restart
+    safety comes for free, and each data-parallel shard reads its slice.
+    """
+
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    branch: int = 4          # bigram fan-out; lower => more learnable
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self._next = rng.integers(
+            0, self.vocab_size, size=(self.vocab_size, self.branch)
+        )
+
+    def batch(self, step: int, shard: int = 0, num_shards: int = 1) -> dict:
+        if self.global_batch % num_shards:
+            raise ValueError(f"global_batch {self.global_batch} does not split into "
+                             f"{num_shards} shards")
+        b = self.global_batch // num_shards
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + step) * 65_537 + shard
+        )
+        tokens = np.empty((b, self.seq_len + 1), dtype=np.int32)
+        tokens[:, 0] = rng.integers(0, self.vocab_size, size=b)
+        choices = rng.integers(0, self.branch, size=(b, self.seq_len))
+        for t in range(self.seq_len):
+            tokens[:, t + 1] = self._next[tokens[:, t], choices[:, t]]
+        return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+# ---------------------------------------------------------------------------
+# Synthetic image classification (MNIST / CIFAR-10 stand-ins)
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass

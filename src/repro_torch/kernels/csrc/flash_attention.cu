@@ -11,7 +11,11 @@
 // window (window > 0); masked logits are −1e30, not −inf, so a query row that
 // sees no key in a tile carries sums that the next real key cancels, exactly
 // as in the TPU kernel.  Sums are float32; out = acc / max(l, 1e−30) is
-// stored in q's dtype.
+// stored in q's dtype.  Where the caller passes an lse pointer, each query
+// row's logsumexp m + log(max(l, 1e−30)) (natural log, float32, (B, H, S)
+// contiguous) is written too: what the training backward recomputes the
+// probabilities from (repro/models/attention.py _flash_fwd's residual).  A
+// null pointer writes nothing, so the serving path is unchanged.
 //
 // Bound on an H100: operations.  A causal prefill of S = 32,768 tokens at
 // H = 32, D = 128 is 4·H·D·S²/2 = 8.8 TFLOP a layer for 67 MB of q, k, v and
@@ -109,8 +113,8 @@ __device__ __forceinline__ void load_tile(float* sm, int ss, const T* g, long lo
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, Strides st, int H, int Hkv, int S, int causal, int window,
-                 float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, Strides st, int H, int Hkv, int S,
+                 int causal, int window, float scale) {
   constexpr int QS = D + 4;                   // padded row stride of Qs and Ks
   constexpr int NJ = D >= 32 ? D / 32 : 1;    // float4 output columns per thread
   extern __shared__ float4 smem4[];
@@ -242,6 +246,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int qpos = q0 + 4 * ty + i;
     if (qpos >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    // m and l are the row's own in each of its 8 threads (reduced by shuffles)
+    if (lse != nullptr && tx == 0) lse[(long long)blockIdx.y * S + qpos] = m[i] + logf(den);
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
       const int col = 4 * tx + 32 * jj;
@@ -256,8 +262,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, const Strides& st, int B,
-           int H, int Hkv, int S, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, const Strides& st,
+           int B, int H, int Hkv, int S, int causal, int window, float scale,
+           cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -265,18 +272,18 @@ int launch(const void* q, const void* k, const void* v, void* o, const Strides& 
   const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)(B * H));
   flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), st, H, Hkv, S, causal, window, scale);
+      static_cast<T*>(o), lse, st, H, Hkv, S, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
-int dispatch_f32(const void* q, const void* k, const void* v, void* o, const Strides& st, int B,
-                 int H, int Hkv, int S, int D, int causal, int window, float scale,
-                 cudaStream_t stream) {
+int dispatch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                 const Strides& st, int B, int H, int Hkv, int S, int D, int causal, int window,
+                 float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<float, 16>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 32: return launch<float, 32>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 64: return launch<float, 64>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 128: return launch<float, 128>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 16: return launch<float, 16>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 32: return launch<float, 32>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 64: return launch<float, 64>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 128: return launch<float, 128>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -522,6 +529,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, u
 struct OutView {        // out in elements: base pointer and (batch, head, sequence) strides
   __nv_bfloat16* o;
   long long ob, oh, os;
+  float* lse;           // (B, H, S) logsumexp rows, or null
 };
 
 template <int D>
@@ -670,6 +678,13 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+    if (out.lse != nullptr && lane % 4 == 0) {
+      // m is in log2 units of the scaled logits (the kernel runs on ex2):
+      // the natural logsumexp is (m + log2 l)·ln 2
+      float* lg = out.lse + (long long)blockIdx.x * S + q0;
+      if (q0 + rb < S) lg[rb] = (m0 + log2f(den0)) * 0.6931471805599453f;
+      if (q0 + rb + 8 < S) lg[rb + 8] = (m1 + log2f(den1)) * 0.6931471805599453f;
+    }
 #pragma unroll
     for (int e = 0; e < DP / 2; e += 2) {
       const int r = rb + 8 * ((e / 2) % 2), col = 8 * (e / 4) + cq;
@@ -730,8 +745,9 @@ bool encode_map(CUtensorMap* map, EncodeTiled encode, const void* base, int D, i
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, const Strides& st, int B,
-                int H, int Hkv, int S, int causal, int window, float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                const Strides& st, int B, int H, int Hkv, int S, int causal, int window,
+                float scale, cudaStream_t stream) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv;
@@ -749,20 +765,20 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, const Stri
   if (err != cudaSuccess) return (int)err;
   if (attr.numRegs < kLaunchRegs) return (int)cudaErrorLaunchOutOfResources;
   const dim3 grid((unsigned)(B * H), (unsigned)((S + kRows - 1) / kRows));
-  const OutView out{static_cast<__nv_bfloat16*>(o), st.ob, st.oh, st.os};
+  const OutView out{static_cast<__nv_bfloat16*>(o), st.ob, st.oh, st.os, lse};
   flash_bf16_kernel<D><<<grid, kBf16Threads, bytes, stream>>>(
       tq, tk, tv, out, H, Hkv, S, causal, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
-int dispatch_bf16(const void* q, const void* k, const void* v, void* o, const Strides& st, int B,
-                  int H, int Hkv, int S, int D, int causal, int window, float scale,
-                  cudaStream_t stream) {
+int dispatch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                  const Strides& st, int B, int H, int Hkv, int S, int D, int causal, int window,
+                  float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_bf16<16>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 32: return launch_bf16<32>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 64: return launch_bf16<64>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 128: return launch_bf16<128>(q, k, v, o, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 16: return launch_bf16<16>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 32: return launch_bf16<32>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 64: return launch_bf16<64>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 128: return launch_bf16<128>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -772,14 +788,15 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o, const St
 extern "C" {
 
 // strides: 12 values in elements, (batch, head, sequence) of q, k, v and out.
-int flash_attention(const void* q, const void* k, const void* v, void* o,
+// lse: null, or a contiguous float32 (B, H, S) buffer for each row's logsumexp.
+int flash_attention(const void* q, const void* k, const void* v, void* o, float* lse,
                     const long long* strides, int B, int H, int Hkv, int S, int D, int causal,
                     int window, float scale, int bf16, void* stream) {
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
                    strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_bf16(q, k, v, o, st, B, H, Hkv, S, D, causal, window, scale, s)
-              : dispatch_f32(q, k, v, o, st, B, H, Hkv, S, D, causal, window, scale, s);
+  return bf16 ? dispatch_bf16(q, k, v, o, lse, st, B, H, Hkv, S, D, causal, window, scale, s)
+              : dispatch_f32(q, k, v, o, lse, st, B, H, Hkv, S, D, causal, window, scale, s);
 }
 
 }  // extern "C"

@@ -16,6 +16,13 @@ B, H and S (the model passes its ``(B, S, H, D)`` activations transposed,
 without a copy) and the result has q's strides.
 ``flash_attention.launches`` counts kernel launches.
 
+``return_lse=True`` also returns each query row's logsumexp, float32 ``(B,
+H, S)``: ``m + log(max(l, 1e-30))`` over the row's masked logits, as
+``repro.models.attention.chunked_attention(return_lse=True)`` keeps it for
+the training backward (``repro_torch.models.attention``).  The kernel
+writes it from the running max and sum it already holds; without the flag
+it writes nothing more than before.
+
 The bfloat16 kernel multiplies the float32 probabilities p by v as two
 bfloat16 halves, ``split_bf16(p)``: one rounding of p to bfloat16 would
 exceed the card checks' bound on the output (tests/test_torch_lm_kernels.py).
@@ -37,7 +44,7 @@ NEG_INF = -1e30
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          causal: bool = True, window: int = 0) -> torch.Tensor:
+                          causal: bool = True, window: int = 0, return_lse: bool = False):
     """Plain version: the full (S, S) logits in float32."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -54,7 +61,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logits = torch.where(mask, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
-    return out.reshape(b, h, sq, d).to(q.dtype)
+    out = out.reshape(b, h, sq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).reshape(b, h, sq)
 
 
 def split_bf16(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -80,11 +90,13 @@ def _check(q, k, v, window):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, H, S, D), k/v (B, Hkv, S, D) -> (B, H, S, D) in q's dtype."""
+                    causal: bool = True, window: int = 0, return_lse: bool = False):
+    """q (B, H, S, D), k/v (B, Hkv, S, D) -> (B, H, S, D) in q's dtype (and,
+    with ``return_lse``, the float32 (B, H, S) logsumexp of every row)."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     return_lse=return_lse)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for device {q.device}")
     if q.dtype not in _DTYPES or not (q.dtype == k.dtype == v.dtype):
@@ -94,6 +106,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if D not in HEAD_DIMS:
         raise KernelInputError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if return_lse else None
     per_load = 16 // q.element_size()
     for t in (q, k, v, out):
         if t.stride(3) != 1 or any(st % per_load for st in t.stride()[:3]) or t.data_ptr() % 16:
@@ -104,13 +117,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         lib = build.library()
         with torch.cuda.device(q.device):
             err = lib.flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), strides,
                 B, H, k.shape[1], S, D, int(causal), int(window), 1.0 / math.sqrt(D),
                 int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream,
             )
         build.check(err, "flash_attention")
         flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

@@ -1,8 +1,9 @@
-"""Dense decoder LMs (qwen3, granite, mistral-nemo, mistral-large) for serving.
+"""Dense decoder LMs (qwen3, granite, mistral-nemo, mistral-large) for serving
+and training.
 
 ``build_model(cfg)`` gives ``repro``'s model API (``init_params``,
-``forward``, ``init_cache``, ``decode_step``) over ``DenseLM``, whose norms
-and attentions run the port's CUDA kernels on the card.
+``loss_fn``, ``forward``, ``init_cache``, ``decode_step``) over ``DenseLM``,
+whose norms and attentions run the port's CUDA kernels on the card.
 """
 
 from repro_torch.models.api import ModelAPI, build_model

@@ -7,7 +7,10 @@
   - ``init_cache(batch, seq_len, device=None)``   the decode state
   - ``decode_step(params, cache, batch)``   one serve step: (B,) tokens at (B,) positions
                                             -> ((B, V) logits, the cache, updated in place)
-  - ``loss_fn``                              training: not ported yet (raises)
+  - ``loss_fn(params, batch)``              training: mean next-token cross-entropy of
+                                            (B, S) tokens against (B, S) labels, a float32
+                                            scalar with gradients (``params`` a ``DenseLM``
+                                            or a ``transformer.bind`` stand-in)
 
 ``device=None`` means the CUDA card (``RuntimeError`` without one);
 ``device="cpu"`` runs the kernels' plain versions.  ``forward`` and
@@ -32,7 +35,7 @@ from repro_torch.models.common import ModelConfig
 class ModelAPI:
     cfg: ModelConfig
     init_params: Callable        # (seed=0, device=None) -> DenseLM
-    loss_fn: Callable            # (params, batch) -> scalar; not ported yet
+    loss_fn: Callable            # (params, batch) -> scalar
     forward: Callable            # (params, batch) -> logits
     init_cache: Callable         # (batch, seq_len, device=None) -> cache
     decode_step: Callable        # (params, cache, batch) -> (logits, cache)
@@ -48,8 +51,8 @@ def _build_lm(cfg: ModelConfig) -> ModelAPI:
         dev = resolve_device(device)
         return tf.init_lm_params(cfg, torch.Generator(device=dev).manual_seed(seed))
 
-    def loss_fn(params, batch):
-        raise NotImplementedError(f"training (loss_fn) is {tf.LEFT}")
+    def loss_fn(params, batch: dict) -> torch.Tensor:
+        return tf.lm_loss(params, batch, cfg)
 
     def forward(params: tf.DenseLM, batch: dict) -> torch.Tensor:
         dev = params.device

@@ -1,10 +1,16 @@
-"""Shared model machinery: config, initializers, norms, RoPE.
+"""Shared model machinery: config, initializers, norms, RoPE, the loss.
 
 The port's copy of what the dense LM needs from ``repro.models.common``:
 ``ModelConfig`` with torch dtypes, the fan-in initializers drawn from a
 given ``torch.Generator``, ``rms_norm`` (the RMSNorm kernel on a CUDA
-tensor), ``swiglu`` and the half-split rotary embedding.  M-RoPE (VLM)
-and the cross-entropy loss (training) are not ported yet.
+tensor, differentiable), ``swiglu``, the half-split rotary embedding and
+``softmax_cross_entropy``.  M-RoPE (VLM) is not ported yet.
+
+``rms_norm``'s gradient is ``RMSNormFunction``: the forward is the kernel
+(its plain version on a CPU tensor), the backward the float32 formula in
+PyTorch, as ``repro`` differentiates its jnp norm (there is no backward
+kernel on the TPU either).  Under ``torch.no_grad`` (serving) the kernel
+is called directly.
 """
 
 from __future__ import annotations
@@ -113,8 +119,40 @@ def embed_init(generator: torch.Generator, shape: Sequence[int], dtype=torch.flo
 # ---------------------------------------------------------------------------
 
 
+class RMSNormFunction(torch.autograd.Function):
+    """y = x · r · (1 + s) with r = rsqrt(mean(x²) + eps), over the last axis.
+
+    Backward, in float32 from the saved x (r recomputed):
+    ``dx = r·(1 + s)·dy − x·r³·mean(x·(1 + s)·dy)`` in x's dtype, and
+    ``ds = Σ_rows dy·x·r`` in scale's dtype.
+    """
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        xf, dyf = x.float(), dy.float()
+        r = torch.rsqrt(torch.mean(torch.square(xf), dim=-1, keepdim=True) + ctx.eps)
+        w = 1.0 + scale.float()
+        dx = ds = None
+        if ctx.needs_input_grad[0]:
+            wdy = w * dyf
+            dx = r * wdy - xf * (r ** 3) * torch.mean(xf * wdy, dim=-1, keepdim=True)
+            dx = dx.to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            ds = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(0).to(scale.dtype)
+        return dx, ds, None
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x · rsqrt(mean(x²) + eps) · (1 + scale) over the last axis, in float32."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNormFunction.apply(x, scale, eps)
     return rmsnorm(x, scale, eps)
 
 
@@ -148,3 +186,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     freqs = torch.as_tensor(rope_frequencies(x.shape[-1], theta), dtype=torch.float32,
                             device=x.device)
     return rotate(x, *rope_angles(positions, freqs))
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          ignore_id: int = -1) -> torch.Tensor:
+    """Mean next-token cross-entropy over positions whose label is not
+    ``ignore_id``, in float32.  logits (..., V), labels (...) integers."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)

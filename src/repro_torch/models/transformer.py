@@ -12,14 +12,26 @@ device, and the decode cache is updated in place (``repro`` donates it).
 
 The norms and both attentions run the port's CUDA kernels on a CUDA tensor
 (``rms_norm``, ``attention``, ``decode_attention``).  Block kinds
-"ssm", "rglru" and "local_attn", mixture-of-experts, M-RoPE and the
-training loss are not ported yet.
+"ssm", "rglru" and "local_attn", mixture-of-experts and M-RoPE are not
+ported yet.
+
+Training: ``lm_loss`` runs the forward with gradients enabled, on a
+``DenseLM`` or on ``bind(params, tensors)``, a stand-in whose
+parameters are other tensors of the same names (the trainer's per-step
+``cfg.dtype`` copies of the float32 masters, ``repro``'s ``cast_params_once``).
+With ``cfg.remat`` each block runs under ``torch.utils.checkpoint`` (non-
+reentrant), as ``repro`` rematerializes each scanned group: the backward
+runs the block's forward again, kernels included.  ``lm_forward`` and
+``lm_decode_step`` (serving) stay under ``torch.no_grad``.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models.attention import attention
@@ -31,6 +43,7 @@ from repro_torch.models.common import (
     rope_angles,
     rope_frequencies,
     rotate,
+    softmax_cross_entropy,
     swiglu,
 )
 
@@ -104,6 +117,16 @@ class DenseLM(nn.Module):
         return self.embed.device
 
 
+def bind(params: DenseLM, tensors: dict[str, torch.Tensor]) -> SimpleNamespace:
+    """A stand-in for ``params`` whose parameters are ``tensors[name]``, named
+    as ``params.named_parameters()`` names them ("embed", "blocks.3.wq", …):
+    what the training forward reads and differentiates."""
+    blocks = [SimpleNamespace(**{n: tensors[f"blocks.{i}.{n}"] for n, _ in blk.named_parameters()})
+              for i, blk in enumerate(params.blocks)]
+    top = {n: tensors[n] for n, _ in params.named_parameters(recurse=False)}
+    return SimpleNamespace(**top, blocks=blocks, rope_freqs=params.rope_freqs)
+
+
 @torch.no_grad()
 def init_lm_params(cfg: ModelConfig, generator: torch.Generator) -> DenseLM:
     """A ``DenseLM`` on the generator's device, drawn as ``repro`` draws: fan-in
@@ -150,7 +173,7 @@ def _qkv(p: Block, x: torch.Tensor, cfg: ModelConfig, rope):
 def attn_apply_train(p: Block, x, cfg: ModelConfig, *, window: int, rope):
     """Prefill causal self-attention (no cache interaction)."""
     q, k, v = _qkv(p, x, cfg, rope)
-    out = attention(q, k, v, causal=True, window=window)
+    out = attention(q, k, v, causal=True, window=window, block=cfg.attn_chunk)
     b, s = out.shape[:2]
     out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
     return out @ p.wo.to(out.dtype)
@@ -200,19 +223,41 @@ def _embed(params: DenseLM, tokens, cfg: ModelConfig):
     return params.embed[tokens].to(cfg.dtype)
 
 
-@torch.no_grad()
-def lm_forward(params: DenseLM, tokens: torch.Tensor, cfg: ModelConfig, *,
-               positions: torch.Tensor | None = None) -> torch.Tensor:
-    """Prefill forward: (B, S) tokens -> (B, S, V) logits in ``cfg.dtype``."""
+def _logits(params, tokens, cfg: ModelConfig, positions, remat: bool):
     x = _embed(params, tokens, cfg)
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     rope = rope_angles(positions, params.rope_freqs)
     for blk in params.blocks:
-        x = block_apply(blk, x, cfg, rope=rope)
+        if remat:
+            x = checkpoint(block_apply, blk, x, cfg, rope=rope, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = block_apply(blk, x, cfg, rope=rope)
     x = rms_norm(x, params.final_norm)
     return _lm_head(params, x, cfg)
+
+
+@torch.no_grad()
+def lm_forward(params: DenseLM, tokens: torch.Tensor, cfg: ModelConfig, *,
+               positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Prefill forward: (B, S) tokens -> (B, S, V) logits in ``cfg.dtype``."""
+    return _logits(params, tokens, cfg, positions, remat=False)
+
+
+def lm_loss(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (float32 scalar), on the device of ``params`` (a
+    ``DenseLM`` or a ``bind`` stand-in); gradients enabled, each block under a
+    checkpoint when ``cfg.remat``."""
+    dev = params.embed.device
+    positions = batch.get("positions")
+    logits = _logits(
+        params, torch.as_tensor(batch["tokens"], device=dev), cfg,
+        None if positions is None else torch.as_tensor(positions, device=dev), remat=cfg.remat,
+    )
+    return softmax_cross_entropy(logits, torch.as_tensor(batch["labels"], device=dev))
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:

@@ -1,0 +1,103 @@
+"""Train and serve step builders for the dense LM (counterpart of
+``repro.train.trainer``).
+
+A train state is ``{"params": DenseLM, "opt": AdamWState}``: the float32
+masters and the moments, keyed by the ``DenseLM``'s parameter names.  A
+step takes the gradients with respect to per-step ``cfg.dtype`` copies of
+the masters (``cast_params_once``, ``repro``'s mixed precision: the copies
+are leaves of the autograd graph, the masters are not), accumulates
+microbatch gradients in float32 and divides them by the microbatch count,
+then runs ``AdamW.update``.  ``repro``'s step is pure (``jit`` with the
+state donated); here the state's tensors are updated in place and the same
+dict is returned with the new optimizer state.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.models.api import ModelAPI
+from repro_torch.models.transformer import DenseLM, bind
+from repro_torch.train.optim import AdamW
+
+
+def init_train_state(api: ModelAPI, optimizer: AdamW, seed: int = 0, device=None) -> dict:
+    """Parameters drawn from ``seed`` on ``device`` (None: the card, or
+    ``RuntimeError`` without one) and zero moments."""
+    params = api.init_params(seed, device=device)
+    return {"params": params, "opt": optimizer.init(dict(params.named_parameters()))}
+
+
+def compute_copies(params: DenseLM, cfg) -> dict[str, torch.Tensor]:
+    """The tensors a step differentiates: each float32 master cast to
+    ``cfg.dtype`` when ``cfg.cast_params_once`` (the master itself, detached,
+    otherwise), each a leaf that requires its gradient."""
+    out = {}
+    for name, p in params.named_parameters():
+        c = p.detach()
+        if cfg.cast_params_once and c.dtype == torch.float32:
+            c = c.to(cfg.dtype)
+        out[name] = c.requires_grad_()
+    return out
+
+
+def make_train_step(api: ModelAPI, optimizer: AdamW,
+                    microbatches: int | None = None) -> Callable:
+    """(state, batch) -> (state, metrics).  ``batch`` holds (B, S) ``tokens``
+    and ``labels`` (numpy or tensors); ``microbatches`` > 1 splits B and
+    accumulates the gradients in float32.  ``metrics`` are device tensors:
+    ``loss`` and ``grad_norm`` (float32) and ``step`` (int32)."""
+    cfg = api.cfg
+    mb = microbatches if microbatches is not None else cfg.train_microbatches
+
+    def train_step(state: dict, batch: dict):
+        params = state["params"]
+        dev = params.device
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        copies = compute_copies(params, cfg)
+        stand_in = bind(params, copies)
+        leaves = list(copies.values())
+        if mb <= 1:
+            loss = api.loss_fn(stand_in, batch)
+            grads = dict(zip(copies, torch.autograd.grad(loss, leaves)))
+            loss = loss.detach()
+        else:
+            if any(v.shape[0] % mb for v in batch.values()):
+                raise ValueError(f"a batch of {batch['tokens'].shape[0]} does not split into "
+                                 f"{mb} microbatches")
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                     for n, p in params.named_parameters()}
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            parts = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:]) for k, v in batch.items()}
+            for i in range(mb):
+                part = api.loss_fn(stand_in, {k: v[i] for k, v in parts.items()})
+                for acc, g in zip(grads.values(), torch.autograd.grad(part, leaves)):
+                    acc.add_(g.float())
+                loss += part.detach().float()
+            for g in grads.values():
+                g.div_(mb)
+            loss = loss / mb
+        del copies, stand_in, leaves
+        _, opt, gnorm = optimizer.update(grads, state["opt"], dict(params.named_parameters()))
+        state["opt"] = opt
+        return state, {"loss": loss.float(), "grad_norm": gnorm.float(), "step": opt.step}
+
+    return train_step
+
+
+def make_prefill_step(api: ModelAPI) -> Callable:
+    def prefill_step(params, batch):
+        return api.forward(params, batch)
+
+    return prefill_step
+
+
+def make_decode_step(api: ModelAPI) -> Callable:
+    """(params, cache, batch) -> (logits, cache); the cache is updated in place."""
+
+    def decode_step(params, cache, batch):
+        return api.decode_step(params, cache, batch)
+
+    return decode_step

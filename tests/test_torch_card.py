@@ -1030,3 +1030,113 @@ def test_dense_batch_lanes_are_their_lone_solves_on_card(cuda):
         assert torch.equal(lane.Y_device, rerun.Y_device)
         assert lane.iterations == alone.iterations and lane.residual == alone.residual
         assert lane.stats["constraint_kind"] == "csr" and lane.stats["batch"] == 4
+
+
+# ---------------------------------------------------------------------------
+# dense-LM training: the flash kernel's logsumexp, the autograd Functions,
+# train steps on the card against the CPU
+# ---------------------------------------------------------------------------
+
+LSE_TOL = 1e-5          # |Δ lse| ≤ LSE_TOL · (1 + |lse|), chip_smoke.py's phase 19 (b)
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hkv,d,causal,window,dt",
+    [(1, 4096, 32, 8, 128, True, 0, "bf16"), (1, 4096, 32, 8, 128, True, 0, "f32"),
+     (1, 1000, 32, 8, 128, True, 300, "bf16"), (1, 1000, 32, 8, 128, True, 300, "f32"),
+     (2, 77, 4, 1, 16, False, 0, "bf16"), (2, 300, 8, 2, 64, True, 128, "f32"),
+     (1, 129, 6, 2, 32, False, 50, "bf16")],
+)
+def test_flash_lse_on_card(cuda, b, s, h, hkv, d, causal, window, dt):
+    """The output with the logsumexp requested is the output without it, bit for
+    bit; the logsumexp is the plain version's."""
+    q = _randn((b, s, h, d), dt, cuda, 1).transpose(1, 2)
+    k = _randn((b, s, hkv, d), dt, cuda, 2).transpose(1, 2)
+    v = _randn((b, s, hkv, d), dt, cuda, 3).transpose(1, 2)
+    before = tk.launch_counts()["flash_attention"]
+    alone = flash_attention(q, k, v, causal=causal, window=window)
+    out, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    _, want = flash_attention_plain(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, alone)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    assert bool(torch.all((lse - want).abs() <= LSE_TOL * (1 + want.abs()))), _max_abs(lse, want)
+    assert tk.launch_counts()["flash_attention"] == before + 2
+
+
+@pytest.mark.parametrize(
+    "s,h,hkv,d,causal,window,block,dt",
+    [(2048, 32, 8, 128, True, 0, 1024, "f32"), (2048, 32, 8, 128, True, 0, 1024, "bf16"),
+     (1000, 8, 2, 64, True, 300, 256, "f32"), (513, 4, 4, 32, False, 0, 128, "bf16")],
+)
+def test_attention_function_grads_on_card(cuda, s, h, hkv, d, causal, window, block, dt):
+    """dq, dk, dv of the attention Function (the kernel's forward, the blocked
+    backward) against autograd through the plain version: float32 to 1e-5,
+    bfloat16 to 2e-2 relative Frobenius (both round the gradients once; the
+    backward reads the kernel's bfloat16 output in rowsum(dout · out))."""
+    from repro_torch.models.attention import attention
+
+    q, k, v = _randn((1, s, h, d), dt, cuda, 4), _randn((1, s, hkv, d), dt, cuda, 5), _randn(
+        (1, s, hkv, d), dt, cuda, 6)
+    dout = _randn((1, s, h, d), dt, cuda, 7)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(attention(*leaves, causal=causal, window=window, block=block),
+                              leaves, dout)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention_plain(*(t.transpose(1, 2) for t in leaves), causal=causal,
+                                window=window).transpose(1, 2)
+    want = torch.autograd.grad(out, leaves, dout)
+    for g, w in zip(got, want):
+        assert g.dtype == TORCH_DT[dt]
+        assert _rel(g, w) <= (1e-5 if dt == "f32" else 2e-2), _rel(g, w)
+
+
+@pytest.mark.parametrize("r,d,dt", [(8192, 4096, "bf16"), (4096, 128, "f32"), (7, 768, "bf16")])
+def test_rms_norm_function_grads_on_card(cuda, r, d, dt):
+    from repro_torch.models.common import rms_norm
+
+    x, s, dy = _randn((r, d), dt, cuda, 8), _randn((d,), dt, cuda, 9) * 0.5, _randn(
+        (r, d), dt, cuda, 10)
+    a = [x.clone().requires_grad_(), s.clone().requires_grad_()]
+    before = tk.launch_counts()["rmsnorm"]
+    got = torch.autograd.grad(rms_norm(*a), a, dy)
+    assert tk.launch_counts()["rmsnorm"] == before + 1
+    a = [x.clone().requires_grad_(), s.clone().requires_grad_()]
+    want = torch.autograd.grad(rmsnorm_plain(*a), a, dy)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= (1e-5 if dt == "f32" else 2.0 ** -8), _rel(g, w)
+
+
+@pytest.mark.parametrize("arch,mb", [("qwen3-8b", 1), ("granite-3-2b", 2)])
+def test_lm_train_steps_on_card_match_cpu(cuda, arch, mb):
+    """3 AdamW steps of a float32 smoke config (remat on) from the same state on
+    the card and the CPU: losses to 1e-4 relative, parameters within 5e-4 at
+    lr 1e-3; a forward, and each block again under remat, in every step."""
+    from repro_torch.data import LMStream
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32, remat=True, attn_chunk=32)
+    api, opt = build_model(cfg), AdamW(learning_rate=1e-3)
+    on_cpu = init_train_state(api, opt, 0, device="cpu")
+    state = init_train_state(api, opt, 0, device="cpu")
+    on_card = {"params": state["params"].to(cuda),
+               "opt": type(state["opt"])(state["opt"].step.to(cuda),
+                                         {n: t.to(cuda) for n, t in state["opt"].m.items()},
+                                         {n: t.to(cuda) for n, t in state["opt"].v.items()})}
+    step = make_train_step(api, opt, microbatches=mb)
+    stream = LMStream(vocab_size=cfg.vocab_size, seq_len=128, global_batch=4, seed=0)
+    tk.reset_launch_counts()
+    for i in range(3):
+        on_card, got = step(on_card, stream.batch(i))
+        on_cpu, want = step(on_cpu, stream.batch(i))
+        assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-4 * float(want["loss"])
+    for (n, a), (_, b) in zip(on_card["params"].named_parameters(),
+                              on_cpu["params"].named_parameters()):
+        assert _max_abs(a.cpu(), b) <= 5e-4, n
+    L = cfg.num_layers
+    norms = L * (4 if cfg.qk_norm else 2) + 1
+    counts = tk.launch_counts()
+    assert counts["rmsnorm"] == 3 * mb * (2 * norms - 1)
+    assert counts["flash_attention"] == 3 * mb * 2 * L
+    assert int(on_card["opt"].step) == 3

@@ -8,7 +8,8 @@
     there is no CUDA device instead of carrying on on the CPU (the event
     engine ``repro_torch.sim`` and the host solver touch no device), the
     orchestration layer's ``ElasticScheduler``, ``run_scenario`` and
-    ``run_sweep`` included.
+    ``run_sweep`` and the LM trainer's ``init_train_state`` and
+    ``launch.train`` included.
 """
 
 import ast
@@ -29,8 +30,11 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.data import image_dataset
 from repro_torch.device import resolve_device
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_launcher
 from repro_torch.launch.elastic import ElasticScheduler
 from repro_torch.models import build_model
+from repro_torch.train.optim import AdamW
+from repro_torch.train.trainer import init_train_state
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -58,6 +62,9 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.scenarios, repro_torch.scenarios.engine\n"
         "import repro_torch.scenarios.presets, repro_torch.scenarios.__main__\n"
         "import repro_torch.launch.elastic\n"
+        "import repro_torch.train.trainer, repro_torch.train.optim, repro_torch.launch.train\n"
+        "import repro_torch.ckpt, repro_torch.ckpt.checkpoint, repro_torch.models.attention\n"
+        "import repro_torch.data.synthetic\n"
         "repro_torch.scenarios.list_scenarios()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'repro'"
         " or m.split('.')[0].startswith('jax'))\n"
@@ -87,7 +94,8 @@ def test_sources_import_no_jax_and_no_repro():
     for name in ("sim/engine.py", "sim/events.py", "sim/flow.py", "fl/async_gossip.py",
                  "fl/staleness.py", "launch/elastic.py", "scenarios/engine.py",
                  "scenarios/spec.py", "scenarios/presets.py", "scenarios/profiles.py",
-                 "scenarios/__main__.py"):
+                 "scenarios/__main__.py", "train/trainer.py", "train/optim.py",
+                 "ckpt/checkpoint.py", "launch/train.py", "models/attention.py"):
         assert PORT / name in files
     for path in files:
         bad = [n for n in _imports(path) if _forbidden(n)]
@@ -145,6 +153,8 @@ ENTRY_POINTS = {
                                                          {"tokens": np.zeros((1, 4), np.int32)}),
     "build_model.init_cache": lambda tg, cg: _lm().init_cache(1, 8),
     "serve.main": lambda tg, cg: serve.main(["--smoke", "--batch", "1", "--tokens", "1"]),
+    "train.main": lambda tg, cg: train_launcher.main(["--smoke", "--steps", "1", "--seq", "8"]),
+    "init_train_state": lambda tg, cg: init_train_state(_lm(), AdamW()),
     "ElasticScheduler": lambda tg, cg: ElasticScheduler(tg, cg, method="heft"),
     "run_scenario": lambda tg, cg: SC.run_scenario(SC.get_scenario("ring_uniform"), quick=True),
     "run_sweep": lambda tg, cg: SC.run_sweep([SC.get_scenario("ring_uniform")],
