@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port once on the card: the SDP scheduler, the
 gossip-FL engines (stacked, per-user reference, mesh-sharded, barrier-free),
-the orchestration layer (elastic scheduler, scenario sweep) and the dense
-LM's serving and training paths.
+the orchestration layer (elastic scheduler, scenario sweep), the dense
+LM's serving and training paths, and serving the mixture-of-experts,
+Mamba-2 and VLM families.
 
     python3 chip_smoke.py
 
@@ -155,7 +156,24 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      exact launch counts (``train_launches``); (c) the smoke configs in
      float32 on the card against the CPU for 3 steps at microbatches 1 and 2,
      a checkpoint restart against the run straight through, and
-     ``repro_torch.launch.train`` on the card.
+     ``repro_torch.launch.train`` on the card;
+ 20. LM families: (c) rows 9–11 at the shapes the new families give them
+     (flash at H = Hkv = 16, at H = 64 / Hkv = 8, and with a live window of
+     4096 at S = 8192; decode at g = 1 and g = 8 over 256 and 4096 slots;
+     RMSNorm at widths 4096 and 2048) against their plain versions, timed
+     beside their bounds; then mixtral-8x7b (8 of 32 layers), olmoe-1b-7b
+     (16), mamba2-1.3b (48) and qwen2-vl-72b (8 of 80) at full width in
+     bfloat16, one at a time: (a) ``greedy_decode`` of 8 sequences × 32
+     tokens with a 256-slot cache (qwen2-vl fed ``repro``'s ones stub), and
+     for mixtral 32 tokens from position 4,080 in a 4,096-slot ring that
+     wraps; (b) a prefill ``forward`` of 8,192 tokens (mixtral: the window
+     bites) or 4,096 (qwen2-vl: ``inputs_embeds`` with t/h/w positions that
+     part over a 32 × 32 image span), each with its time, peak memory,
+     exact launch counts and a profiled call's idle share and device time by
+     kind of kernel; (e) two olmoe prefills bit-equal; (d) the four smoke
+     configs in float32 on the card against the CPU (forward, 8 decode
+     steps, every cache leaf, ``loss_fn`` with the auxiliary loss and every
+     gradient), the mixture-of-experts routes equal choice for choice.
 
 Each phase prints its wall time.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object with every kernel's numbers, and
@@ -2838,6 +2856,441 @@ def train_phase(dev, gen) -> tuple[dict[str, int], dict]:
     return counts, lse_times
 
 
+# phase 20: serving the mixture-of-experts, Mamba-2 and VLM families
+FAMILY_DEPTH = {"mixtral-8x7b": 8, "olmoe-1b-7b": 16, "mamba2-1.3b": 48, "qwen2-vl-72b": 8}
+FAMILY_PREFILL = {"mixtral-8x7b": 8192, "olmoe-1b-7b": 4096, "mamba2-1.3b": 4096,
+                  "qwen2-vl-72b": 4096}
+FAMILY_BATCH, FAMILY_CACHE, FAMILY_STEPS = 8, 256, 32    # (a): the launcher's default request
+WRAP_POS0, WRAP_CACHE = 4080, 4096                        # (a): mixtral's ring wraps on the card
+# (d): card against CPU, float32 smoke configs: logits, caches and the loss
+# within 1e-4 (phases 12 and 19 (c)); each gradient leaf within 1e-4
+# relative Frobenius (the CPU tests' bound against repro)
+FAMILY_REL, FAMILY_GRAD_REL = 1e-4, 1e-4
+# (c): the new shapes of rows 9–11 (bfloat16, D = 128): flash (label, H, Hkv,
+# S, window), decode over 8 sequences (label, H, Hkv, S), RMSNorm (label, R, D)
+FAMILY_FLASH = (("olmoe H=16 Hkv=16 S=4096", 16, 16, 4096, 0),
+                ("qwen2-vl H=64 Hkv=8 S=4096", 64, 8, 4096, 0),
+                ("mixtral H=32 Hkv=8 S=8192 window=4096", 32, 8, 8192, 4096))
+FAMILY_DECODE = (("olmoe g=1 H=16", 16, 16, FAMILY_CACHE), ("olmoe g=1 H=16", 16, 16, WRAP_CACHE),
+                 ("qwen2-vl g=8 H=64", 64, 8, FAMILY_CACHE),
+                 ("qwen2-vl g=8 H=64", 64, 8, WRAP_CACHE))
+FAMILY_NORM = (("mamba d_inner prefill", 4096, 4096), ("mamba d_inner decode", 8, 4096),
+               ("d_model 2048 prefill", 4096, 2048), ("d_model 2048 decode", 8, 2048))
+
+
+def family_counts(cfg, steps: int, decode: bool) -> dict[str, int]:
+    """Exact launches of ``steps`` decode steps (or one prefill) of ``cfg``:
+    RMSNorm twice a block (ln1 and ln2, or ln1 and Mamba-2's gated norm),
+    twice more with q/k norms, and the final norm; one attention a
+    attention block."""
+    from repro_torch import kernels as tk
+    from repro_torch.models.transformer import layer_kinds
+
+    kinds = layer_kinds(cfg)
+    n_attn = kinds.count("attn")
+    norms = 2 * len(kinds) + 2 * n_attn * cfg.qk_norm + 1
+    out = dict.fromkeys(tk.launch_counts(), 0)
+    out["rmsnorm"] = steps * norms
+    out["decode_attention" if decode else "flash_attention"] = steps * n_attn
+    return out
+
+
+def kernel_split(prof) -> dict:
+    """Device ms of a profile by kind of kernel: the port's three LM kernels,
+    matrix products (cuBLAS / CUTLASS), and everything else (elementwise,
+    indexing, sorts, scans, reductions, copies), with the three largest of
+    the rest by name."""
+    from torch.autograd import DeviceType
+
+    out = dict.fromkeys(("products", "flash_attention", "decode_attention", "rmsnorm", "other"),
+                        0.0)
+    others = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n = e.name.lower()
+        if "flash_" in n:
+            k = "flash_attention"
+        elif "decode_split" in n or "decode_combine" in n:
+            k = "decode_attention"
+        elif "rmsnorm" in n:
+            k = "rmsnorm"
+        elif any(w in n for w in ("gemm", "xmma", "cutlass", "nvjet", "cublas", "sm90_")):
+            k = "products"
+        else:
+            k = "other"
+            others[e.name[:60]] = others.get(e.name[:60], 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+        out[k] += (e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:3]
+    return {**{k: round(v, 3) for k, v in out.items()},
+            "largest other": [(n, round(v, 3)) for n, v in top]}
+
+
+def profiled_split(fn) -> tuple[float, float, dict]:
+    """(wall s, device busy s, device ms by kind) of one call under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, busy_seconds(prof), kernel_split(prof)
+
+
+def flash_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal (windowed) attention of S rows computes."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def family_kernel_part(dev, gen) -> dict[str, dict]:
+    """(c) Rows 9–11 at the shapes this slice gives them, against their plain
+    versions under the bounds of phase 10 (``attn_share``, ``rmsnorm_ok``),
+    then timed beside their bounds."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    times = {"flash_attention": {}, "decode_attention": {}, "rmsnorm": {}}
+    D = 128
+    for label, H, Hkv, S, window in FAMILY_FLASH:
+        sets = [(randn(1, S, H, D).transpose(1, 2), randn(1, S, Hkv, D).transpose(1, 2),
+                 randn(1, S, Hkv, D).transpose(1, 2)) for _ in range(2)]
+        q, k, v = sets[0]
+        got = flash_attention(q, k, v, window=window)
+        g = H // Hkv
+        share = err = 0.0
+        for j in range(Hkv):          # one kv head's query group at a time
+            want = flash_attention_plain(q[:, j * g:(j + 1) * g], k[:, j:j + 1], v[:, j:j + 1],
+                                         window=window)
+            part = got[:, j * g:(j + 1) * g]
+            share, err = max(share, attn_share(part, want)), max(err, max_abs(part, want))
+            del want
+        check(share <= 1, f"flash_attention {label}: max abs err {err}, {share:.3f} of its bound")
+        b, by = bound_ms(2 * (2 * H + 2 * Hkv) * S * D, 4 * H * D * flash_pairs(S, window),
+                         BF16_FLOPS)
+        ms = device_ms(lambda q_, k_, v_: flash_attention(q_, k_, v_, window=window), sets, 5)
+        lib = library_ms(lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
+            q_, k_, v_, is_causal=True, enable_gqa=True), sets, 5) if not window else None
+        times["flash_attention"][label] = ms
+        print(f"kernel check flash_attention {label} causal bf16, every head: {share:.3f} of the "
+              f"bound, max abs err {err:.3g}; {ms * 1e3:.2f} us (bound {b * 1e3:.2f} us, {by}), "
+              f"library {'n/a' if lib is None else '%.2f us' % (lib * 1e3)}", flush=True)
+        del sets, q, k, v, got
+        torch.cuda.empty_cache()
+
+    for label, H, Hkv, S in FAMILY_DECODE:
+        B = FAMILY_BATCH
+        lens = torch.linspace(1, S, B, device=dev).round().to(torch.int32)
+        sets = copies(lambda: (randn(B, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D), lens),
+                      2 * 2 * B * S * Hkv * D)
+        q, kc, vc, _ = sets[0]
+        got, want = decode_attention(q, kc, vc, lens), decode_attention_plain(q, kc, vc, lens)
+        share, err = attn_share(got, want), max_abs(got, want)
+        check(share <= 1, f"decode_attention {label} S={S}: max abs err {err}, {share:.3f} of "
+              "its bound")
+        valid = int(lens.sum())
+        b, by = bound_ms(2 * (2 * valid * Hkv * D + 2 * B * H * D) + 4 * B, 4 * H * D * valid,
+                         BF16_FLOPS)
+        ms = device_ms(decode_attention, sets, 50)
+        times["decode_attention"][f"{label} S={S}"] = ms
+        print(f"kernel check decode_attention {label} B={B} S={S} valid {lens.tolist()} bf16: "
+              f"{share:.3f} of the bound; {ms * 1e3:.2f} us (bound {b * 1e3:.2f} us, {by})",
+              flush=True)
+        del sets, q, kc, vc, got, want
+    torch.cuda.empty_cache()
+
+    for label, R, Dn in FAMILY_NORM:
+        sets = copies(lambda: (randn(R, Dn), randn(Dn) * 0.5), R * Dn * 2)
+        x, s = sets[0]
+        got, want = rmsnorm(x, s), rmsnorm_plain(x, s)
+        check(rmsnorm_ok(got, want), f"rmsnorm ({R}, {Dn}) bf16: max abs err {max_abs(got, want)}")
+        b, by = bound_ms(2 * (2 * R * Dn + Dn), 4 * R * Dn)
+        ms = device_ms(rmsnorm, sets, 100)
+        times["rmsnorm"][f"({R}, {Dn})"] = ms
+        print(f"kernel check rmsnorm ({R}, {Dn}) bf16 ({label}): ok, max abs err "
+              f"{max_abs(got, want):.3g}; {ms * 1e3:.2f} us (bound {b * 1e3:.2f} us, {by})",
+              flush=True)
+        del sets, x, s, got, want
+    torch.cuda.empty_cache()
+    return times
+
+
+def vlm_batch(cfg, S: int, dev, gen) -> dict:
+    """A qwen2-vl prefill: seeded bfloat16 ``inputs_embeds`` and (3, 1, S)
+    positions: text, a 32 × 32 image span at 64 … 1087 (t fixed, h and w over
+    the grid), then text from the next free position."""
+    pos = torch.arange(S, device=dev, dtype=torch.int32).repeat(3, 1)
+    span = torch.arange(1024, device=dev, dtype=torch.int32)
+    pos[0, 64:1088] = 64
+    pos[1, 64:1088] = 64 + span // 32
+    pos[2, 64:1088] = 64 + span % 32
+    pos[:, 1088:] = torch.arange(S - 1088, device=dev, dtype=torch.int32) + 96
+    embeds = torch.randn(1, S, cfg.d_model, generator=gen, device=dev).to(cfg.dtype)
+    return {"inputs_embeds": embeds, "positions": pos[:, None]}
+
+
+def family_serve_part(dev, gen, arch: str) -> dict[str, int]:
+    """(a) and (b) for one configuration at full width, depth cut to
+    ``FAMILY_DEPTH``, bfloat16 parameters as the launcher draws them; (e)
+    for olmoe.  Returns the launches of its runs."""
+    from repro_torch import kernels as tk
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import greedy_decode
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).replace(num_layers=FAMILY_DEPTH[arch], param_dtype=torch.bfloat16)
+    api = build_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"lm family {arch}: {cfg.num_layers} of {get_config(arch).num_layers} layers, "
+          f"{n_params} parameters in bfloat16 drawn in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    total = {}
+    B = FAMILY_BATCH
+
+    def add(counts):
+        for k_, v_ in counts.items():
+            total[k_] = total.get(k_, 0) + v_
+
+    def decode_part(part, cache_len, pos0):
+        t0 = time.perf_counter()      # first calls at these shapes, untimed below
+        warm = api.init_cache(B, cache_len, device=dev)
+        greedy_decode(api, params, warm, torch.zeros_like(pos0), pos0, 2)
+        torch.cuda.synchronize()
+        print(f"lm family {arch} (a){part}: 2 warm-up steps {time.perf_counter() - t0:.3f} s",
+              flush=True)
+        del warm
+        cache = api.init_cache(B, cache_len, device=dev)
+        if cache_len > FAMILY_CACHE:     # stand-in for a prompt's keys and values
+            g = torch.Generator(device=dev).manual_seed(1)
+            for buf in (cache["k"], cache["v"]):
+                buf.normal_(generator=g)
+        tokens = torch.zeros((B,), dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        out, logits, finite = greedy_decode(api, params, cache, tokens, pos0, FAMILY_STEPS)
+        ok = bool(finite)
+        wall = time.perf_counter() - t0
+        counts = tk.launch_counts()
+        expect = family_counts(cfg, FAMILY_STEPS, decode=True)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"lm family {arch} (a){part}: {B} seqs x {FAMILY_STEPS} tokens, cache {cache_len}, "
+              f"positions from {pos0.tolist()[:2]}…: {wall:.3f} s, "
+              f"{wall / FAMILY_STEPS * 1e3:.2f} ms/step, {B * FAMILY_STEPS / wall:.1f} tokens/s, "
+              f"peak device memory {peak:.2f} GB; logits finite {ok}; sequence 0 tokens "
+              f"{out[0, :8].tolist()}…", flush=True)
+        print(f"lm family {arch} (a){part}: launches {counts}, expected {expect}", flush=True)
+        check(ok and logits.shape == (B, cfg.padded_vocab), f"lm family {arch} (a){part}: logits")
+        check(counts == expect, f"lm family {arch} (a){part}: launch counts")
+        add(counts)
+        nxt = {"pos": pos0 + FAMILY_STEPS}
+        if cfg.family == "vlm":
+            nxt["inputs_embeds"] = torch.ones((B, 1, cfg.d_model), dtype=cfg.dtype, device=dev)
+        else:
+            nxt["tokens"] = out[:, -1]
+        wall1, busy, split = profiled_split(lambda: api.decode_step(params, cache, nxt))
+        idle = "not measured" if busy <= 0 else f"{1 - busy / wall1:.3f}"
+        print(f"lm family {arch} (a){part}: profiled step {wall1 * 1e3:.2f} ms wall, device busy "
+              f"{busy * 1e3:.2f} ms, idle share {idle}; device ms by kind {split}", flush=True)
+        del cache, out, logits
+
+    zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+    decode_part("", FAMILY_CACHE, zeros)
+    if arch == "mixtral-8x7b":
+        decode_part(" ring", WRAP_CACHE, zeros + WRAP_POS0)
+    torch.cuda.empty_cache()
+
+    S = FAMILY_PREFILL[arch]
+    g = torch.Generator(device=dev).manual_seed(2)
+    if cfg.family == "vlm":
+        batch = vlm_batch(cfg, S, dev, g)
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, S), generator=g, device=dev,
+                                         dtype=torch.int32)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = api.forward(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    expect = family_counts(cfg, 1, decode=False)
+    finite = bool(torch.isfinite(logits).all())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"lm family {arch} (b): forward of 1 x {S} {'embeddings' if cfg.family == 'vlm' else 'tokens'}"
+          f": {wall:.3f} s, {S / wall:.1f} tokens/s, peak device memory {peak:.2f} GB; logits "
+          f"finite {finite}, shape {tuple(logits.shape)}", flush=True)
+    print(f"lm family {arch} (b): launches {counts}, expected {expect}", flush=True)
+    check(finite and logits.shape == (1, S, cfg.padded_vocab), f"lm family {arch} (b): logits")
+    check(counts == expect, f"lm family {arch} (b): launch counts")
+    add(counts)
+    if arch == "olmoe-1b-7b":       # (e): the deterministic combine
+        tk.reset_launch_counts()
+        again = api.forward(params, batch)
+        same = torch.equal(again, logits)
+        print(f"lm family {arch} (e): a second prefill bit-equal to the first: {same}",
+              flush=True)
+        check(same, f"lm family {arch} (e): two prefills differ")
+        check(tk.launch_counts() == expect, f"lm family {arch} (e): launch counts")
+        add(tk.launch_counts())
+        del again
+    del logits
+    torch.cuda.empty_cache()
+    wall1, busy, split = profiled_split(lambda: api.forward(params, batch))
+    idle = "not measured" if busy <= 0 else f"{1 - busy / wall1:.3f}"
+    print(f"lm family {arch} (b): profiled prefill {wall1:.3f} s wall, device busy {busy:.3f} s, "
+          f"idle share {idle}; device ms by kind {split}", flush=True)
+    del params, batch
+    torch.cuda.empty_cache()
+    return total
+
+
+class RouteLog:
+    """Records the experts each mixture-of-experts call chose and kept (the
+    choices and keep mask of ``route`` / ``dispatch_slots`` on the same
+    input), by wrapping the transformer's ``moe_ffn`` while in use."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe, transformer
+
+        self._real = transformer.moe_ffn
+
+        def spy(p, x, cfg):
+            _, _, idx = moe.route(x, p.router, cfg.num_experts_per_tok)
+            _, keep = moe.dispatch_slots(idx, cfg.num_experts, moe.capacity(cfg, x.shape[1]))
+            self.calls.append((idx.cpu(), keep.cpu()))
+            return self._real(p, x, cfg)
+
+        transformer.moe_ffn = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+
+        transformer.moe_ffn = self._real
+        return False
+
+
+def family_card_vs_cpu_part(dev) -> None:
+    """(d) The four smoke configs in float32 from the same parameters on the
+    card and the CPU: forward logits (2 × 256), 8 decode steps (logits and
+    every cache leaf), ``loss_fn`` with the auxiliary loss and every
+    parameter's gradient; the mixture-of-experts routes equal choice for
+    choice before the outputs are compared."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tf
+
+    for arch in FAMILY_DEPTH:
+        cfg = get_smoke_config(arch).replace(dtype=torch.float32)
+        api = build_model(cfg)
+        on_cpu = api.init_params(0, device="cpu")
+        g = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for p in on_cpu.parameters():
+                if p.dim() == 1:                        # non-zero norm scales and biases
+                    p.add_(torch.randn(p.shape, generator=g) * 0.5)
+        on_card = copy.deepcopy(on_cpu).to(dev)
+        S = 256
+        if cfg.family == "vlm":
+            batch = {"inputs_embeds": torch.randn(2, S, cfg.d_model, generator=g),
+                     "positions": torch.arange(S).repeat(3, 2, 1)}
+            batch["positions"][1, :, 16:80] = 16 + torch.arange(64) // 8
+            batch["positions"][2, :, 16:80] = 16 + torch.arange(64) % 8
+        else:
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, S), generator=g)}
+        batch["labels"] = torch.randint(0, cfg.vocab_size, (2, S), generator=g)
+        logs = {}
+        for where, params in (("card", on_card), ("cpu", on_cpu)):
+            with RouteLog() as log:
+                logits = api.forward(params, batch)
+            logs[where] = (log.calls, logits.cpu())
+        routes_equal = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                           for a, b in zip(logs["card"][0], logs["cpu"][0]))
+        routes_equal &= len(logs["card"][0]) == len(logs["cpu"][0])
+        n_routes = len(logs["cpu"][0])
+        check(routes_equal, f"lm family {arch} (d): router choices differ between card and CPU")
+        want = logs["cpu"][1]
+        worst = {"forward": max_abs(logs["card"][1], want) / float(want.abs().max())}
+        caches = [api.init_cache(2, 32, device=d) for d in (dev, "cpu")]
+        r = torch.Generator().manual_seed(4)
+        worst["decode"] = 0.0
+        for t in range(8):
+            step = {"pos": torch.tensor([t, t + 5], dtype=torch.int32)}
+            if cfg.family == "vlm":
+                step["inputs_embeds"] = torch.randn(2, 1, cfg.d_model, generator=r)
+            else:
+                step["tokens"] = torch.randint(0, cfg.vocab_size, (2,), generator=r)
+            got, _ = api.decode_step(on_card, caches[0], step)
+            want, _ = api.decode_step(on_cpu, caches[1], step)
+            worst["decode"] = max(worst["decode"], max_abs(got.cpu(), want) / float(
+                want.abs().max()))
+        worst["cache"] = max(max_abs(caches[0][k].cpu(), v) / float(v.abs().max())
+                             for k, v in caches[1].items())
+        losses, grads = {}, {}
+        for where, params in (("card", on_card), ("cpu", on_cpu)):
+            tensors = {n: p.detach().clone().requires_grad_() for n, p in params.named_parameters()}
+            loss = api.loss_fn(tf.bind(params, tensors), batch)
+            loss.backward()
+            losses[where] = float(loss.detach())
+            grads[where] = {n: (torch.zeros_like(t) if t.grad is None else t.grad).cpu()
+                            for n, t in tensors.items()}
+        worst["loss"] = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        worst["grads"] = max(rel_err(grads["card"][n], w) for n, w in grads["cpu"].items()
+                             if float(w.abs().max()) > 0)
+        print(f"lm family card vs cpu (d): {arch} smoke f32: {n_routes} routed calls, choices and "
+              f"drops equal {routes_equal}; loss card {losses['card']:.6f} cpu "
+              f"{losses['cpu']:.6f}; largest differences "
+              f"{ {k: f'{v:.3e}' for k, v in worst.items()} } (bounds {FAMILY_REL}, gradients "
+              f"{FAMILY_GRAD_REL} relative Frobenius)", flush=True)
+        check(max(v for k, v in worst.items() if k != "grads") <= FAMILY_REL
+              and worst["grads"] <= FAMILY_GRAD_REL, f"lm family {arch} (d): card against cpu")
+
+
+def family_phase(dev, gen) -> tuple[dict[str, int], dict]:
+    """Phase 20: (c) rows 9–11 at the new shapes, (a), (b), (e) each
+    configuration at full width, (d) card against CPU at smoke size.
+    Returns the launches of the serve runs and the kernels' new-shape times."""
+    walls = {}
+    t0 = time.perf_counter()
+    times = family_kernel_part(dev, gen)
+    walls["(c)"] = time.perf_counter() - t0
+    total = {}
+    for arch in FAMILY_DEPTH:
+        t0 = time.perf_counter()
+        counts = family_serve_part(dev, gen, arch)
+        walls[arch] = time.perf_counter() - t0
+        for k_, v_ in counts.items():
+            total[k_] = total.get(k_, 0) + v_
+    t0 = time.perf_counter()
+    family_card_vs_cpu_part(dev)
+    walls["(d)"] = time.perf_counter() - t0
+    print(f"lm family: launches over (a), (b), (e) {total}; wall "
+          f"{ {k: round(v, 2) for k, v in walls.items()} }", flush=True)
+    for name in ("sdp_subspace", "rank_k_update", "bottleneck_eval", "gossip_mix_all",
+                 "gossip_mix_block", "gossip_mix", "topk_mask", "int8_roundtrip"):
+        check(total[name] == 0, f"lm family: {name} launched {total[name]} times")
+    return total, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2885,6 +3338,7 @@ def main() -> int:
     async_counts = phase("17 barrier-free FL and fig4", async_phase, dev, fl_schedules)
     orch_counts = phase("18 orchestration", orchestration_phase, dev)
     train_counts, lse_times = phase("19 LM train", train_phase, dev, gen)
+    fam_counts, fam_times = phase("20 LM families", family_phase, dev, gen)
 
     for r in rows:
         r["launches"] = counts[r["name"]]
@@ -2900,6 +3354,8 @@ def main() -> int:
         r["train_launches"] = train_counts[r["name"]]     # phase 19 (a), 3 steps
         if r["name"] == "flash_attention":
             r.update(lse_times)                   # phase 19 (b), B = 2, S = 4096
+        r["family_launches"] = fam_counts[r["name"]]     # phase 20 (a), (b), (e)
+        r["family_ms"] = fam_times[r["name"]]            # phase 20 (c), by shape
     rows += lm_rows
     for r in shard_rows:
         r["launches"] = (shard_counts if r["name"] == "gossip_mix_block" else ref_counts)[r["name"]]
@@ -2917,7 +3373,9 @@ def main() -> int:
             "orchestration_launches",
             # rows 9 and 11 on the training path (phase 19 (a)); row 9's forward
             # with and without its logsumexp output at the training shape (19 (b))
-            "train_launches", "train_ms", "train_nolse_ms")
+            "train_launches", "train_ms", "train_nolse_ms",
+            # rows 9–11 on the MoE / Mamba-2 / VLM serve path and at its shapes (phase 20)
+            "family_launches", "family_ms")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

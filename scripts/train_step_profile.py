@@ -34,7 +34,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import LMStream  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
-from repro_torch.models import DenseLM, build_model  # noqa: E402
+from repro_torch.models import LM, build_model  # noqa: E402
 from repro_torch.models.attention import flash_backward  # noqa: E402
 from repro_torch.models.common import softmax_cross_entropy  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -169,7 +169,7 @@ def main() -> int:
     print(f"head and cross-entropy, forward and backward ({B * S} tokens x "
           f"{cfg.padded_vocab}): {ms:.2f} ms, products bound {flops / RATES['bf16'] * 1e3:.2f} "
           f"ms (bf16); logits {B * S * cfg.padded_vocab * 4 / 1e9:.2f} GB in float32", flush=True)
-    blocks = layers * sum(p.numel() for name, p in DenseLM(cfg, torch.device("meta"))
+    blocks = layers * sum(p.numel() for name, p in LM(cfg, torch.device("meta"))
                           .named_parameters() if name.startswith("blocks.0.") and p.dim() == 2)
     head_params = cfg.d_model * cfg.padded_vocab
     # forward and backward (3x) of every product, and the blocks' forward again (remat)

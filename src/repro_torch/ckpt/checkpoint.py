@@ -9,7 +9,7 @@ files are named as ``repro`` names them (``step_0000000003_state.npz``,
 ``step_0000000003_manifest.json``).
 
 Arrays are keyed by the port's own state names: a train state
-``{"params": DenseLM, "opt": AdamWState}`` flattens to ``params.embed``,
+``{"params": LM, "opt": AdamWState}`` flattens to ``params.embed``,
 ``params.blocks.0.wq``, …, ``opt.step``, ``opt.m.blocks.0.wq``, ….  numpy
 has no bfloat16, so a bfloat16 tensor is stored as float32 (exact) and
 cast back on load.  ``load`` copies into the tensors of a template state

@@ -1,10 +1,11 @@
 """Architecture config registry: ``get_config("qwen3-8b")`` etc.
 
-The dense architectures have their own module with ``config()`` (exact
-published numbers) and ``smoke_config()`` (reduced same-family variant),
-copied from ``repro.configs``.  The other ids of ``repro``'s registry are
-listed (``ARCH_IDS``) and raise ``NotImplementedError``: their model
-families are not ported yet.
+The dense, mixture-of-experts, Mamba-2 and VLM architectures have their
+own module with ``config()`` (exact published numbers) and
+``smoke_config()`` (reduced same-family variant), copied from
+``repro.configs``.  The other ids of ``repro``'s registry (whisper-small,
+recurrentgemma-9b) are listed (``ARCH_IDS``) and raise
+``NotImplementedError``: their model families are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,15 +26,15 @@ _MODULES = {
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "granite-3-2b": "repro_torch.configs.granite_3_2b",
     "mistral-large-123b": "repro_torch.configs.mistral_large_123b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
 }
 _LEFT = "not ported yet (ROADMAP.md Queue 1 item 2, 'LM substrate': what is left)"
 _NOT_PORTED = {
     "whisper-small": f"the Whisper encoder-decoder is {_LEFT}",
-    "mamba2-1.3b": f"Mamba-2 (ssm) blocks are {_LEFT}",
     "recurrentgemma-9b": f"RG-LRU and local-attention blocks are {_LEFT}",
-    "mixtral-8x7b": f"mixture-of-experts blocks are {_LEFT}",
-    "olmoe-1b-7b": f"mixture-of-experts blocks are {_LEFT}",
-    "qwen2-vl-72b": f"M-RoPE and the VLM frontend are {_LEFT}",
 }
 
 ARCH_IDS = ("whisper-small", "qwen3-8b", "mistral-nemo-12b", "granite-3-2b",

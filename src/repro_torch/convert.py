@@ -31,17 +31,19 @@ of the shard count with inert users whose reshuffle keys continue the
 the N_T real rows from the table (padding users walk their zero data in
 order), so the table of the stacked engine serves every shard count.
 
-The dense LM keeps ``repro``'s parameter names and ``(in, out)`` layouts:
+The decoder LMs keep ``repro``'s parameter names and ``(in, out)`` layouts
+(the block's ``attn.*``, ``mlp.*``, ``moe.*`` and ``mixer.*`` leaves
+flattened to the block module's attributes):
 
   - ``lm_params_from_numpy(params, cfg, device)``: ``repro``'s LM tree as
     numpy arrays (``embed``, ``final_norm``, ``lm_head`` and ``groups``,
     whose one block dict is stacked along a leading layer axis) -> the
-    port's ``DenseLM`` in ``cfg.param_dtype`` on ``device``;
+    port's ``LM`` in ``cfg.param_dtype`` on ``device``;
   - ``train_state_from_numpy(state, cfg, device)``: ``repro``'s train state
     ``{"params", "opt": AdamWState(step, m, v)}`` as numpy arrays (m and v
-    are trees shaped like the parameters) -> the port's ``{"params":
-    DenseLM, "opt": AdamWState}``, the moments float32 and keyed by the
-    ``DenseLM``'s parameter names.
+    are trees shaped like the parameters) -> the port's ``{"params": LM,
+    "opt": AdamWState}``, the moments float32 and keyed by the ``LM``'s
+    parameter names.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graphs import ComputeGraph, TaskGraph
-from repro_torch.models.transformer import DenseLM
+from repro_torch.models.transformer import LM
 from repro_torch.train.optim import AdamWState
 from repro_torch.train.tree import ParamLayout
 
@@ -101,23 +103,28 @@ def epoch_perms_from_arrays(perms, num_users: int, chunk: int) -> np.ndarray:
     return out
 
 
+# a block leaf's path in ``repro``'s block dict; "ffn" is "moe" or "mlp",
+# whichever the block holds
 _BLOCK_LEAVES = {"ln1": ("ln1",), "ln2": ("ln2",), "wq": ("attn", "wq"), "wk": ("attn", "wk"),
                  "wv": ("attn", "wv"), "wo": ("attn", "wo"), "q_norm": ("attn", "q_norm"),
-                 "k_norm": ("attn", "k_norm"), "w_gate": ("mlp", "w_gate"),
-                 "w_up": ("mlp", "w_up"), "w_down": ("mlp", "w_down")}
+                 "k_norm": ("attn", "k_norm"), "w_gate": ("ffn", "w_gate"),
+                 "w_up": ("ffn", "w_up"), "w_down": ("ffn", "w_down"),
+                 "router": ("moe", "router"),
+                 **{n: ("mixer", n) for n in ("in_proj", "conv_w", "conv_b", "A_log", "D",
+                                              "dt_bias", "norm_scale", "out_proj")}}
 
 
 def _lm_leaf(tree: dict, name: str) -> np.ndarray:
-    """The array of ``repro``'s LM tree behind a ``DenseLM`` parameter name."""
+    """The array of ``repro``'s LM tree behind an ``LM`` parameter name."""
     if not name.startswith("blocks."):
         return np.asarray(tree[name])
     groups, remainder = tree["groups"], tree.get("remainder", ())
     if remainder or groups is None or len(groups) != 1:
-        raise ValueError("need one stacked 'attn' group and no remainder layers")
+        raise ValueError("need one stacked group of one block kind and no remainder layers")
     _, layer, leaf_name = name.split(".")
     leaf = groups[0]
     for key in _BLOCK_LEAVES[leaf_name]:
-        leaf = leaf[key]
+        leaf = leaf[("moe" if "moe" in leaf else "mlp") if key == "ffn" else key]
     return np.asarray(leaf)[int(layer)]
 
 
@@ -129,8 +136,8 @@ def _put(dst: torch.Tensor, arr: np.ndarray) -> None:
 
 @torch.no_grad()
 def lm_params_from_numpy(params: dict, cfg, device):
-    """``repro``'s dense-LM parameter tree (numpy arrays) -> a ``DenseLM``."""
-    model = DenseLM(cfg, torch.device(device))
+    """``repro``'s LM parameter tree (numpy arrays) -> an ``LM``."""
+    model = LM(cfg, torch.device(device))
     for name, dst in model.named_parameters():
         _put(dst, _lm_leaf(params, name))
     return model

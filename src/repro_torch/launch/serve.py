@@ -7,7 +7,9 @@ The counterpart of ``repro.launch.serve``, with the same flags and
 ``--device`` (default: the CUDA card; ``cpu`` runs the kernels' plain
 versions).  Parameters are drawn from seed 0 in bfloat16 (there are no
 weights to load), the cache holds ``--cache`` slots per sequence, and every
-sequence starts from token 0 at position 0.
+sequence starts from token 0 at position 0.  A VLM (qwen2-vl) is fed
+``repro``'s frontend stub at every step, a (B, 1, d_model) tensor of ones
+in ``cfg.dtype``, in place of its tokens.
 """
 
 from __future__ import annotations
@@ -24,13 +26,24 @@ from repro_torch.models import build_model
 
 def greedy_decode(api, params, cache, tokens: torch.Tensor, pos: torch.Tensor, steps: int):
     """``steps`` greedy tokens for each sequence, from (B,) tokens at (B,)
-    positions, the cache updated in place.  Returns the (B, steps) tokens,
-    the last step's logits and a device flag: every step's logits finite."""
+    positions, the cache updated in place (a VLM reads the stub embeddings
+    in place of the tokens).  Returns the (B, steps) tokens, the last
+    step's logits and a device flag: every step's logits finite."""
+    cfg = api.cfg
+    stub = None
+    if cfg.family == "vlm":
+        stub = torch.ones((tokens.shape[0], 1, cfg.d_model), dtype=cfg.dtype,
+                          device=tokens.device)
     out = []
     finite = torch.ones((), dtype=torch.bool, device=tokens.device)
     logits = None
     for i in range(steps):
-        logits, cache = api.decode_step(params, cache, {"tokens": tokens, "pos": pos + i})
+        batch = {"pos": pos + i}
+        if stub is None:
+            batch["tokens"] = tokens
+        else:
+            batch["inputs_embeds"] = stub
+        logits, cache = api.decode_step(params, cache, batch)
         finite &= torch.isfinite(logits).all()
         tokens = torch.argmax(logits, dim=-1).to(torch.int32)
         out.append(tokens)

@@ -1,4 +1,4 @@
-"""Training launcher: AdamW steps of a dense LM on the synthetic token stream.
+"""Training launcher: AdamW steps of a decoder LM on the synthetic token stream.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b --smoke \
         --steps 50 --seq 128 --batch 4
@@ -10,7 +10,8 @@ versions).  Parameters are drawn from seed 0, the optimizer is
 ``LMStream(vocab, --seq, --batch).batch(i)``.  With ``--ckpt-dir`` a
 checkpoint is written every ``--ckpt-every`` steps and ``--resume`` starts
 from the latest one.  ``--mesh`` other than ``none`` raises: the sharded LM
-is not ported yet.
+is not ported yet.  A VLM or encoder-decoder config exits as ``repro``'s
+launcher does (``SystemExit``): it needs a frontend stub batch.
 """
 
 from __future__ import annotations
@@ -50,6 +51,10 @@ def main(argv=None) -> dict:
             f"--mesh {args.mesh}: the sharded LM is not ported yet (ROADMAP.md Queue 1 "
             "item 2, 'Sharded LM')")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family in ("vlm", "encdec"):
+        raise SystemExit(
+            f"{args.arch} needs a frontend stub batch; use dryrun/smoke tests"
+        )
     dev = resolve_device(args.device)
     api = build_model(cfg)
 

@@ -1,21 +1,28 @@
 """Uniform model API: ``build_model(cfg)`` behind ``repro``'s member names.
 
-``build_model(cfg)`` returns a ``ModelAPI`` for the dense decoder LMs:
+``build_model(cfg)`` returns a ``ModelAPI`` for the decoder LMs (dense,
+mixture-of-experts, Mamba-2, VLM):
 
-  - ``init_params(seed=0, device=None)``   a ``DenseLM`` drawn on the device
-  - ``forward(params, batch)``              prefill: (B, S) tokens -> (B, S, V) logits
+  - ``init_params(seed=0, device=None)``   an ``LM`` drawn on the device
+  - ``forward(params, batch)``              prefill: (B, S) ``tokens`` -> (B, S, V) logits
   - ``init_cache(batch, seq_len, device=None)``   the decode state
-  - ``decode_step(params, cache, batch)``   one serve step: (B,) tokens at (B,) positions
+  - ``decode_step(params, cache, batch)``   one serve step: (B,) ``tokens`` at (B,) ``pos``
                                             -> ((B, V) logits, the cache, updated in place)
   - ``loss_fn(params, batch)``              training: mean next-token cross-entropy of
-                                            (B, S) tokens against (B, S) labels, a float32
-                                            scalar with gradients (``params`` a ``DenseLM``
+                                            (B, S) tokens against (B, S) labels (plus the
+                                            mixture-of-experts auxiliary loss), a float32
+                                            scalar with gradients (``params`` an ``LM``
                                             or a ``transformer.bind`` stand-in)
+
+A VLM (``family == "vlm"``, qwen2-vl) takes ``inputs_embeds`` in place of
+tokens: (B, S, D) for ``forward``, (B, 1, D) for ``decode_step``, and
+``forward`` takes (3, B, S) M-RoPE ``positions`` (t, h, w; default 0 … S − 1
+on each axis), as ``repro``'s ``input_specs`` lay the batch out.
 
 ``device=None`` means the CUDA card (``RuntimeError`` without one);
 ``device="cpu"`` runs the kernels' plain versions.  ``forward`` and
-``decode_step`` run where ``params`` live; token and position arrays are
-moved there.  Whisper, MoE, SSM, RG-LRU and VLM configs raise
+``decode_step`` run where ``params`` live; token, embedding and position
+arrays are moved there.  Whisper and RG-LRU configs raise
 ``NotImplementedError``.
 """
 
@@ -34,7 +41,7 @@ from repro_torch.models.common import ModelConfig
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ModelConfig
-    init_params: Callable        # (seed=0, device=None) -> DenseLM
+    init_params: Callable        # (seed=0, device=None) -> LM
     loss_fn: Callable            # (params, batch) -> scalar
     forward: Callable            # (params, batch) -> logits
     init_cache: Callable         # (batch, seq_len, device=None) -> cache
@@ -47,30 +54,29 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
 
 
 def _build_lm(cfg: ModelConfig) -> ModelAPI:
-    def init_params(seed: int = 0, device=None) -> tf.DenseLM:
+    def init_params(seed: int = 0, device=None) -> tf.LM:
         dev = resolve_device(device)
         return tf.init_lm_params(cfg, torch.Generator(device=dev).manual_seed(seed))
 
     def loss_fn(params, batch: dict) -> torch.Tensor:
         return tf.lm_loss(params, batch, cfg)
 
-    def forward(params: tf.DenseLM, batch: dict) -> torch.Tensor:
-        dev = params.device
-        positions = batch.get("positions")
-        return tf.lm_forward(
-            params, torch.as_tensor(batch["tokens"], device=dev), cfg,
-            positions=None if positions is None else torch.as_tensor(positions, device=dev),
-        )
+    def _on(params, batch: dict, key: str):
+        v = batch.get(key)
+        return None if v is None else torch.as_tensor(v, device=params.device)
+
+    def forward(params: tf.LM, batch: dict) -> torch.Tensor:
+        return tf.lm_forward(params, _on(params, batch, "tokens"), cfg,
+                             positions=_on(params, batch, "positions"),
+                             inputs_embeds=_on(params, batch, "inputs_embeds"))
 
     def init_cache(batch: int, seq_len: int, device=None) -> dict:
         return tf.init_decode_cache(cfg, batch, seq_len, resolve_device(device))
 
-    def decode_step(params: tf.DenseLM, cache: dict, batch: dict):
-        dev = params.device
-        return tf.lm_decode_step(
-            params, cache, torch.as_tensor(batch["tokens"], device=dev),
-            torch.as_tensor(batch["pos"], device=dev), cfg,
-        )
+    def decode_step(params: tf.LM, cache: dict, batch: dict):
+        return tf.lm_decode_step(params, cache, _on(params, batch, "tokens"),
+                                 _on(params, batch, "pos"), cfg,
+                                 inputs_embeds=_on(params, batch, "inputs_embeds"))
 
     return ModelAPI(cfg=cfg, init_params=init_params, loss_fn=loss_fn, forward=forward,
                     init_cache=init_cache, decode_step=decode_step)

@@ -1,10 +1,11 @@
 """Shared model machinery: config, initializers, norms, RoPE, the loss.
 
-The port's copy of what the dense LM needs from ``repro.models.common``:
+The port's copy of what the decoder LMs need from ``repro.models.common``:
 ``ModelConfig`` with torch dtypes, the fan-in initializers drawn from a
 given ``torch.Generator``, ``rms_norm`` (the RMSNorm kernel on a CUDA
-tensor, differentiable), ``swiglu``, the half-split rotary embedding and
-``softmax_cross_entropy``.  M-RoPE (VLM) is not ported yet.
+tensor, differentiable), ``swiglu``, the half-split rotary embedding, its
+three-axis form M-RoPE (qwen2-vl: ``mrope_angles``) and
+``softmax_cross_entropy``.
 
 ``rms_norm``'s gradient is ``RMSNormFunction``: the forward is the kernel
 (its plain version on a CPU tensor), the backward the float32 formula in
@@ -35,7 +36,8 @@ class ModelConfig:
     """``repro``'s config, field for field, with torch dtypes.
 
     ``block_pattern`` selects the per-layer block type cycle; the port runs
-    ``("attn",)`` (dense transformers) only.
+    "attn" (dense and mixture-of-experts transformers) and "ssm" (Mamba-2)
+    blocks.
     """
 
     name: str = "model"
@@ -90,6 +92,14 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return round_up(self.vocab_size, self.vocab_pad_multiple)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -175,6 +185,20 @@ def rope_angles(positions: torch.Tensor, freqs: torch.Tensor):
     return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
 
 
+def mrope_angles(positions: torch.Tensor, freqs: torch.Tensor):
+    """M-RoPE's (cos, sin) for ``rotate``: positions (3, ..., seq) on the t, h
+    and w axes, float32 freqs (hd/2,) -> each (..., seq, 1, hd/2).  Frequency
+    band i turns with the axis of its section: the first hd/2·2//8 bands with
+    t, the next hd/2·3//8 with h, the rest with w (the published 2:3:3 split,
+    (16, 24, 24) at head_dim 128)."""
+    half = freqs.shape[0]
+    a, b = half * 2 // 8, half * 3 // 8
+    axis = torch.repeat_interleave(torch.arange(3, device=positions.device),
+                                   torch.tensor([a, b, half - a - b], device=positions.device))
+    angles = torch.movedim(positions.to(torch.float32)[axis], 0, -1) * freqs
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
 def rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Half-split rotation of x (..., seq, heads, head_dim), in float32."""
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
@@ -186,6 +210,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     freqs = torch.as_tensor(rope_frequencies(x.shape[-1], theta), dtype=torch.float32,
                             device=x.device)
     return rotate(x, *rope_angles(positions, freqs))
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (3, ..., seq) integers."""
+    freqs = torch.as_tensor(rope_frequencies(x.shape[-1], theta), dtype=torch.float32,
+                            device=x.device)
+    return rotate(x, *mrope_angles(positions, freqs))
 
 
 # ---------------------------------------------------------------------------

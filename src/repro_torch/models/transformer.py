@@ -1,34 +1,41 @@
-"""Decoder LM for the dense ("attn" block) architectures: qwen3, granite,
-mistral-nemo, mistral-large.
+"""Decoder LM for the dense, mixture-of-experts, Mamba-2 and VLM
+architectures: qwen3, granite, mistral-nemo, mistral-large, mixtral, olmoe,
+mamba2, qwen2-vl.
 
-The port's copy of the dense path of ``repro.models.transformer``: the same
-pre-norm blocks (RMSNorm, GQA attention with optional q/k norms and RoPE,
-SwiGLU MLP), the same parameter names and ``(in, out)`` layouts, so a
-``repro`` parameter tree carries over array for array
+The port's copy of ``repro.models.transformer`` for block kinds "attn" and
+"ssm": the same pre-norm blocks (RMSNorm; GQA attention with optional q/k
+norms and RoPE or M-RoPE; a SwiGLU MLP or, with ``cfg.num_experts``, the
+mixture-of-experts FFN of ``models/moe.py``; the Mamba-2 mixer of
+``models/ssm.py``), the same parameter names and ``(in, out)`` layouts,
+so a ``repro`` parameter tree carries over array for array
 (``repro_torch.convert.lm_params_from_numpy``).  PyTorch idiom in place of
-JAX's: ``DenseLM`` holds one ``Block`` per layer (``repro`` stacks them for
-``lax.scan``), parameters are drawn from a ``torch.Generator`` on the
-device, and the decode cache is updated in place (``repro`` donates it).
+JAX's: ``LM`` holds one block module per layer (``Block``, ``MoEBlock`` or
+``SSMBlock``; ``repro`` stacks them for ``lax.scan``), parameters are drawn
+from a ``torch.Generator`` on the device, and the decode cache is updated
+in place (``repro`` donates it).  A VLM (qwen2-vl) takes ``inputs_embeds``
+in place of tokens and (3, B, S) M-RoPE positions (t, h, w).
 
 The norms and both attentions run the port's CUDA kernels on a CUDA tensor
-(``rms_norm``, ``attention``, ``decode_attention``).  Block kinds
-"ssm", "rglru" and "local_attn", mixture-of-experts and M-RoPE are not
-ported yet.
+(``rms_norm``, ``attention``, ``decode_attention``).  Block kinds "rglru"
+and "local_attn" and the Whisper encoder-decoder are not ported yet.
 
-Training: ``lm_loss`` runs the forward with gradients enabled, on a
-``DenseLM`` or on ``bind(params, tensors)``, a stand-in whose
-parameters are other tensors of the same names (the trainer's per-step
-``cfg.dtype`` copies of the float32 masters, ``repro``'s ``cast_params_once``).
-With ``cfg.remat`` each block runs under ``torch.utils.checkpoint`` (non-
-reentrant), as ``repro`` rematerializes each scanned group: the backward
-runs the block's forward again, kernels included.  ``lm_forward`` and
-``lm_decode_step`` (serving) stay under ``torch.no_grad``.
+Training: ``lm_loss`` runs the forward with gradients enabled, on an ``LM``
+or on ``bind(params, tensors)``, a stand-in whose parameters are other
+tensors of the same names (the trainer's per-step ``cfg.dtype`` copies of
+the float32 masters, ``repro``'s ``cast_params_once``), and adds the
+mixture-of-experts auxiliary loss (``AUX_LOSS_COEF`` times its sum over the
+blocks).  With ``cfg.remat`` each block runs under
+``torch.utils.checkpoint`` (non-reentrant), as ``repro`` rematerializes
+each scanned group: the backward runs the block's forward again, kernels
+included.  ``lm_forward`` and ``lm_decode_step`` (serving) stay under
+``torch.no_grad``.
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -39,6 +46,7 @@ from repro_torch.models.common import (
     ModelConfig,
     dense_init,
     embed_init,
+    mrope_angles,
     rms_norm,
     rope_angles,
     rope_frequencies,
@@ -46,21 +54,29 @@ from repro_torch.models.common import (
     softmax_cross_entropy,
     swiglu,
 )
+from repro_torch.models.moe import moe_ffn
+from repro_torch.models.ssm import mamba2_block
 
 LEFT = "not ported yet (ROADMAP.md Queue 1 item 2, 'LM substrate': what is left)"
+KINDS = ("attn", "ssm")
+AUX_LOSS_COEF = 0.01
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the dense path does not cover."""
+    """Raise ``NotImplementedError`` for what the port does not cover."""
     if cfg.family == "encdec":
         raise NotImplementedError(f"{cfg.name}: the Whisper encoder-decoder is {LEFT}")
-    if tuple(cfg.block_pattern) != ("attn",):
-        raise NotImplementedError(f"{cfg.name}: block kinds {cfg.block_pattern} are {LEFT}; "
-                                  "the port runs ('attn',)")
-    if cfg.num_experts:
-        raise NotImplementedError(f"{cfg.name}: mixture-of-experts blocks are {LEFT}")
-    if cfg.mrope or cfg.family == "vlm":
-        raise NotImplementedError(f"{cfg.name}: M-RoPE and the VLM frontend are {LEFT}")
+    left = sorted(set(cfg.block_pattern) - set(KINDS))
+    if left:
+        raise NotImplementedError(f"{cfg.name}: block kinds {left} are {LEFT}; "
+                                  f"the port runs {KINDS}")
+
+
+def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
+    """The block kind of each layer: ``block_pattern`` repeated (``repro``'s
+    scanned groups, then the remainder)."""
+    pat = cfg.block_pattern
+    return tuple(pat[i % len(pat)] for i in range(cfg.num_layers))
 
 
 # ---------------------------------------------------------------------------
@@ -72,39 +88,79 @@ def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 
+def _attn_leaves(m: nn.Module, cfg: ModelConfig, device) -> None:
+    """``repro``'s ``ln1``, ``attn.{wq,wk,wv,wo,q_norm,k_norm}`` and ``ln2``."""
+    d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    pd = cfg.param_dtype
+    m.ln1 = _param((d,), pd, device)
+    m.wq = _param((d, h * hd), pd, device)
+    m.wk = _param((d, hkv * hd), pd, device)
+    m.wv = _param((d, hkv * hd), pd, device)
+    m.wo = _param((h * hd, d), pd, device)
+    if cfg.qk_norm:
+        m.q_norm = _param((hd,), pd, device)
+        m.k_norm = _param((hd,), pd, device)
+    m.ln2 = _param((d,), pd, device)
+
+
 class Block(nn.Module):
     """One "attn" block: ``repro``'s ``ln1``, ``attn.{wq,wk,wv,wo,q_norm,k_norm}``,
     ``ln2`` and ``mlp.{w_gate,w_up,w_down}``, flattened to attributes."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
-        d, h, hkv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                            cfg.resolved_head_dim, cfg.d_ff)
-        pd = cfg.param_dtype
-        self.ln1 = _param((d,), pd, device)
-        self.wq = _param((d, h * hd), pd, device)
-        self.wk = _param((d, hkv * hd), pd, device)
-        self.wv = _param((d, hkv * hd), pd, device)
-        self.wo = _param((h * hd, d), pd, device)
-        if cfg.qk_norm:
-            self.q_norm = _param((hd,), pd, device)
-            self.k_norm = _param((hd,), pd, device)
-        self.ln2 = _param((d,), pd, device)
+        _attn_leaves(self, cfg, device)
+        d, f, pd = cfg.d_model, cfg.d_ff, cfg.param_dtype
         self.w_gate = _param((d, f), pd, device)
         self.w_up = _param((d, f), pd, device)
         self.w_down = _param((f, d), pd, device)
 
 
-class DenseLM(nn.Module):
-    """Embedding, ``num_layers`` blocks, final norm and (untied) LM head."""
+class MoEBlock(nn.Module):
+    """An "attn" block with the mixture-of-experts FFN: the attention leaves
+    of ``Block`` and ``repro``'s ``moe.{router,w_gate,w_up,w_down}``, the
+    expert weights (E, D, F) and (E, F, D)."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        _attn_leaves(self, cfg, device)
+        d, f, e, pd = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.param_dtype
+        self.router = _param((d, e), pd, device)
+        self.w_gate = _param((e, d, f), pd, device)
+        self.w_up = _param((e, d, f), pd, device)
+        self.w_down = _param((e, f, d), pd, device)
+
+
+class SSMBlock(nn.Module):
+    """One "ssm" block: ``repro``'s ``ln1`` and ``mixer.{in_proj, conv_w,
+    conv_b, A_log, D, dt_bias, norm_scale, out_proj}``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, di, n, h, pd = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.param_dtype
+        self.ln1 = _param((d,), pd, device)
+        self.in_proj = _param((d, 2 * di + 2 * n + h), pd, device)    # z, x, B, C, dt
+        self.conv_w = _param((cfg.conv_width, di + 2 * n), pd, device)   # conv over (x, B, C)
+        self.conv_b = _param((di + 2 * n,), pd, device)
+        self.A_log = _param((h,), pd, device)
+        self.D = _param((h,), pd, device)
+        self.dt_bias = _param((h,), pd, device)
+        self.norm_scale = _param((di,), pd, device)
+        self.out_proj = _param((di, d), pd, device)
+
+
+class LM(nn.Module):
+    """Embedding, ``num_layers`` blocks (``Block``, ``MoEBlock`` or ``SSMBlock``
+    by ``layer_kinds``), final norm and (untied) LM head."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         pd = cfg.param_dtype
+        make = {"attn": MoEBlock if cfg.num_experts else Block, "ssm": SSMBlock}
         self.embed = _param((cfg.padded_vocab, cfg.d_model), pd, device)
-        self.blocks = nn.ModuleList(Block(cfg, device) for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(make[kind](cfg, device) for kind in layer_kinds(cfg))
         self.final_norm = _param((cfg.d_model,), pd, device)
         if not cfg.tied_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.padded_vocab), pd, device)
@@ -117,7 +173,7 @@ class DenseLM(nn.Module):
         return self.embed.device
 
 
-def bind(params: DenseLM, tensors: dict[str, torch.Tensor]) -> SimpleNamespace:
+def bind(params: LM, tensors: dict[str, torch.Tensor]) -> SimpleNamespace:
     """A stand-in for ``params`` whose parameters are ``tensors[name]``, named
     as ``params.named_parameters()`` names them ("embed", "blocks.3.wq", …):
     what the training forward reads and differentiates."""
@@ -128,20 +184,30 @@ def bind(params: DenseLM, tensors: dict[str, torch.Tensor]) -> SimpleNamespace:
 
 
 @torch.no_grad()
-def init_lm_params(cfg: ModelConfig, generator: torch.Generator) -> DenseLM:
-    """A ``DenseLM`` on the generator's device, drawn as ``repro`` draws: fan-in
-    truncated normals for the projections, 0.02 normals for the embedding,
-    zeros for the norm scales."""
-    params = DenseLM(cfg, generator.device)
+def init_lm_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
+    """An ``LM`` on the generator's device, drawn as ``repro`` draws: fan-in
+    truncated normals for the matrices (the expert weights' fan-in is their
+    D or F axis, the conv's its width), 0.02 normals for the embedding,
+    zeros for the norm scales and the conv bias, and the Mamba-2 mixer's
+    fixed A_log = log(linspace(1, 16, H)), D = 1 and dt_bias =
+    log(expm1(linspace(1e-3, 0.1, H)))."""
+    params = LM(cfg, generator.device)
     pd = cfg.param_dtype
+    h = cfg.ssm_heads
+    fixed = {
+        "A_log": lambda: torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32)),
+        "D": lambda: torch.ones(h),
+        "dt_bias": lambda: torch.as_tensor(np.log(np.expm1(np.linspace(1e-3, 1e-1, h)))),
+    }
     params.embed.copy_(embed_init(generator, params.embed.shape, dtype=pd))
     for blk in params.blocks:
-        for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
-            w = getattr(blk, name)
-            w.copy_(dense_init(generator, w.shape, dtype=pd))
-        for name in ("ln1", "ln2", "q_norm", "k_norm"):
-            if hasattr(blk, name):
-                getattr(blk, name).zero_()
+        for name, w in blk.named_parameters():
+            if w.dim() >= 2:
+                w.copy_(dense_init(generator, w.shape, in_axis=w.dim() - 2, dtype=pd))
+            elif name in fixed:
+                w.copy_(fixed[name]())
+            else:
+                w.zero_()
     params.final_norm.zero_()
     if not cfg.tied_embeddings:
         params.lm_head.copy_(dense_init(generator, params.lm_head.shape, dtype=pd))
@@ -194,10 +260,20 @@ def attn_apply_decode(p: Block, x, cfg: ModelConfig, *, cache_k, cache_v, slot, 
     return out @ p.wo.to(out.dtype)
 
 
-def block_apply(p: Block, x, cfg: ModelConfig, *, rope, cache=None, decode: bool = False):
-    """One "attn" block with pre-norm residual wiring.  ``cache`` (decode only)
-    is ``(cache_k, cache_v, slot, valid_len)``."""
+def block_apply(kind: str, p, x, cfg: ModelConfig, *, rope=None, cache=None,
+                decode: bool = False):
+    """One block with pre-norm residual wiring -> (x, the block's
+    mixture-of-experts auxiliary loss or None).  ``cache`` (decode only) is
+    ``(cache_k, cache_v, slot, valid_len)`` for "attn", ``(conv, ssm)`` for
+    "ssm"; both are updated in place."""
     h = rms_norm(x, p.ln1)
+    if kind == "ssm":
+        conv_state, ssm_state = cache if decode else (None, None)
+        y, (new_conv, new_ssm) = mamba2_block(p, h, cfg, conv_state, ssm_state, decode=decode)
+        if decode:
+            conv_state.copy_(new_conv)
+            ssm_state.copy_(new_ssm)
+        return x + y, None
     if decode:
         cache_k, cache_v, slot, valid_len = cache
         a = attn_apply_decode(p, h, cfg, cache_k=cache_k, cache_v=cache_v, slot=slot,
@@ -205,7 +281,11 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, rope, cache=None, decode: bool
     else:
         a = attn_apply_train(p, h, cfg, window=cfg.window, rope=rope)
     x = x + a
-    return x + mlp_apply(p, rms_norm(x, p.ln2))
+    h2 = rms_norm(x, p.ln2)
+    if cfg.num_experts:
+        f, aux = moe_ffn(p, h2, cfg)
+        return x + f, aux
+    return x + mlp_apply(p, h2), None
 
 
 # ---------------------------------------------------------------------------
@@ -213,77 +293,122 @@ def block_apply(p: Block, x, cfg: ModelConfig, *, rope, cache=None, decode: bool
 # ---------------------------------------------------------------------------
 
 
-def _lm_head(params: DenseLM, x, cfg: ModelConfig):
+def _lm_head(params: LM, x, cfg: ModelConfig):
     if cfg.tied_embeddings:
         return x @ params.embed.to(x.dtype).T
     return x @ params.lm_head.to(x.dtype)
 
 
-def _embed(params: DenseLM, tokens, cfg: ModelConfig):
+def _embed(params: LM, tokens, cfg: ModelConfig, inputs_embeds=None):
+    if inputs_embeds is not None:
+        return inputs_embeds.to(cfg.dtype)
     return params.embed[tokens].to(cfg.dtype)
 
 
-def _logits(params, tokens, cfg: ModelConfig, positions, remat: bool):
-    x = _embed(params, tokens, cfg)
+def _rope(params: LM, positions, cfg: ModelConfig):
+    """(cos, sin) of the positions: (B, S) for RoPE, (3, B, S) for M-RoPE."""
+    return (mrope_angles if cfg.mrope else rope_angles)(positions, params.rope_freqs)
+
+
+def _logits(params, tokens, cfg: ModelConfig, positions, remat: bool, inputs_embeds=None):
+    """(logits, the auxiliary losses summed over the blocks, float32)."""
+    x = _embed(params, tokens, cfg, inputs_embeds)
     b, s, _ = x.shape
-    if positions is None:
-        positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
-    rope = rope_angles(positions, params.rope_freqs)
-    for blk in params.blocks:
+    kinds = layer_kinds(cfg)
+    rope = None
+    if "attn" in kinds:
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+            if cfg.mrope:
+                positions = positions[None].expand(3, b, s)
+        rope = _rope(params, positions, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, blk in zip(kinds, params.blocks):
         if remat:
-            x = checkpoint(block_apply, blk, x, cfg, rope=rope, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, a = checkpoint(block_apply, kind, blk, x, cfg, rope=rope, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x = block_apply(blk, x, cfg, rope=rope)
+            x, a = block_apply(kind, blk, x, cfg, rope=rope)
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x, params.final_norm)
-    return _lm_head(params, x, cfg)
+    return _lm_head(params, x, cfg), aux
 
 
 @torch.no_grad()
-def lm_forward(params: DenseLM, tokens: torch.Tensor, cfg: ModelConfig, *,
-               positions: torch.Tensor | None = None) -> torch.Tensor:
-    """Prefill forward: (B, S) tokens -> (B, S, V) logits in ``cfg.dtype``."""
-    return _logits(params, tokens, cfg, positions, remat=False)
+def lm_forward(params: LM, tokens: torch.Tensor | None, cfg: ModelConfig, *,
+               positions: torch.Tensor | None = None,
+               inputs_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Prefill forward: (B, S) tokens, or (B, S, D) ``inputs_embeds``, -> (B,
+    S, V) logits in ``cfg.dtype``.  ``positions``: (B, S), or (3, B, S)
+    with M-RoPE; default 0 … S − 1 on every axis."""
+    return _logits(params, tokens, cfg, positions, remat=False, inputs_embeds=inputs_embeds)[0]
 
 
 def lm_loss(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (float32 scalar), on the device of ``params`` (a
-    ``DenseLM`` or a ``bind`` stand-in); gradients enabled, each block under a
-    checkpoint when ``cfg.remat``."""
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (or
+    ``batch["inputs_embeds"]``) against ``batch["labels"]`` (float32 scalar),
+    plus ``AUX_LOSS_COEF`` times the summed auxiliary loss for a
+    mixture-of-experts config; on the device of ``params`` (an ``LM`` or a
+    ``bind`` stand-in); gradients enabled, each block under a checkpoint when
+    ``cfg.remat``."""
     dev = params.embed.device
-    positions = batch.get("positions")
-    logits = _logits(
-        params, torch.as_tensor(batch["tokens"], device=dev), cfg,
-        None if positions is None else torch.as_tensor(positions, device=dev), remat=cfg.remat,
-    )
-    return softmax_cross_entropy(logits, torch.as_tensor(batch["labels"], device=dev))
+
+    def get(key):
+        v = batch.get(key)
+        return None if v is None else torch.as_tensor(v, device=dev)
+
+    logits, aux = _logits(params, get("tokens"), cfg, get("positions"), remat=cfg.remat,
+                          inputs_embeds=get("inputs_embeds"))
+    ce = softmax_cross_entropy(logits, get("labels"))
+    return ce + AUX_LOSS_COEF * aux if cfg.num_experts else ce
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
-    """Per-layer k/v caches, stacked: ``{"k", "v"}`` each (L, B, S, Hkv, hd)
-    in ``cfg.dtype`` (``repro``'s ``cache["groups"][0]``); a sliding-window
-    model keeps a ring buffer of min(seq_len, window) slots."""
-    s = seq_len if not cfg.window else min(seq_len, cfg.window)
-    shape = (cfg.num_layers, batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    """The decode state of every layer, stacked by kind: "attn" layers' k/v
+    caches ``{"k", "v"}`` each (L_attn, B, S, Hkv, hd) in ``cfg.dtype``
+    (``repro``'s ``cache["groups"][0]``; a sliding-window model keeps a ring
+    buffer of min(seq_len, window) slots); "ssm" layers' ``{"conv": (L_ssm,
+    B, conv_width − 1, d_inner + 2N)`` in ``cfg.dtype``, ``"ssm": (L_ssm, B,
+    H, P, N)`` float32}."""
+    kinds = layer_kinds(cfg)
+    out = {}
+    n_attn, n_ssm = kinds.count("attn"), kinds.count("ssm")
+    if n_attn:
+        s = seq_len if not cfg.window else min(seq_len, cfg.window)
+        shape = (n_attn, batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
+        out["k"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        out["v"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    if n_ssm:
+        out["conv"] = torch.zeros((n_ssm, batch, cfg.conv_width - 1,
+                                   cfg.d_inner + 2 * cfg.ssm_state), dtype=cfg.dtype, device=device)
+        out["ssm"] = torch.zeros((n_ssm, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                                 dtype=torch.float32, device=device)
+    return out
 
 
 @torch.no_grad()
-def lm_decode_step(params: DenseLM, cache: dict, tokens: torch.Tensor, pos: torch.Tensor,
-                   cfg: ModelConfig):
-    """One decode step: the newest (B,) tokens at (B,) absolute positions ->
-    ((B, V) logits, the cache, updated in place)."""
-    x = _embed(params, tokens[:, None], cfg)
-    s_cache = cache["k"].shape[2]
+def lm_decode_step(params: LM, cache: dict, tokens: torch.Tensor | None, pos: torch.Tensor,
+                   cfg: ModelConfig, inputs_embeds: torch.Tensor | None = None):
+    """One decode step: the newest (B,) tokens, or (B, 1, D) ``inputs_embeds``,
+    at (B,) absolute positions -> ((B, V) logits, the cache, updated in
+    place).  With M-RoPE the position drives all three axes."""
+    x = _embed(params, None if tokens is None else tokens[:, None], cfg, inputs_embeds)
     pos = pos.to(torch.int64)
-    slot = pos % s_cache if cfg.window else torch.clamp(pos, max=s_cache - 1)
-    # slots holding tokens within the attention span of pos: a prefix
-    valid_len = torch.clamp(pos + 1, 0, s_cache).to(torch.int32)
-    rope = rope_angles(pos[:, None], params.rope_freqs)
-    for i, blk in enumerate(params.blocks):
-        x = block_apply(blk, x, cfg, rope=rope, decode=True,
-                        cache=(cache["k"][i], cache["v"][i], slot, valid_len))
+    slot = valid_len = rope = None
+    if "k" in cache:
+        s_cache = cache["k"].shape[2]
+        slot = pos % s_cache if cfg.window else torch.clamp(pos, max=s_cache - 1)
+        # slots holding tokens within the attention span of pos: a prefix
+        valid_len = torch.clamp(pos + 1, 0, s_cache).to(torch.int32)
+        positions = pos[:, None]
+        rope = _rope(params, positions[None].expand(3, -1, -1) if cfg.mrope else positions, cfg)
+    seen = {"attn": 0, "ssm": 0}
+    for kind, blk in zip(layer_kinds(cfg), params.blocks):
+        i = seen[kind]
+        seen[kind] += 1
+        c = ((cache["k"][i], cache["v"][i], slot, valid_len) if kind == "attn"
+             else (cache["conv"][i], cache["ssm"][i]))
+        x, _ = block_apply(kind, blk, x, cfg, rope=rope, cache=c, decode=True)
     x = rms_norm(x, params.final_norm)
     return _lm_head(params, x, cfg)[:, 0], cache

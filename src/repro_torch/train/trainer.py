@@ -1,8 +1,8 @@
-"""Train and serve step builders for the dense LM (counterpart of
+"""Train and serve step builders for the decoder LMs (counterpart of
 ``repro.train.trainer``).
 
-A train state is ``{"params": DenseLM, "opt": AdamWState}``: the float32
-masters and the moments, keyed by the ``DenseLM``'s parameter names.  A
+A train state is ``{"params": LM, "opt": AdamWState}``: the float32
+masters and the moments, keyed by the ``LM``'s parameter names.  A
 step takes the gradients with respect to per-step ``cfg.dtype`` copies of
 the masters (``cast_params_once``, ``repro``'s mixed precision: the copies
 are leaves of the autograd graph, the masters are not), accumulates
@@ -19,7 +19,7 @@ from typing import Callable
 import torch
 
 from repro_torch.models.api import ModelAPI
-from repro_torch.models.transformer import DenseLM, bind
+from repro_torch.models.transformer import LM, bind
 from repro_torch.train.optim import AdamW
 
 
@@ -30,7 +30,7 @@ def init_train_state(api: ModelAPI, optimizer: AdamW, seed: int = 0, device=None
     return {"params": params, "opt": optimizer.init(dict(params.named_parameters()))}
 
 
-def compute_copies(params: DenseLM, cfg) -> dict[str, torch.Tensor]:
+def compute_copies(params: LM, cfg) -> dict[str, torch.Tensor]:
     """The tensors a step differentiates: each float32 master cast to
     ``cfg.dtype`` when ``cfg.cast_params_once`` (the master itself, detached,
     otherwise), each a leaf that requires its gradient."""

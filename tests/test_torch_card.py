@@ -1140,3 +1140,185 @@ def test_lm_train_steps_on_card_match_cpu(cuda, arch, mb):
     assert counts["rmsnorm"] == 3 * mb * (2 * norms - 1)
     assert counts["flash_attention"] == 3 * mb * 2 * L
     assert int(on_card["opt"].step) == 3
+
+
+# ---------------------------------------------------------------------------
+# the mixture-of-experts, Mamba-2 and VLM families
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hkv,window",
+    [(1, 512, 16, 16, 0), (2, 300, 16, 16, 0),        # olmoe: group 1
+     (1, 512, 64, 8, 0), (1, 257, 64, 8, 0),          # qwen2-vl: group 8
+     (1, 1024, 32, 8, 256), (1, 1000, 32, 8, 512)],   # mixtral: a live window
+)
+def test_flash_kernel_family_shapes_on_card(cuda, b, s, h, hkv, window):
+    q = _randn((b, s, h, 128), "bf16", cuda, 1).transpose(1, 2)
+    k = _randn((b, s, hkv, 128), "bf16", cuda, 2).transpose(1, 2)
+    v = _randn((b, s, hkv, 128), "bf16", cuda, 3).transpose(1, 2)
+    before = tk.launch_counts()["flash_attention"]
+    got = flash_attention(q, k, v, window=window)
+    want = flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert _attn_close(got, want), _max_abs(got, want)
+    assert tk.launch_counts()["flash_attention"] == before + 1
+
+
+@pytest.mark.parametrize(
+    "h,hkv,s,dt",
+    [(16, 16, 256, "bf16"), (16, 16, 4096, "bf16"), (64, 8, 256, "bf16"), (64, 8, 4096, "bf16"),
+     (64, 8, 300, "f32"), (16, 16, 77, "f32")],
+)
+def test_decode_kernel_family_groups_on_card(cuda, h, hkv, s, dt):
+    """g = 1 (olmoe) and g = 8 (qwen2-vl, where the kernel takes 4 query heads
+    of a kv head at a time) over 8 sequences."""
+    q = _randn((8, h, 128), dt, cuda, 4)
+    kc, vc = _randn((8, s, hkv, 128), dt, cuda, 5), _randn((8, s, hkv, 128), dt, cuda, 6)
+    vl = torch.tensor(np.linspace(1, s, 8).astype(int).tolist(), dtype=torch.int32, device=cuda)
+    got, want = decode_attention(q, kc, vc, vl), decode_attention_plain(q, kc, vc, vl)
+    torch.cuda.synchronize()
+    assert _attn_close(got, want), _max_abs(got, want)
+
+
+@pytest.mark.parametrize("r,d", [(64, 4096), (8, 4096), (300, 2048), (8, 2048)])
+def test_rmsnorm_family_widths_on_card(cuda, r, d):
+    x, s = _randn((r, d), "bf16", cuda, r), _randn((d,), "bf16", cuda, d) * 0.5
+    got, want = rmsnorm(x, s), rmsnorm_plain(x, s)
+    torch.cuda.synchronize()
+    assert torch.all((got.float() - want.float()).abs() <= want.float().abs() * 2.0 ** -7)
+
+
+def _moe_inputs(arch, dev, dt=torch.float32, seed=0, **kw):
+    from types import SimpleNamespace
+
+    from repro_torch.models.common import dense_init
+
+    cfg = get_smoke_config(arch).replace(**kw)
+    g = torch.Generator().manual_seed(seed)
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    p = {"router": dense_init(g, (d, e)), "w_gate": dense_init(g, (e, d, f), 1),
+         "w_up": dense_init(g, (e, d, f), 1), "w_down": dense_init(g, (e, f, d), 1)}
+    x = torch.randn(2, 96, d, generator=g)
+    return cfg, SimpleNamespace(**{k: v.to(dev, dt) for k, v in p.items()}), x.to(dev, dt)
+
+
+@pytest.mark.parametrize("arch,kw", [("olmoe-1b-7b", {}), ("mixtral-8x7b", {"capacity_factor": 0.5}),
+                                     ("olmoe-1b-7b", {"num_experts": 64, "num_experts_per_tok": 8})])
+def test_moe_ffn_on_card_matches_cpu(cuda, arch, kw):
+    """float32 routes equal choice for choice (drops included), outputs and the
+    auxiliary loss within 1e-5 of the CPU's."""
+    from repro_torch.models.moe import capacity, dispatch_slots, moe_ffn, route
+
+    cfg, p_cpu, x_cpu = _moe_inputs(arch, "cpu", **kw)
+    _, p_card, x_card = _moe_inputs(arch, cuda, **kw)
+    cap = capacity(cfg, x_cpu.shape[1])
+    routes = []
+    for p, x in ((p_card, x_card), (p_cpu, x_cpu)):
+        _, gates, idx = route(x, p.router, cfg.num_experts_per_tok)
+        routes.append((idx.cpu(), dispatch_slots(idx, cfg.num_experts, cap)[1].cpu()))
+    assert torch.equal(routes[0][0], routes[1][0]) and torch.equal(routes[0][1], routes[1][1])
+    got, aux = moe_ffn(p_card, x_card, cfg)
+    want, want_aux = moe_ffn(p_cpu, x_cpu, cfg)
+    assert _max_abs(got.cpu(), want) <= 1e-5 * float(want.abs().max())
+    assert abs(float(aux) - float(want_aux)) <= 1e-6 * float(want_aux)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_moe_combine_same_on_every_run_on_card(cuda, dt):
+    """The combine gathers each token's k slot outputs and adds them in rank
+    order (no atomics): two calls on the card are bit-equal."""
+    from repro_torch.models.moe import moe_ffn
+
+    cfg, p, x = _moe_inputs("olmoe-1b-7b", cuda, TORCH_DT[dt], seed=1, num_experts=64,
+                            num_experts_per_tok=8, d_model=256, d_ff=128)
+    a, aux_a = moe_ffn(p, x, cfg)
+    b, aux_b = moe_ffn(p, x, cfg)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+def test_ssd_and_mamba2_block_on_card_match_cpu(cuda):
+    """The chunked scan (y and the final state) and the Mamba-2 mixer, prefill
+    and 4 decode steps, float32, card against CPU within 1e-5 of the largest
+    |value|."""
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import SSMBlock, init_lm_params
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 128, 8, 16, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(2, 128, 8, generator=g))
+    A = -torch.exp(torch.rand(8, generator=g) * 2)
+    Bm, Cm = torch.randn(2, 128, 32, generator=g), torch.randn(2, 128, 32, generator=g)
+    h0 = torch.randn(2, 8, 16, 32, generator=g)
+    want = ssm.ssd_chunked(x, dt, A, Bm, Cm, 32, h0)
+    got = ssm.ssd_chunked(*(t.to(cuda) for t in (x, dt, A, Bm, Cm)), 32, h0.to(cuda))
+    for a, w in zip(got, want):
+        assert _max_abs(a.cpu(), w) <= 1e-5 * float(w.abs().max())
+    cfg = get_smoke_config("mamba2-1.3b").replace(dtype=torch.float32)
+    blk = init_lm_params(cfg, torch.Generator().manual_seed(3)).blocks[0]
+    assert isinstance(blk, SSMBlock)
+    with torch.no_grad():
+        for p_ in (blk.conv_b, blk.norm_scale):
+            p_.normal_(0.0, 0.5, generator=g)
+    card = copy.deepcopy(blk).to(cuda)
+    xs = torch.randn(2, 64, cfg.d_model, generator=g)
+    states = {}
+    for where, b_ in (("card", card), ("cpu", blk)):
+        y, st = ssm.mamba2_block(b_, xs.to(b_.in_proj.device), cfg)
+        outs = [y.cpu()]
+        for t in range(4):
+            step = torch.randn(2, 1, cfg.d_model, generator=torch.Generator().manual_seed(t))
+            yt, st = ssm.mamba2_block(b_, step.to(b_.in_proj.device), cfg, *st, decode=True)
+            outs.append(yt.cpu())
+        states[where] = (outs, [s_.cpu() for s_ in st])
+    for a, w in zip(states["card"][0] + states["card"][1], states["cpu"][0] + states["cpu"][1]):
+        assert _max_abs(a, w) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "olmoe-1b-7b", "mamba2-1.3b", "qwen2-vl-72b"])
+def test_family_lm_on_card_matches_cpu(cuda, arch):
+    """A float32 smoke config from the same parameters on the card and the
+    CPU: forward logits and 8 decode steps (logits and every cache leaf)
+    within 1e-4 of the largest |value|, with exact launch counts."""
+    from repro_torch.models.transformer import layer_kinds
+
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32)
+    api = build_model(cfg)
+    on_cpu = api.init_params(0, device="cpu")
+    with torch.no_grad():
+        for p in on_cpu.parameters():
+            if p.dim() == 1:                                   # non-zero norm scales
+                p.add_(torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+    on_card = copy.deepcopy(on_cpu).to(cuda)
+    r = np.random.default_rng(0)
+    if cfg.family == "vlm":
+        batch = {"inputs_embeds": torch.from_numpy(r.standard_normal((2, 128, cfg.d_model))
+                                                   .astype(np.float32)),
+                 "positions": torch.arange(128).repeat(3, 2, 1)}
+    else:
+        batch = {"tokens": torch.from_numpy(r.integers(0, cfg.vocab_size, (2, 128)))}
+    tk.reset_launch_counts()
+    got = api.forward(on_card, batch)
+    want = api.forward(on_cpu, batch)
+    assert _max_abs(got.cpu(), want) <= 1e-4 * float(want.abs().max())
+    kinds = layer_kinds(cfg)
+    n_attn = kinds.count("attn")
+    norms = 2 * len(kinds) + 2 * n_attn * cfg.qk_norm + 1
+    assert tk.launch_counts()["flash_attention"] == n_attn
+    assert tk.launch_counts()["rmsnorm"] == norms
+    caches = [api.init_cache(2, 16, device=d) for d in (cuda, "cpu")]
+    tk.reset_launch_counts()
+    for t in range(8):
+        step = {"pos": torch.tensor([t, t + 3], dtype=torch.int32)}
+        if cfg.family == "vlm":
+            step["inputs_embeds"] = torch.from_numpy(
+                r.standard_normal((2, 1, cfg.d_model)).astype(np.float32))
+        else:
+            step["tokens"] = torch.from_numpy(r.integers(0, cfg.vocab_size, (2,)))
+        got, _ = api.decode_step(on_card, caches[0], step)
+        want, _ = api.decode_step(on_cpu, caches[1], step)
+        assert _max_abs(got.cpu(), want) <= 1e-4 * float(want.abs().max()), t
+    for key, w in caches[1].items():
+        assert _max_abs(caches[0][key].cpu(), w) <= 1e-4 * float(w.abs().max()), key
+    assert tk.launch_counts()["decode_attention"] == 8 * n_attn
+    assert tk.launch_counts()["rmsnorm"] == 8 * norms

@@ -8,8 +8,9 @@
     there is no CUDA device instead of carrying on on the CPU (the event
     engine ``repro_torch.sim`` and the host solver touch no device), the
     orchestration layer's ``ElasticScheduler``, ``run_scenario`` and
-    ``run_sweep`` and the LM trainer's ``init_train_state`` and
-    ``launch.train`` included.
+    ``run_sweep``, the LM trainer's ``init_train_state`` and
+    ``launch.train``, and the serve launcher and cache of the MoE, Mamba-2
+    and VLM families included.
 """
 
 import ast
@@ -64,7 +65,7 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.launch.elastic\n"
         "import repro_torch.train.trainer, repro_torch.train.optim, repro_torch.launch.train\n"
         "import repro_torch.ckpt, repro_torch.ckpt.checkpoint, repro_torch.models.attention\n"
-        "import repro_torch.data.synthetic\n"
+        "import repro_torch.data.synthetic, repro_torch.models.moe, repro_torch.models.ssm\n"
         "repro_torch.scenarios.list_scenarios()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'repro'"
         " or m.split('.')[0].startswith('jax'))\n"
@@ -95,7 +96,9 @@ def test_sources_import_no_jax_and_no_repro():
                  "fl/staleness.py", "launch/elastic.py", "scenarios/engine.py",
                  "scenarios/spec.py", "scenarios/presets.py", "scenarios/profiles.py",
                  "scenarios/__main__.py", "train/trainer.py", "train/optim.py",
-                 "ckpt/checkpoint.py", "launch/train.py", "models/attention.py"):
+                 "ckpt/checkpoint.py", "launch/train.py", "models/attention.py",
+                 "models/moe.py", "models/ssm.py", "configs/mixtral_8x7b.py",
+                 "configs/olmoe_1b_7b.py", "configs/mamba2_1_3b.py", "configs/qwen2_vl_72b.py"):
         assert PORT / name in files
     for path in files:
         bad = [n for n in _imports(path) if _forbidden(n)]
@@ -153,6 +156,12 @@ ENTRY_POINTS = {
                                                          {"tokens": np.zeros((1, 4), np.int32)}),
     "build_model.init_cache": lambda tg, cg: _lm().init_cache(1, 8),
     "serve.main": lambda tg, cg: serve.main(["--smoke", "--batch", "1", "--tokens", "1"]),
+    "serve.main(olmoe)": lambda tg, cg: serve.main(["--arch", "olmoe-1b-7b", "--smoke", "--batch",
+                                                    "1", "--tokens", "1"]),
+    "serve.main(qwen2-vl)": lambda tg, cg: serve.main(["--arch", "qwen2-vl-72b", "--smoke",
+                                                       "--batch", "1", "--tokens", "1"]),
+    "build_model(mamba2).init_cache": lambda tg, cg: build_model(
+        get_smoke_config("mamba2-1.3b")).init_cache(1, 8),
     "train.main": lambda tg, cg: train_launcher.main(["--smoke", "--steps", "1", "--seq", "8"]),
     "init_train_state": lambda tg, cg: init_train_state(_lm(), AdamW()),
     "ElasticScheduler": lambda tg, cg: ElasticScheduler(tg, cg, method="heft"),

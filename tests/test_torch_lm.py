@@ -28,10 +28,10 @@ import torch
 
 from repro.configs import get_smoke_config as repro_smoke_config
 from repro.models import build_model as repro_build_model
-from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch import serve
-from repro_torch.models import DenseLM, build_model
+from repro_torch.models import LM, build_model
 
 ARCHS = ["qwen3-8b", "granite-3-2b"]
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -184,19 +184,19 @@ def test_greedy_decode_writes_the_cache_in_place():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-2b", "mistral-nemo-12b",
-                                  "mistral-large-123b"])
+                                  "mistral-large-123b", "mixtral-8x7b", "olmoe-1b-7b",
+                                  "mamba2-1.3b", "qwen2-vl-72b"])
 def test_full_config_parameter_count_matches_repro(arch):
     from repro.configs import get_config as repro_get_config
 
     rcfg = repro_get_config(arch)
     shapes = jax.eval_shape(lambda: repro_build_model(rcfg).init_params(jax.random.PRNGKey(0)))
     want = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes))
-    model = DenseLM(get_config(arch), torch.device("meta"))
+    model = LM(get_config(arch), torch.device("meta"))
     assert sum(p.numel() for p in model.parameters()) == want
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(ARCHS) -
-                                        {"mistral-nemo-12b", "mistral-large-123b"}))
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small"])
 def test_other_families_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
@@ -204,7 +204,7 @@ def test_other_families_name_their_roadmap_item(arch):
 
 def test_unported_members_raise():
     _, pcfg = _configs("granite-3-2b")
-    for kw in ({"num_experts": 4}, {"block_pattern": ("ssm",)}, {"mrope": True},
-               {"family": "encdec"}):
+    for kw in ({"block_pattern": ("rglru",)}, {"block_pattern": ("rglru", "rglru", "local_attn")},
+               {"block_pattern": ("local_attn",)}, {"family": "encdec"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(pcfg.replace(**kw))
