@@ -161,8 +161,9 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      (flash at H = Hkv = 16, at H = 64 / Hkv = 8, and with a live window of
      4096 at S = 8192; decode at g = 1 and g = 8 over 256 and 4096 slots;
      RMSNorm at widths 4096 and 2048) against their plain versions, timed
-     beside their bounds; then mixtral-8x7b (8 of 32 layers), olmoe-1b-7b
-     (16), mamba2-1.3b (48) and qwen2-vl-72b (8 of 80) at full width in
+     beside their bounds and one SDPA (``F.rms_norm``) call; then
+     mixtral-8x7b (8 of 32 layers), olmoe-1b-7b (16), mamba2-1.3b (48) and
+     qwen2-vl-72b (8 of 80) at full width in
      bfloat16, one at a time: (a) ``greedy_decode`` of 8 sequences × 32
      tokens with a 256-slot cache (qwen2-vl fed ``repro``'s ones stub), and
      for mixtral 32 tokens from position 4,080 in a 4,096-slot ring that
@@ -174,6 +175,26 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      configs in float32 on the card against the CPU (forward, 8 decode
      steps, every cache leaf, ``loss_fn`` with the auxiliary loss and every
      gradient), the mixture-of-experts routes equal choice for choice.
+ 21. RG-LRU hybrid and Whisper: (c) rows 9–11 at the shapes these models
+     give them (flash at head dim 256 with Hkv = 1 and a window of 2,048 at
+     S = 8,192, in float32 at head dim 256, Whisper's non-causal encoder at
+     S = 1,500 and its cross-attention of 448 queries over 1,500 frames;
+     decode at head dim 256 with g = 16 over 2,048 slots and at g = 1 over
+     1,500 and 448 slots; RMSNorm at (8,192, 4,096) and (12,000, 768))
+     against their plain versions, timed beside their bounds and one SDPA
+     call; then recurrentgemma-9b (all 38 layers) and whisper-small (all 12
+     + 12) at full width in bfloat16, one at a time: (a) ``greedy_decode``
+     of 8 × 32 tokens (recurrentgemma with a 256-slot cache, then 1 × 32
+     from position 524,200, ``long_500k``'s length, its local rings of
+     2,048 slots wrapping; Whisper against a 448-slot self cache and the
+     cross cache of an encoding of 8 × 1,500 frames), (b) a prefill
+     ``forward`` (recurrentgemma 1 × 8,192 tokens; Whisper 8 × 1,500 frames
+     and 448 tokens), each with its time, peak memory, exact launch counts
+     and a profiled call's idle share and device time by kind; (d) the two
+     smoke configs and recurrentgemma's at d_model 512 over 2 heads (head
+     dim 256) in float32 on the card against the CPU: forward, 48 decode
+     steps through a 64-slot cache (the 32-slot local ring wraps), every
+     cache leaf, ``loss_fn`` and every gradient.
 
 Each phase prints its wall time.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object with every kernel's numbers, and
@@ -262,6 +283,12 @@ def copies(make, nbytes_each: int) -> list:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    """Adds one run's launch counts into ``total``."""
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
 
 
 def dev_us(e) -> float:
@@ -1001,7 +1028,7 @@ def flash_build_lines() -> None:
             found[int(m.group(1))] = {op: len(re.findall(rf"\b{op}\b", block))
                                       for op in ("HGMMA", "UTMALDG")}
     print(f"sass flash_bf16_kernel<D>: {found}", flush=True)
-    check(sorted(found) == [16, 32, 64, 128] and all(c["HGMMA"] and c["UTMALDG"]
+    check(sorted(found) == [16, 32, 64, 128, 256] and all(c["HGMMA"] and c["UTMALDG"]
                                                      for c in found.values()),
           f"the bfloat16 flash kernels lack wgmma (HGMMA) or TMA loads (UTMALDG): {found}")
 
@@ -1234,8 +1261,7 @@ def lm_serve_phase(dev) -> dict[str, int]:
         check(counts == expect, f"lm serve {part}: launch counts")
         nxt = {"tokens": out[:, -1], "pos": pos0 + steps}
         print(idle_line(part, *profiled(lambda: api.decode_step(params, cache, nxt))), flush=True)
-        for k_, v_ in counts.items():
-            total[k_] = total.get(k_, 0) + v_
+        add_counts(total, counts)
         del cache, out, logits
 
     zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -1267,8 +1293,7 @@ def lm_serve_phase(dev) -> dict[str, int]:
     print(f"lm serve (c): launches {counts}, expected {expect}", flush=True)
     check(finite and logits.shape == (1, S, cfg.padded_vocab), "lm serve (c): logits")
     check(counts == expect, "lm serve (c): launch counts")
-    for k_, v_ in counts.items():
-        total[k_] = total.get(k_, 0) + v_
+    add_counts(total, counts)
     del logits
     torch.cuda.empty_cache()
     print(idle_line("(c)", *profiled(lambda: api.forward(params, {"tokens": tokens}))),
@@ -2866,14 +2891,15 @@ WRAP_POS0, WRAP_CACHE = 4080, 4096                        # (a): mixtral's ring 
 # within 1e-4 (phases 12 and 19 (c)); each gradient leaf within 1e-4
 # relative Frobenius (the CPU tests' bound against repro)
 FAMILY_REL, FAMILY_GRAD_REL = 1e-4, 1e-4
-# (c): the new shapes of rows 9–11 (bfloat16, D = 128): flash (label, H, Hkv,
-# S, window), decode over 8 sequences (label, H, Hkv, S), RMSNorm (label, R, D)
-FAMILY_FLASH = (("olmoe H=16 Hkv=16 S=4096", 16, 16, 4096, 0),
-                ("qwen2-vl H=64 Hkv=8 S=4096", 64, 8, 4096, 0),
-                ("mixtral H=32 Hkv=8 S=8192 window=4096", 32, 8, 8192, 4096))
-FAMILY_DECODE = (("olmoe g=1 H=16", 16, 16, FAMILY_CACHE), ("olmoe g=1 H=16", 16, 16, WRAP_CACHE),
-                 ("qwen2-vl g=8 H=64", 64, 8, FAMILY_CACHE),
-                 ("qwen2-vl g=8 H=64", 64, 8, WRAP_CACHE))
+# (c): the new shapes of rows 9–11 in lm_shape_part's form (bfloat16, D = 128)
+FAMILY_FLASH = (
+    ("olmoe H=16 Hkv=16 S=4096", 1, 16, 16, 4096, 4096, 128, True, 0, torch.bfloat16),
+    ("qwen2-vl H=64 Hkv=8 S=4096", 1, 64, 8, 4096, 4096, 128, True, 0, torch.bfloat16),
+    ("mixtral H=32 Hkv=8 S=8192 window=4096", 1, 32, 8, 8192, 8192, 128, True, 4096,
+     torch.bfloat16))
+FAMILY_DECODE = tuple((label, FAMILY_BATCH, H, Hkv, S, 128, False)
+                      for label, H, Hkv in (("olmoe g=1 H=16", 16, 16), ("qwen2-vl g=8 H=64", 64, 8))
+                      for S in (FAMILY_CACHE, WRAP_CACHE))
 FAMILY_NORM = (("mamba d_inner prefill", 4096, 4096), ("mamba d_inner decode", 8, 4096),
                ("d_model 2048 prefill", 4096, 2048), ("d_model 2048 decode", 8, 2048))
 
@@ -2947,48 +2973,72 @@ def flash_pairs(S: int, window: int) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def family_kernel_part(dev, gen) -> dict[str, dict]:
-    """(c) Rows 9–11 at the shapes this slice gives them, against their plain
-    versions under the bounds of phase 10 (``attn_share``, ``rmsnorm_ok``),
-    then timed beside their bounds."""
+def sdpa(q, k, v, *, causal: bool, window: int):
+    """One ``scaled_dot_product_attention`` call over the kernel's (B, H, S,
+    D) operands; a window as a boolean mask."""
+    mask = None
+    if window:
+        qpos = torch.arange(q.shape[2], device=q.device)[:, None]
+        kpos = torch.arange(k.shape[2], device=q.device)[None]
+        mask = (qpos - kpos < window) & (qpos >= kpos if causal else True)
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None, enable_gqa=True)
+
+
+def lm_shape_part(dev, gen, flash, decode, norm) -> dict[str, dict]:
+    """Rows 9–11 at a serve path's shapes, against their plain versions under
+    phase 10's bounds (``attn_share``, ``rmsnorm_ok``), timed beside their
+    bounds and one SDPA (``F.rms_norm``) call.  ``flash``: (label, B, H, Hkv,
+    Sq, Sk, D, causal, window, dtype); ``decode`` (bfloat16): (label, B, H,
+    Hkv, S, D, every slot valid, else lengths spread over 1..S); ``norm``
+    (bfloat16): (label, R, D).  Returns {ms, bound_ms, library_ms} by row and
+    shape."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 
-    def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     times = {"flash_attention": {}, "decode_attention": {}, "rmsnorm": {}}
-    D = 128
-    for label, H, Hkv, S, window in FAMILY_FLASH:
-        sets = [(randn(1, S, H, D).transpose(1, 2), randn(1, S, Hkv, D).transpose(1, 2),
-                 randn(1, S, Hkv, D).transpose(1, 2)) for _ in range(2)]
+    for label, B, H, Hkv, Sq, Sk, D, causal, window, dt in flash:
+        def one_set():
+            return (randn(B, Sq, H, D, dtype=dt).transpose(1, 2),
+                    randn(B, Sk, Hkv, D, dtype=dt).transpose(1, 2),
+                    randn(B, Sk, Hkv, D, dtype=dt).transpose(1, 2))
+        sets = copies(one_set, B * (Sq * H + 2 * Sk * Hkv) * D * dt.itemsize)
         q, k, v = sets[0]
-        got = flash_attention(q, k, v, window=window)
-        g = H // Hkv
-        share = err = 0.0
-        for j in range(Hkv):          # one kv head's query group at a time
-            want = flash_attention_plain(q[:, j * g:(j + 1) * g], k[:, j:j + 1], v[:, j:j + 1],
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        g, share, err = H // Hkv, 0.0, 0.0
+        for h0 in range(0, H, 4):     # 4 query heads at a time, with their kv heads
+            kv = slice(h0 // g, (h0 + 3) // g + 1)
+            want = flash_attention_plain(q[:, h0:h0 + 4], k[:, kv], v[:, kv], causal=causal,
                                          window=window)
-            part = got[:, j * g:(j + 1) * g]
+            part = got[:, h0:h0 + 4]
             share, err = max(share, attn_share(part, want)), max(err, max_abs(part, want))
             del want
         check(share <= 1, f"flash_attention {label}: max abs err {err}, {share:.3f} of its bound")
-        b, by = bound_ms(2 * (2 * H + 2 * Hkv) * S * D, 4 * H * D * flash_pairs(S, window),
-                         BF16_FLOPS)
-        ms = device_ms(lambda q_, k_, v_: flash_attention(q_, k_, v_, window=window), sets, 5)
-        lib = library_ms(lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
-            q_, k_, v_, is_causal=True, enable_gqa=True), sets, 5) if not window else None
-        times["flash_attention"][label] = ms
-        print(f"kernel check flash_attention {label} causal bf16, every head: {share:.3f} of the "
+        pairs = (flash_pairs(Sq, window) if causal and Sq == Sk else
+                 Sq * min(Sk, window or Sk))
+        b, by = bound_ms(dt.itemsize * (2 * H * Sq + 2 * Hkv * Sk) * B * D,
+                         4 * B * H * D * pairs, BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        ms = device_ms(lambda q_, k_, v_: flash_attention(q_, k_, v_, causal=causal,
+                                                          window=window), sets, 5)
+        lib = library_ms(lambda q_, k_, v_: sdpa(q_, k_, v_, causal=causal, window=window),
+                         sets, 5)
+        times["flash_attention"][label] = {"ms": ms, "bound_ms": b, "library_ms": lib}
+        print(f"kernel check flash_attention {label} (B={B} H={H} Hkv={Hkv} Sq={Sq} Sk={Sk} D={D} "
+              f"causal={causal} window={window} {str(dt)[6:]}), every head: {share:.3f} of the "
               f"bound, max abs err {err:.3g}; {ms * 1e3:.2f} us (bound {b * 1e3:.2f} us, {by}), "
-              f"library {'n/a' if lib is None else '%.2f us' % (lib * 1e3)}", flush=True)
+              f"SDPA {'n/a' if lib is None else '%.2f us' % (lib * 1e3)}", flush=True)
         del sets, q, k, v, got
         torch.cuda.empty_cache()
 
-    for label, H, Hkv, S in FAMILY_DECODE:
-        B = FAMILY_BATCH
-        lens = torch.linspace(1, S, B, device=dev).round().to(torch.int32)
+    for label, B, H, Hkv, S, D, full in decode:
+        lens = (torch.full((B,), S, dtype=torch.int32, device=dev) if full else
+                torch.linspace(1, S, B, device=dev).round().to(torch.int32))
         sets = copies(lambda: (randn(B, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D), lens),
                       2 * 2 * B * S * Hkv * D)
         q, kc, vc, _ = sets[0]
@@ -3000,27 +3050,119 @@ def family_kernel_part(dev, gen) -> dict[str, dict]:
         b, by = bound_ms(2 * (2 * valid * Hkv * D + 2 * B * H * D) + 4 * B, 4 * H * D * valid,
                          BF16_FLOPS)
         ms = device_ms(decode_attention, sets, 50)
-        times["decode_attention"][f"{label} S={S}"] = ms
-        print(f"kernel check decode_attention {label} B={B} S={S} valid {lens.tolist()} bf16: "
-              f"{share:.3f} of the bound; {ms * 1e3:.2f} us (bound {b * 1e3:.2f} us, {by})",
-              flush=True)
+        mask = torch.arange(S, device=dev)[None] < lens[:, None]
+
+        def lib_call(q_, k_, v_, _l):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q_[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2),
+                attn_mask=mask[:, None, None], enable_gqa=True)
+        lib = library_ms(lib_call, sets, 50)
+        times["decode_attention"][f"{label} S={S}"] = {"ms": ms, "bound_ms": b, "library_ms": lib}
+        print(f"kernel check decode_attention {label} B={B} H={H} Hkv={Hkv} S={S} D={D} valid "
+              f"{lens.tolist()} bf16: {share:.3f} of the bound, max abs err {err:.3g}; "
+              f"{ms * 1e3:.2f} us (bound {b * 1e3:.2f} us, {by}), SDPA with a mask "
+              f"{'n/a' if lib is None else '%.2f us' % (lib * 1e3)}", flush=True)
         del sets, q, kc, vc, got, want
     torch.cuda.empty_cache()
 
-    for label, R, Dn in FAMILY_NORM:
+    for label, R, Dn in norm:
         sets = copies(lambda: (randn(R, Dn), randn(Dn) * 0.5), R * Dn * 2)
-        x, s = sets[0]
-        got, want = rmsnorm(x, s), rmsnorm_plain(x, s)
+        x, s_ = sets[0]
+        got, want = rmsnorm(x, s_), rmsnorm_plain(x, s_)
         check(rmsnorm_ok(got, want), f"rmsnorm ({R}, {Dn}) bf16: max abs err {max_abs(got, want)}")
         b, by = bound_ms(2 * (2 * R * Dn + Dn), 4 * R * Dn)
         ms = device_ms(rmsnorm, sets, 100)
-        times["rmsnorm"][f"({R}, {Dn})"] = ms
+        lib = library_ms(lambda x_, s1: F.rms_norm(x_, (Dn,), s1, 1e-6),
+                         [(x_, 1.0 + s1) for x_, s1 in sets], 100)
+        times["rmsnorm"][f"({R}, {Dn})"] = {"ms": ms, "bound_ms": b, "library_ms": lib}
         print(f"kernel check rmsnorm ({R}, {Dn}) bf16 ({label}): ok, max abs err "
-              f"{max_abs(got, want):.3g}; {ms * 1e3:.2f} us (bound {b * 1e3:.2f} us, {by})",
-              flush=True)
-        del sets, x, s, got, want
+              f"{max_abs(got, want):.3g}; {ms * 1e3:.2f} us (bound {b * 1e3:.2f} us, {by}), "
+              f"F.rms_norm {'n/a' if lib is None else '%.2f us' % (lib * 1e3)}", flush=True)
+        del sets, x, s_, got, want
     torch.cuda.empty_cache()
     return times
+
+
+def serve_decode(api, params, tag: str, pos, steps: int, cache_len: int, expect: dict,
+                 prepare=None, **cache_kw) -> dict:
+    """``greedy_decode`` of ``steps`` tokens from positions ``pos`` (B,), after 2
+    untimed steps on another cache: ms a step, tokens/s, peak memory, exact
+    launches against ``expect``, then a profiled step's idle share and device
+    time by kind.  ``prepare(cache)`` fills each new cache; ``cache_kw`` goes
+    to ``init_cache``.  Returns the launches of the timed steps."""
+    from repro_torch import kernels as tk
+    from repro_torch.launch.serve import greedy_decode
+
+    cfg, dev, B = api.cfg, params.device, pos.shape[0]
+    tokens = torch.zeros((B,), dtype=torch.int32, device=dev)
+    caches = []
+    for _ in range(2):
+        cache = api.init_cache(B, cache_len, device=dev, **cache_kw)
+        if prepare is not None:
+            prepare(cache)
+        caches.append(cache)
+    t0 = time.perf_counter()          # first calls at these shapes, untimed below
+    greedy_decode(api, params, caches.pop(), tokens, pos, 2)
+    torch.cuda.synchronize()
+    print(f"{tag}: 2 warm-up steps {time.perf_counter() - t0:.3f} s", flush=True)
+    cache = caches.pop()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, logits, finite = greedy_decode(api, params, cache, tokens, pos, steps)
+    ok = bool(finite)
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag}: {B} seqs x {steps} tokens, cache {cache_len}, positions from "
+          f"{pos.tolist()[:2]}…: {wall:.3f} s, {wall / steps * 1e3:.2f} ms/step, "
+          f"{B * steps / wall:.1f} tokens/s, peak device memory {peak:.2f} GB; logits finite "
+          f"{ok}; sequence 0 tokens {out[0, :8].tolist()}…", flush=True)
+    print(f"{tag}: launches {counts}, expected {expect}", flush=True)
+    check(ok and logits.shape == (B, cfg.padded_vocab), f"{tag}: logits")
+    check(counts == expect, f"{tag}: launch counts")
+    nxt = {"pos": pos + steps}
+    if cfg.family == "vlm":
+        nxt["inputs_embeds"] = torch.ones((B, 1, cfg.d_model), dtype=cfg.dtype, device=dev)
+    else:
+        nxt["tokens"] = out[:, -1]
+    wall1, busy, split = profiled_split(lambda: api.decode_step(params, cache, nxt))
+    idle = "not measured" if busy <= 0 else f"{1 - busy / wall1:.3f}"
+    print(f"{tag}: profiled step {wall1 * 1e3:.2f} ms wall, device busy {busy * 1e3:.2f} ms, "
+          f"idle share {idle}; device ms by kind {split}", flush=True)
+    return counts
+
+
+def serve_prefill(api, params, tag: str, batch: dict, expect: dict, shape: tuple,
+                  what: str) -> dict:
+    """One prefill ``forward``: wall, peak memory, finite logits of ``shape``,
+    exact launches against ``expect``, then a profiled call's idle share and
+    device time by kind.  Returns the launches of the timed call."""
+    from repro_torch import kernels as tk
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = api.forward(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    finite = bool(torch.isfinite(logits).all())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag}: forward of {what}: {wall:.3f} s, peak device memory {peak:.2f} GB; "
+          f"logits finite {finite}, shape {tuple(logits.shape)}", flush=True)
+    print(f"{tag}: launches {counts}, expected {expect}", flush=True)
+    check(finite and tuple(logits.shape) == shape, f"{tag}: logits")
+    check(counts == expect, f"{tag}: launch counts")
+    del logits
+    torch.cuda.empty_cache()
+    wall1, busy, split = profiled_split(lambda: api.forward(params, batch))
+    idle = "not measured" if busy <= 0 else f"{1 - busy / wall1:.3f}"
+    print(f"{tag}: profiled prefill {wall1:.3f} s wall, device busy {busy:.3f} s, "
+          f"idle share {idle}; device ms by kind {split}", flush=True)
+    return counts
 
 
 def vlm_batch(cfg, S: int, dev, gen) -> dict:
@@ -3043,7 +3185,6 @@ def family_serve_part(dev, gen, arch: str) -> dict[str, int]:
     for olmoe.  Returns the launches of its runs."""
     from repro_torch import kernels as tk
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import greedy_decode
     from repro_torch.models import build_model
 
     cfg = get_config(arch).replace(num_layers=FAMILY_DEPTH[arch], param_dtype=torch.bfloat16)
@@ -3058,58 +3199,18 @@ def family_serve_part(dev, gen, arch: str) -> dict[str, int]:
     total = {}
     B = FAMILY_BATCH
 
-    def add(counts):
-        for k_, v_ in counts.items():
-            total[k_] = total.get(k_, 0) + v_
-
-    def decode_part(part, cache_len, pos0):
-        t0 = time.perf_counter()      # first calls at these shapes, untimed below
-        warm = api.init_cache(B, cache_len, device=dev)
-        greedy_decode(api, params, warm, torch.zeros_like(pos0), pos0, 2)
-        torch.cuda.synchronize()
-        print(f"lm family {arch} (a){part}: 2 warm-up steps {time.perf_counter() - t0:.3f} s",
-              flush=True)
-        del warm
-        cache = api.init_cache(B, cache_len, device=dev)
-        if cache_len > FAMILY_CACHE:     # stand-in for a prompt's keys and values
-            g = torch.Generator(device=dev).manual_seed(1)
-            for buf in (cache["k"], cache["v"]):
-                buf.normal_(generator=g)
-        tokens = torch.zeros((B,), dtype=torch.int32, device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        tk.reset_launch_counts()
-        t0 = time.perf_counter()
-        out, logits, finite = greedy_decode(api, params, cache, tokens, pos0, FAMILY_STEPS)
-        ok = bool(finite)
-        wall = time.perf_counter() - t0
-        counts = tk.launch_counts()
-        expect = family_counts(cfg, FAMILY_STEPS, decode=True)
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        print(f"lm family {arch} (a){part}: {B} seqs x {FAMILY_STEPS} tokens, cache {cache_len}, "
-              f"positions from {pos0.tolist()[:2]}…: {wall:.3f} s, "
-              f"{wall / FAMILY_STEPS * 1e3:.2f} ms/step, {B * FAMILY_STEPS / wall:.1f} tokens/s, "
-              f"peak device memory {peak:.2f} GB; logits finite {ok}; sequence 0 tokens "
-              f"{out[0, :8].tolist()}…", flush=True)
-        print(f"lm family {arch} (a){part}: launches {counts}, expected {expect}", flush=True)
-        check(ok and logits.shape == (B, cfg.padded_vocab), f"lm family {arch} (a){part}: logits")
-        check(counts == expect, f"lm family {arch} (a){part}: launch counts")
-        add(counts)
-        nxt = {"pos": pos0 + FAMILY_STEPS}
-        if cfg.family == "vlm":
-            nxt["inputs_embeds"] = torch.ones((B, 1, cfg.d_model), dtype=cfg.dtype, device=dev)
-        else:
-            nxt["tokens"] = out[:, -1]
-        wall1, busy, split = profiled_split(lambda: api.decode_step(params, cache, nxt))
-        idle = "not measured" if busy <= 0 else f"{1 - busy / wall1:.3f}"
-        print(f"lm family {arch} (a){part}: profiled step {wall1 * 1e3:.2f} ms wall, device busy "
-              f"{busy * 1e3:.2f} ms, idle share {idle}; device ms by kind {split}", flush=True)
-        del cache, out, logits
+    def prompt(cache):               # stand-in for a prompt's keys and values
+        g = torch.Generator(device=dev).manual_seed(1)
+        for buf in (cache["k"], cache["v"]):
+            buf.normal_(generator=g)
 
     zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
-    decode_part("", FAMILY_CACHE, zeros)
+    expect = family_counts(cfg, FAMILY_STEPS, decode=True)
+    add_counts(total, serve_decode(api, params, f"lm family {arch} (a)", zeros, FAMILY_STEPS,
+                                   FAMILY_CACHE, expect))
     if arch == "mixtral-8x7b":
-        decode_part(" ring", WRAP_CACHE, zeros + WRAP_POS0)
+        add_counts(total, serve_decode(api, params, f"lm family {arch} (a) ring", zeros + WRAP_POS0,
+                                       FAMILY_STEPS, WRAP_CACHE, expect, prompt))
     torch.cuda.empty_cache()
 
     S = FAMILY_PREFILL[arch]
@@ -3119,44 +3220,23 @@ def family_serve_part(dev, gen, arch: str) -> dict[str, int]:
     else:
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, S), generator=g, device=dev,
                                          dtype=torch.int32)}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    tk.reset_launch_counts()
-    t0 = time.perf_counter()
-    logits = api.forward(params, batch)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = tk.launch_counts()
     expect = family_counts(cfg, 1, decode=False)
-    finite = bool(torch.isfinite(logits).all())
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"lm family {arch} (b): forward of 1 x {S} {'embeddings' if cfg.family == 'vlm' else 'tokens'}"
-          f": {wall:.3f} s, {S / wall:.1f} tokens/s, peak device memory {peak:.2f} GB; logits "
-          f"finite {finite}, shape {tuple(logits.shape)}", flush=True)
-    print(f"lm family {arch} (b): launches {counts}, expected {expect}", flush=True)
-    check(finite and logits.shape == (1, S, cfg.padded_vocab), f"lm family {arch} (b): logits")
-    check(counts == expect, f"lm family {arch} (b): launch counts")
-    add(counts)
+    what = f"1 x {S} {'embeddings' if cfg.family == 'vlm' else 'tokens'}"
+    add_counts(total, serve_prefill(api, params, f"lm family {arch} (b)", batch, expect,
+                                    (1, S, cfg.padded_vocab), what))
     if arch == "olmoe-1b-7b":       # (e): the deterministic combine
         tk.reset_launch_counts()
-        again = api.forward(params, batch)
-        same = torch.equal(again, logits)
-        print(f"lm family {arch} (e): a second prefill bit-equal to the first: {same}",
-              flush=True)
+        first = api.forward(params, batch)
+        same = torch.equal(api.forward(params, batch), first)
+        print(f"lm family {arch} (e): two more prefills bit-equal: {same}", flush=True)
         check(same, f"lm family {arch} (e): two prefills differ")
-        check(tk.launch_counts() == expect, f"lm family {arch} (e): launch counts")
-        add(tk.launch_counts())
-        del again
-    del logits
-    torch.cuda.empty_cache()
-    wall1, busy, split = profiled_split(lambda: api.forward(params, batch))
-    idle = "not measured" if busy <= 0 else f"{1 - busy / wall1:.3f}"
-    print(f"lm family {arch} (b): profiled prefill {wall1:.3f} s wall, device busy {busy:.3f} s, "
-          f"idle share {idle}; device ms by kind {split}", flush=True)
+        check(tk.launch_counts() == family_counts(cfg, 2, decode=False),
+              f"lm family {arch} (e): launch counts")
+        add_counts(total, tk.launch_counts())
+        del first
     del params, batch
     torch.cuda.empty_cache()
     return total
-
 
 class RouteLog:
     """Records the experts each mixture-of-experts call chose and kept (the
@@ -3271,15 +3351,13 @@ def family_phase(dev, gen) -> tuple[dict[str, int], dict]:
     Returns the launches of the serve runs and the kernels' new-shape times."""
     walls = {}
     t0 = time.perf_counter()
-    times = family_kernel_part(dev, gen)
+    times = lm_shape_part(dev, gen, FAMILY_FLASH, FAMILY_DECODE, FAMILY_NORM)
     walls["(c)"] = time.perf_counter() - t0
     total = {}
     for arch in FAMILY_DEPTH:
         t0 = time.perf_counter()
-        counts = family_serve_part(dev, gen, arch)
+        add_counts(total, family_serve_part(dev, gen, arch))
         walls[arch] = time.perf_counter() - t0
-        for k_, v_ in counts.items():
-            total[k_] = total.get(k_, 0) + v_
     t0 = time.perf_counter()
     family_card_vs_cpu_part(dev)
     walls["(d)"] = time.perf_counter() - t0
@@ -3288,6 +3366,258 @@ def family_phase(dev, gen) -> tuple[dict[str, int], dict]:
     for name in ("sdp_subspace", "rank_k_update", "bottleneck_eval", "gossip_mix_all",
                  "gossip_mix_block", "gossip_mix", "topk_mask", "int8_roundtrip"):
         check(total[name] == 0, f"lm family: {name} launched {total[name]} times")
+    return total, times
+
+
+# phase 21: serving the RG-LRU hybrid and Whisper
+HYBRID, WHISPER = "recurrentgemma-9b", "whisper-small"
+P21_BATCH, P21_CACHE, P21_STEPS = 8, 256, 32      # (a): the launcher's default request
+P21_LONG_POS0 = 524_200        # (a): batch 1 from long_500k's length (shapes.py)
+# Whisper's published 30 s window: n_audio_ctx = 1500 frames, n_text_ctx = 448
+# tokens (openai/whisper ModelDimensions of whisper-small)
+AUDIO_FRAMES, TEXT_CTX = 1500, 448
+HYBRID_PREFILL = 8192          # (b): prefill_32k cut to 8,192 tokens (its logits alone 16.8 GB)
+# (c): flash (label, B, H, Hkv, Sq, Sk, D, causal, window, dtype); decode (label,
+# B, H, Hkv, S, D, every slot valid); RMSNorm (label, R, D)
+P21_FLASH = (
+    ("recurrentgemma local", 1, 16, 1, HYBRID_PREFILL, HYBRID_PREFILL, 256, True, 2048,
+     torch.bfloat16),
+    ("head dim 256 float32", 1, 4, 1, 1024, 1024, 256, True, 0, torch.float32),
+    ("whisper encoder", 8, 12, 12, AUDIO_FRAMES, AUDIO_FRAMES, 64, False, 0, torch.bfloat16),
+    ("whisper cross", 8, 12, 12, TEXT_CTX, AUDIO_FRAMES, 64, False, 0, torch.bfloat16))
+P21_DECODE = (("recurrentgemma local ring g=16", 8, 16, 1, 2048, 256, False),
+              ("whisper cross g=1", 8, 12, 12, AUDIO_FRAMES, 64, True),
+              ("whisper self g=1", 8, 12, 12, TEXT_CTX, 64, False))
+P21_NORM = (("recurrentgemma prefill", HYBRID_PREFILL, 4096), ("whisper encoder", 12000, 768))
+# (d): the smoke configs, and recurrentgemma's at head dim 256
+P21_SMOKE = ((HYBRID, {}), (HYBRID, {"d_model": 512, "num_heads": 2, "lru_width": 512}),
+             (WHISPER, {}))
+P21_DECODE_STEPS, P21_SMOKE_CACHE = 48, 64
+
+
+def launch_table(steps: int = 0, rmsnorm: int = 0, flash: int = 0, decode: int = 0) -> dict:
+    """A launch table: ``steps`` times the per-step counts of rows 9–11."""
+    from repro_torch import kernels as tk
+
+    out = dict.fromkeys(tk.launch_counts(), 0)
+    out.update(rmsnorm=steps * rmsnorm, flash_attention=steps * flash,
+               decode_attention=steps * decode)
+    return out
+
+
+def hybrid_expect(cfg, steps: int, decode: bool) -> dict:
+    """recurrentgemma: ln1 and ln2 in every block and the final norm; one
+    attention a local-attention block."""
+    from repro_torch.models.transformer import layer_kinds
+
+    n_local = layer_kinds(cfg).count("local_attn")
+    return launch_table(steps, 2 * cfg.num_layers + 1, 0 if decode else n_local,
+                      n_local if decode else 0)
+
+
+def whisper_expect(cfg, steps: int, part: str) -> dict:
+    """Whisper: the encoder's ln1, ln2 and final norm and one attention a
+    layer; the decoder's ln1, ln_x, ln2 and final norm and two attentions a
+    layer (self and cross)."""
+    enc, dec = cfg.num_encoder_layers, cfg.num_layers
+    if part == "encode":
+        return launch_table(steps, 2 * enc + 1, enc)
+    if part == "decode":
+        return launch_table(steps, 3 * dec + 1, 0, 2 * dec)
+    return launch_table(steps, 2 * enc + 1 + 3 * dec + 1, enc + 2 * dec)
+
+
+def p21_load(arch: str, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch).replace(param_dtype=torch.bfloat16)     # as launch/serve.py loads it
+    api = build_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init_params(0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"lm p21 {arch}: all {cfg.num_layers}"
+          f"{' + %d' % cfg.num_encoder_layers if cfg.num_encoder_layers else ''} layers, "
+          f"{n_params} parameters in bfloat16 drawn in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    return cfg, api, params
+
+
+def p21_hybrid_part(dev) -> dict:
+    """(a) and (b) for recurrentgemma-9b at full width and depth."""
+    cfg, api, params = p21_load(HYBRID, dev)
+    total = {}
+    expect = hybrid_expect(cfg, P21_STEPS, decode=True)
+    zeros = torch.zeros((P21_BATCH,), dtype=torch.int32, device=dev)
+    add_counts(total, serve_decode(api, params, f"lm p21 {HYBRID} (a)", zeros, P21_STEPS,
+                                   P21_CACHE, expect))
+
+    def prompt(cache):           # stand-in for a long prompt's local keys and values
+        g = torch.Generator(device=dev).manual_seed(1)
+        for key in ("local_k", "local_v"):
+            cache[key].normal_(generator=g)
+
+    long_pos = torch.full((1,), P21_LONG_POS0, dtype=torch.int32, device=dev)
+    add_counts(total, serve_decode(api, params, f"lm p21 {HYBRID} long (a)", long_pos,
+                                   P21_STEPS, P21_LONG_POS0 + P21_STEPS, expect, prompt))
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, HYBRID_PREFILL), generator=g,
+                                     device=dev, dtype=torch.int32)}
+    add_counts(total, serve_prefill(api, params, f"lm p21 {HYBRID} (b)", batch,
+                                    hybrid_expect(cfg, 1, decode=False),
+                                    (1, HYBRID_PREFILL, cfg.padded_vocab),
+                                    f"1 x {HYBRID_PREFILL} tokens"))
+    del params, batch
+    torch.cuda.empty_cache()
+    return total
+
+
+def p21_whisper_part(dev) -> dict:
+    """(a) and (b) for whisper-small at full width and depth."""
+    from repro_torch import kernels as tk
+    from repro_torch.models.whisper import fill_cross_cache, whisper_encode
+
+    cfg, api, params = p21_load(WHISPER, dev)
+    total = {}
+    g = torch.Generator(device=dev).manual_seed(3)
+    frames = torch.randn(P21_BATCH, AUDIO_FRAMES, cfg.d_model, generator=g,
+                         device=dev).to(cfg.dtype)
+    with torch.no_grad():
+        whisper_encode(params, frames, cfg)        # first call at this shape, untimed
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        enc = whisper_encode(params, frames, cfg)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = tk.launch_counts()
+    expect = whisper_expect(cfg, 1, "encode")
+    print(f"lm p21 {WHISPER} (a): encode {P21_BATCH} x {AUDIO_FRAMES} frames {wall * 1e3:.2f} ms, "
+          f"finite {bool(torch.isfinite(enc).all())}; launches {counts}, expected {expect}",
+          flush=True)
+    check(bool(torch.isfinite(enc).all()) and counts == expect,
+          f"lm p21 {WHISPER}: the encoding, or the encode launch counts")
+    add_counts(total, counts)
+    zeros = torch.zeros((P21_BATCH,), dtype=torch.int32, device=dev)
+    add_counts(total, serve_decode(api, params, f"lm p21 {WHISPER} (a)", zeros, P21_STEPS,
+                                   TEXT_CTX, whisper_expect(cfg, P21_STEPS, "decode"),
+                                   lambda cache: fill_cross_cache(params, cache, enc, cfg),
+                                   enc_len=AUDIO_FRAMES))
+    batch = {"enc_frames": frames,
+             "dec_tokens": torch.randint(0, cfg.vocab_size, (P21_BATCH, TEXT_CTX), generator=g,
+                                         device=dev, dtype=torch.int32)}
+    add_counts(total, serve_prefill(api, params, f"lm p21 {WHISPER} (b)", batch,
+                                    whisper_expect(cfg, 1, "forward"),
+                                    (P21_BATCH, TEXT_CTX, cfg.padded_vocab),
+                                    f"{P21_BATCH} x {AUDIO_FRAMES} frames and {P21_BATCH} x "
+                                    f"{TEXT_CTX} tokens"))
+    del params, batch, enc, frames
+    torch.cuda.empty_cache()
+    return total
+
+
+def p21_card_vs_cpu_part(dev) -> None:
+    """(d) Each of ``P21_SMOKE`` in float32 from the same parameters on the
+    card and the CPU: forward logits, ``P21_DECODE_STEPS`` decode steps
+    through a ``P21_SMOKE_CACHE``-slot cache (Whisper's cross cache filled
+    from the batch's encoding on each side), every cache leaf, ``loss_fn``
+    and every gradient; the card's forward through the kernels."""
+    import copy
+
+    from repro_torch import kernels as tk
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.whisper import fill_cross_cache, whisper_encode
+
+    for arch, kw in P21_SMOKE:
+        cfg = get_smoke_config(arch).replace(dtype=torch.float32, **kw)
+        api = build_model(cfg)
+        on_cpu = api.init_params(0, device="cpu")
+        g = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            for p in on_cpu.parameters():
+                if p.dim() == 1:                        # non-zero norm scales and biases, Λ
+                    p.add_(torch.randn(p.shape, generator=g) * 0.5)
+        on_card = copy.deepcopy(on_cpu).to(dev)
+        S = 256
+        if cfg.family == "encdec":
+            batch = {"enc_frames": torch.randn(2, S, cfg.d_model, generator=g),
+                     "dec_tokens": torch.randint(0, cfg.vocab_size, (2, 64), generator=g)}
+            batch["labels"] = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+            expect = whisper_expect(cfg, 1, "forward")
+        else:
+            batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, S), generator=g)}
+            batch["labels"] = torch.randint(0, cfg.vocab_size, (2, S), generator=g)
+            expect = hybrid_expect(cfg, 1, decode=False)
+        tk.reset_launch_counts()
+        got = api.forward(on_card, batch)
+        counts = tk.launch_counts()
+        want = api.forward(on_cpu, batch)
+        check(counts == expect, f"lm p21 (d) {arch} {kw}: forward launches {counts}")
+        worst = {"forward": max_abs(got.cpu(), want) / float(want.abs().max())}
+        enc_len = (S,) if cfg.family == "encdec" else ()
+        caches = [api.init_cache(2, P21_SMOKE_CACHE, *enc_len, device=d) for d in (dev, "cpu")]
+        if cfg.family == "encdec":
+            with torch.no_grad():
+                for cache, params in zip(caches, (on_card, on_cpu)):
+                    frames = batch["enc_frames"].to(params.device)
+                    fill_cross_cache(params, cache, whisper_encode(params, frames, cfg), cfg)
+        r = torch.Generator().manual_seed(6)
+        worst["decode"] = 0.0
+        for t in range(P21_DECODE_STEPS):
+            step = {"pos": torch.tensor([t, t + 5], dtype=torch.int32),
+                    "tokens": torch.randint(0, cfg.vocab_size, (2,), generator=r)}
+            got, _ = api.decode_step(on_card, caches[0], step)
+            want, _ = api.decode_step(on_cpu, caches[1], step)
+            worst["decode"] = max(worst["decode"], max_abs(got.cpu(), want) /
+                                  float(want.abs().max()))
+        worst["cache"] = max(max_abs(caches[0][k].cpu(), v) / float(v.abs().max())
+                             for k, v in caches[1].items())
+        losses, grads = {}, {}
+        for where, params in (("card", on_card), ("cpu", on_cpu)):
+            tensors = {n: p.detach().clone().requires_grad_() for n, p in params.named_parameters()}
+            loss = api.loss_fn(tf.bind(params, tensors), batch)
+            loss.backward()
+            losses[where] = float(loss.detach())
+            grads[where] = {n: t.grad.cpu() for n, t in tensors.items()}
+        worst["loss"] = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        worst["grads"] = max(rel_err(grads["card"][n], w) for n, w in grads["cpu"].items()
+                             if float(w.abs().max()) > 0)
+        print(f"lm p21 card vs cpu (d): {arch} smoke {kw or ''} f32 (head dim "
+              f"{cfg.resolved_head_dim}): forward launches {counts['flash_attention']} flash, "
+              f"{counts['rmsnorm']} rmsnorm; {sorted(caches[1])} after {P21_DECODE_STEPS} steps; "
+              f"loss card {losses['card']:.6f} cpu {losses['cpu']:.6f}; largest differences "
+              f"{ {k: f'{v:.3e}' for k, v in worst.items()} } (bounds {FAMILY_REL}, gradients "
+              f"{FAMILY_GRAD_REL} relative Frobenius)", flush=True)
+        check(max(v for k, v in worst.items() if k != "grads") <= FAMILY_REL
+              and worst["grads"] <= FAMILY_GRAD_REL, f"lm p21 {arch} {kw} (d): card against cpu")
+
+
+def hybrid_whisper_phase(dev, gen) -> tuple[dict[str, int], dict]:
+    """Phase 21: (c) rows 9–11 at the new shapes, (a) and (b)
+    recurrentgemma-9b and whisper-small at full width and depth, (d) card
+    against CPU at smoke size.  Returns the launches of the serve runs and
+    the kernels' new-shape times."""
+    walls = {}
+    t0 = time.perf_counter()
+    times = lm_shape_part(dev, gen, P21_FLASH, P21_DECODE, P21_NORM)
+    walls["(c)"] = time.perf_counter() - t0
+    total = {}
+    for arch, part in ((HYBRID, p21_hybrid_part), (WHISPER, p21_whisper_part)):
+        t0 = time.perf_counter()
+        add_counts(total, part(dev))
+        walls[arch] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p21_card_vs_cpu_part(dev)
+    walls["(d)"] = time.perf_counter() - t0
+    print(f"lm p21: launches over (a), (b) {total}; wall "
+          f"{ {k: round(v, 2) for k, v in walls.items()} }", flush=True)
+    for name, n in total.items():
+        if name not in ("rmsnorm", "flash_attention", "decode_attention"):
+            check(n == 0, f"lm p21: {name} launched {n} times")
     return total, times
 
 
@@ -3339,6 +3669,8 @@ def main() -> int:
     orch_counts = phase("18 orchestration", orchestration_phase, dev)
     train_counts, lse_times = phase("19 LM train", train_phase, dev, gen)
     fam_counts, fam_times = phase("20 LM families", family_phase, dev, gen)
+    p21_counts, p21_times = phase("21 RG-LRU hybrid and Whisper", hybrid_whisper_phase, dev,
+                                  gen)
 
     for r in rows:
         r["launches"] = counts[r["name"]]
@@ -3356,6 +3688,8 @@ def main() -> int:
             r.update(lse_times)                   # phase 19 (b), B = 2, S = 4096
         r["family_launches"] = fam_counts[r["name"]]     # phase 20 (a), (b), (e)
         r["family_ms"] = fam_times[r["name"]]            # phase 20 (c), by shape
+        r["rglru_whisper_launches"] = p21_counts[r["name"]]     # phase 21 (a), (b)
+        r["rglru_whisper_ms"] = p21_times[r["name"]]            # phase 21 (c), by shape
     rows += lm_rows
     for r in shard_rows:
         r["launches"] = (shard_counts if r["name"] == "gossip_mix_block" else ref_counts)[r["name"]]
@@ -3375,7 +3709,10 @@ def main() -> int:
             # with and without its logsumexp output at the training shape (19 (b))
             "train_launches", "train_ms", "train_nolse_ms",
             # rows 9–11 on the MoE / Mamba-2 / VLM serve path and at its shapes (phase 20)
-            "family_launches", "family_ms")
+            "family_launches", "family_ms",
+            # rows 9–11 on the RG-LRU hybrid / Whisper serve path and at their shapes
+            # (phase 21)
+            "rglru_whisper_launches", "rglru_whisper_ms")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -51,7 +51,8 @@ LOOP_HEAD = "    mbar_wait(bar_q, 0);\n    for (int it = 0; it < nt; ++it) {"
 EPILOGUE = "    // out = o / max(l, 1e-30) in bfloat16"
 SOFTMAX = ("      const float c0 = row_softmax<BN, 0>(x, m0, l0), c1 = row_softmax<BN, 1>(x, m1, l1);",
            "      const float c0 = 1.0f, c1 = 1.0f;\n      l0 += x[0];\n      l1 += x[2];")
-NO_PV = ("        wgmma_rs<DP>(o, ph + 4 * kk, dv);\n        wgmma_rs<DP>(o, pl + 4 * kk, dv);\n", "")
+NO_PV = ("          wgmma_rs<ON>(o[c], ph + 4 * kk, dv);\n          wgmma_rs<ON>(o[c], pl + 4 * kk, dv);\n",
+         "")
 WAIT_ALL = "__device__ __forceinline__ void wgmma_wait_all() {"
 WAIT_N = (WAIT_ALL, "template <int N>\n__device__ __forceinline__ void wgmma_wait() {\n"
           '  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");\n}\n' + WAIT_ALL)
@@ -76,16 +77,20 @@ PIPELINED_LOOP = r"""    // The loop overlaps tile it's softmax with tile it −
       wgmma_commit();
     };
     auto issue_pv = [&](uint32_t vb) {       // o += p_hi v + p_lo v; a k16 step is 16 rows of v
-      pin(o);
+#pragma unroll
+      for (int c = 0; c < NO; ++c) pin(o[c]);
       pin(ph);
       pin(pl);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        const uint64_t dv = sw128_desc(vb + kk * 2048, L::kKVSlice, 1024);
-        wgmma_rs<DP>(o, ph + 4 * kk, dv);
-        wgmma_rs<DP>(o, pl + 4 * kk, dv);
-      }
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < NO; ++c) {
+          const uint64_t dv = sw128_desc(vb + c * (ON / 64) * L::kKVSlice + kk * 2048,
+                                         L::kKVSlice, 1024);
+          wgmma_rs<ON>(o[c], ph + 4 * kk, dv);
+          wgmma_rs<ON>(o[c], pl + 4 * kk, dv);
+        }
       wgmma_commit();
     };
 
@@ -96,14 +101,14 @@ PIPELINED_LOOP = r"""    // The loop overlaps tile it's softmax with tile it −
       const int k0 = (kt0 + it) * BN;
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) x[e] *= scale_log2;
-      const bool edge = k0 + BN > S || (causal && k0 + BN - 1 > qw0) ||
+      const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > qw0) ||
                         (window > 0 && qw0 + 63 - k0 >= window);
       if (edge) {
 #pragma unroll
         for (int e = 0; e < BN / 2; ++e) {
           const int qpos = q0 + rb + 8 * ((e / 2) % 2);
           const int kpos = k0 + 8 * (e / 4) + cq + e % 2;
-          const bool keep = kpos < S && (!causal || qpos >= kpos) &&
+          const bool keep = kpos < Sk && (!causal || qpos >= kpos) &&
                             (window <= 0 || qpos - kpos < window);
           if (!keep) x[e] = kNegInf;
         }
@@ -115,12 +120,15 @@ PIPELINED_LOOP = r"""    // The loop overlaps tile it's softmax with tile it −
     // x[8kk … 8kk+7] in pairs)
     auto rescale_split = [&](float c0, float c1) {
 #pragma unroll
-      for (int e = 0; e < DP / 2; ++e) o[e] *= (e / 2) % 2 ? c1 : c0;
+      for (int c = 0; c < NO; ++c)
+#pragma unroll
+        for (int e = 0; e < ON / 2; ++e) o[c][e] *= (e / 2) % 2 ? c1 : c0;
 #pragma unroll
       for (int e = 0; e < BN / 4; ++e) split_bf16(x[2 * e], x[2 * e + 1], ph[e], pl[e]);
     };
     auto release = [&](int stage) {          // the stage's k and v are no longer read
-      pin(o);
+#pragma unroll
+      for (int c = 0; c < NO; ++c) pin(o[c]);
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_e + 8 * stage);
     };
@@ -156,10 +164,11 @@ PIPELINED_LOOP = r"""    // The loop overlaps tile it's softmax with tile it −
 
 VARIANTS = {
     "base": [],
-    "nolo": [("        wgmma_rs<DP>(o, pl + 4 * kk, dv);\n", "")],
+    "nolo": [("          wgmma_rs<ON>(o[c], pl + 4 * kk, dv);\n", "")],
     "nosoftmax": [SOFTMAX],
     "qkonly": [SOFTMAX, NO_PV],
-    "bn128": [("static constexpr int BN = D == 128 ? 64 : 128;", "static constexpr int BN = 128;")],
+    "bn128": [("static constexpr int BN = D >= 128 ? 64 : 128;",
+               "static constexpr int BN = D == 256 ? 64 : 128;")],
     "stages3": [STAGES3],
     "pipelined": [WAIT_N, STAGES3, "loop"],
 }
@@ -220,7 +229,7 @@ def call(lib, q, k, v, causal: bool = True, window: int = 0) -> torch.Tensor:
     strides = (ctypes.c_longlong * 12)(*(x for t in (q, k, v, out) for x in t.stride()[:3]))
     err = lib.flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
                               strides,
-                              B, H, k.shape[1], S, D, int(causal), int(window),
+                              B, H, k.shape[1], S, S, D, int(causal), int(window),
                               1.0 / math.sqrt(D), 1, torch.cuda.current_stream().cuda_stream)
     build.check(err, "flash_attention variant")
     return out

@@ -468,15 +468,18 @@ def attention_ab(old, gen, dev) -> None:
     from repro_torch.kernels.flash_attention import flash_attention
 
     fn = old.flash_attention
-    with_lse = len(fn.argtypes) == len(build.SIGNATURES["flash_attention"][0])
+    # the other tree's entry point: 15 arguments, 16 with the lse pointer, 17 with
+    # separate query and key lengths
+    with_lse, two_lengths = len(fn.argtypes) >= 16, len(fn.argtypes) >= 17
 
     def parent(q, k, v):
         out = torch.empty_like(q)
         B, H, S, D = q.shape
         strides = (ctypes.c_longlong * 12)(*(x for t in (q, k, v, out) for x in t.stride()[:3]))
         ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()] + [None] * with_lse
-        build.check(fn(*ptrs, strides, B, H, k.shape[1], S, D, 1, 0, 1.0 / math.sqrt(D), 1,
-                       stream()), "parent flash_attention")
+        lengths = (S, S) if two_lengths else (S,)
+        build.check(fn(*ptrs, strides, B, H, k.shape[1], *lengths, D, 1, 0, 1.0 / math.sqrt(D),
+                       1, stream()), "parent flash_attention")
         return out
 
     def change(q, k, v):

@@ -1,11 +1,8 @@
 """Architecture config registry: ``get_config("qwen3-8b")`` etc.
 
-The dense, mixture-of-experts, Mamba-2 and VLM architectures have their
-own module with ``config()`` (exact published numbers) and
-``smoke_config()`` (reduced same-family variant), copied from
-``repro.configs``.  The other ids of ``repro``'s registry (whisper-small,
-recurrentgemma-9b) are listed (``ARCH_IDS``) and raise
-``NotImplementedError``: their model families are not ported yet.
+Every architecture of ``repro``'s registry has its own module with
+``config()`` (exact published numbers) and ``smoke_config()`` (reduced
+same-family variant), copied from ``repro.configs``.
 """
 
 from __future__ import annotations
@@ -30,11 +27,8 @@ _MODULES = {
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "qwen2-vl-72b": "repro_torch.configs.qwen2_vl_72b",
-}
-_LEFT = "not ported yet (ROADMAP.md Queue 1 item 2, 'LM substrate': what is left)"
-_NOT_PORTED = {
-    "whisper-small": f"the Whisper encoder-decoder is {_LEFT}",
-    "recurrentgemma-9b": f"RG-LRU and local-attention blocks are {_LEFT}",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "whisper-small": "repro_torch.configs.whisper_small",
 }
 
 ARCH_IDS = ("whisper-small", "qwen3-8b", "mistral-nemo-12b", "granite-3-2b",
@@ -54,10 +48,7 @@ def _normalize(arch_id: str) -> str:
 
 
 def _module(arch_id: str):
-    a = _normalize(arch_id)
-    if a in _NOT_PORTED:
-        raise NotImplementedError(f"{a}: {_NOT_PORTED[a]}")
-    return importlib.import_module(_MODULES[a])
+    return importlib.import_module(_MODULES[_normalize(arch_id)])
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -32,13 +32,21 @@ the N_T real rows from the table (padding users walk their zero data in
 order), so the table of the stacked engine serves every shard count.
 
 The decoder LMs keep ``repro``'s parameter names and ``(in, out)`` layouts
-(the block's ``attn.*``, ``mlp.*``, ``moe.*`` and ``mixer.*`` leaves
-flattened to the block module's attributes):
+(the block's ``attn.*``, ``mlp.*``, ``moe.*``, ``mixer.*`` and ``rec.*``
+leaves flattened to the block module's attributes):
 
   - ``lm_params_from_numpy(params, cfg, device)``: ``repro``'s LM tree as
-    numpy arrays (``embed``, ``final_norm``, ``lm_head`` and ``groups``,
-    whose one block dict is stacked along a leading layer axis) -> the
-    port's ``LM`` in ``cfg.param_dtype`` on ``device``;
+    numpy arrays (``embed``, ``final_norm``, ``lm_head``, ``groups``: one
+    block dict per position of the block pattern, each stacked along a
+    leading group axis, and ``remainder``: the unstacked block dicts of the
+    layers past the last whole group) -> the port's ``LM`` in
+    ``cfg.param_dtype`` on ``device``; layer l < G·P (P kinds a pattern, G
+    groups) is ``groups[l % P]`` at index ``l // P``, layer G·P + r is
+    ``remainder[r]``;
+  - ``whisper_params_from_numpy(params, cfg, device)``: ``repro``'s Whisper
+    tree (``embed``, ``enc_layers`` and ``dec_layers`` stacked along a
+    leading layer axis, ``enc_norm``, ``dec_norm``, ``lm_head``) -> the
+    port's ``Whisper``;
   - ``train_state_from_numpy(state, cfg, device)``: ``repro``'s train state
     ``{"params", "opt": AdamWState(step, m, v)}`` as numpy arrays (m and v
     are trees shaped like the parameters) -> the port's ``{"params": LM,
@@ -54,6 +62,7 @@ import torch
 
 from repro_torch.core.graphs import ComputeGraph, TaskGraph
 from repro_torch.models.transformer import LM
+from repro_torch.models.whisper import Whisper
 from repro_torch.train.optim import AdamWState
 from repro_torch.train.tree import ParamLayout
 
@@ -103,29 +112,59 @@ def epoch_perms_from_arrays(perms, num_users: int, chunk: int) -> np.ndarray:
     return out
 
 
-# a block leaf's path in ``repro``'s block dict; "ffn" is "moe" or "mlp",
-# whichever the block holds
-_BLOCK_LEAVES = {"ln1": ("ln1",), "ln2": ("ln2",), "wq": ("attn", "wq"), "wk": ("attn", "wk"),
-                 "wv": ("attn", "wv"), "wo": ("attn", "wo"), "q_norm": ("attn", "q_norm"),
-                 "k_norm": ("attn", "k_norm"), "w_gate": ("ffn", "w_gate"),
-                 "w_up": ("ffn", "w_up"), "w_down": ("ffn", "w_down"),
-                 "router": ("moe", "router"),
-                 **{n: ("mixer", n) for n in ("in_proj", "conv_w", "conv_b", "A_log", "D",
-                                              "dt_bias", "norm_scale", "out_proj")}}
+_ATTN = ("wq", "wk", "wv", "wo", "q_norm", "k_norm")
+_FFN = ("w_gate", "w_up", "w_down")
+
+
+def _block_path(block: dict, name: str) -> tuple[str, ...]:
+    """The path of a block leaf in ``repro``'s block dict, keyed by what the
+    block holds: ``conv_w``, ``conv_b`` and ``out_proj`` are in ``rec``
+    (RG-LRU) or ``mixer`` (Mamba-2), the FFN leaves in ``moe`` or ``mlp``."""
+    if name in ("ln1", "ln2", "ln_x"):
+        return (name,)
+    if name.startswith("xattn."):
+        return tuple(name.split("."))
+    if name in _ATTN:
+        return ("attn", name)
+    if name == "router":
+        return ("moe", name)
+    if name in _FFN and ("moe" in block or "mlp" in block):
+        return ("moe" if "moe" in block else "mlp", name)
+    return ("rec" if "rec" in block else "mixer", name)
+
+
+def _get(block: dict, path) -> np.ndarray:
+    for key in path:
+        block = block[key]
+    return np.asarray(block)
+
+
+def _stack_len(tree) -> int:
+    """The leading axis of the first array in a stacked block dict."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree).shape[0]
 
 
 def _lm_leaf(tree: dict, name: str) -> np.ndarray:
-    """The array of ``repro``'s LM tree behind an ``LM`` parameter name."""
-    if not name.startswith("blocks."):
+    """The array of ``repro``'s LM or Whisper tree behind a parameter name of
+    the port's ``LM`` ("blocks.3.wq") or ``Whisper`` ("dec_blocks.1.xattn.wq")."""
+    head, _, rest = name.partition(".")
+    if head in ("enc_blocks", "dec_blocks"):
+        layer, _, leaf = rest.partition(".")
+        stack = tree["enc_layers" if head == "enc_blocks" else "dec_layers"]
+        return _get(stack, _block_path(stack, leaf))[int(layer)]
+    if head != "blocks":
         return np.asarray(tree[name])
-    groups, remainder = tree["groups"], tree.get("remainder", ())
-    if remainder or groups is None or len(groups) != 1:
-        raise ValueError("need one stacked group of one block kind and no remainder layers")
-    _, layer, leaf_name = name.split(".")
-    leaf = groups[0]
-    for key in _BLOCK_LEAVES[leaf_name]:
-        leaf = leaf[("moe" if "moe" in leaf else "mlp") if key == "ffn" else key]
-    return np.asarray(leaf)[int(layer)]
+    layer, _, leaf = rest.partition(".")
+    layer = int(layer)
+    groups, remainder = tree["groups"] or (), tree.get("remainder", ())
+    n_grouped = _stack_len(groups[0]) * len(groups) if groups else 0
+    if layer >= n_grouped:
+        block = remainder[layer - n_grouped]
+        return _get(block, _block_path(block, leaf))
+    block = groups[layer % len(groups)]
+    return _get(block, _block_path(block, leaf))[layer // len(groups)]
 
 
 def _put(dst: torch.Tensor, arr: np.ndarray) -> None:
@@ -135,12 +174,20 @@ def _put(dst: torch.Tensor, arr: np.ndarray) -> None:
 
 
 @torch.no_grad()
-def lm_params_from_numpy(params: dict, cfg, device):
-    """``repro``'s LM parameter tree (numpy arrays) -> an ``LM``."""
-    model = LM(cfg, torch.device(device))
+def _from_numpy(model, params: dict):
     for name, dst in model.named_parameters():
         _put(dst, _lm_leaf(params, name))
     return model
+
+
+def lm_params_from_numpy(params: dict, cfg, device) -> LM:
+    """``repro``'s LM parameter tree (numpy arrays) -> an ``LM``."""
+    return _from_numpy(LM(cfg, torch.device(device)), params)
+
+
+def whisper_params_from_numpy(params: dict, cfg, device) -> Whisper:
+    """``repro``'s Whisper parameter tree (numpy arrays) -> a ``Whisper``."""
+    return _from_numpy(Whisper(cfg, torch.device(device)), params)
 
 
 @torch.no_grad()

@@ -58,9 +58,10 @@ SIGNATURES = {
 }
 SIGNATURES.update({
     "rmsnorm": ([_P, _P, _P, _LL, _I, _F, _I, _I, _P], _I),
-    # q, k, v, out, lse (or null), strides, B, H, Hkv, S, D, causal, window, scale, bf16, stream
-    "flash_attention": ([_P, _P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                         _P], _I),
+    # q, k, v, out, lse (or null), strides, B, H, Hkv, Sq, Sk, D, causal, window, scale, bf16,
+    # stream
+    "flash_attention": ([_P, _P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _I, _I, _I,
+                         _F, _I, _P], _I),
     "decode_attention_splits": ([_I], _I),
     "decode_attention": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P], _I),
 })

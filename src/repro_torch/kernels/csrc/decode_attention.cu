@@ -20,14 +20,17 @@
 // group of G ≤ 4 of its query heads, sequence): at B = 8 and S = 32,768 that
 // is 64 splits × 8 × 8 = 4096 blocks, so the 132 SMs stay busy when one
 // block per (sequence, kv head) would give 64.  Blocks whose split lies past
-// valid_len return at once.  In a block, 16 groups of 8 threads each take a
-// slot at a time (two in flight); a thread holds D / 8 dims of the slot's k
-// and v (16-byte loads at D = 128 in bfloat16), the group reduces the G dot
-// products with three shuffles and keeps its own (m, l, acc), rescaling acc
+// valid_len return at once.  In a block, 16 groups of 8 threads (8 groups of
+// 16 at D = 256) each take a slot at a time (two in flight); a thread holds
+// D / 8 (D / 16) dims of the slot's k and v (16-byte loads at D = 128 in
+// bfloat16), the group reduces the G dot products with three (four)
+// shuffles and keeps its own (m, l, acc), rescaling acc
 // only when the running max grows.  The 16 groups' states are merged in
 // shared memory into one partial (m, l, acc) per split and query head; a
 // second kernel merges the splits and divides.  The cache is read exactly
-// once whenever G = g (all assigned dense models have g ≤ 4 but one).
+// once whenever G = g (all assigned dense models have g ≤ 4 but one).  At
+// g = 8 (qwen2-vl) each kv head's cache is read twice, at g = 16
+// (recurrentgemma-9b's MQA, D = 256) four times: one pass per group of 4.
 
 #include <cmath>
 
@@ -36,8 +39,6 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kLanes = 8;                    // threads per slot
-constexpr int kGroups = kThreads / kLanes;   // slots in flight per block (× 2)
 constexpr int kChunk = 512;                  // slots per split
 constexpr float kNegInf = -1e30f;
 
@@ -45,13 +46,22 @@ constexpr float kNegInf = -1e30f;
 // (each with logit −1e30) when valid_len ≤ 0.
 __device__ __forceinline__ int live_slots(int vl, int S) { return vl <= 0 ? S : min(vl, S); }
 
+// Threads per slot: 8, or 16 at D = 256 (16 dims a thread either way at D ≥
+// 128, which keeps q and acc of G = 4 heads in registers, and the groups'
+// partial sums within the 48 KB of static shared memory).
+template <int D>
+constexpr int kLanesOf = D >= 256 ? 16 : 8;
+
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
                     const int* __restrict__ valid_len, float* __restrict__ pacc,
                     float* __restrict__ pml, int H, int Hkv, int S, int nsplit, float scale) {
+  constexpr int kLanes = kLanesOf<D>;
+  constexpr int kGroups = kThreads / kLanes;        // slots in flight per block (× 2)
   constexpr int DPL = D / kLanes;                   // dims per thread
   constexpr int WPL = DPL / lm::Words<T>::kPer;     // 32-bit words per thread per row
+  static_assert(sizeof(float) * kGroups * G * (D + 2) <= 48 * 1024, "static shared memory");
   __shared__ float sm_ml[kGroups][G][2];
   __shared__ float sm_acc[kGroups][G][D];
 
@@ -67,7 +77,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
   if (s0 >= n) return;
   const int s1 = min(n, s0 + kChunk);
   const int grp = threadIdx.x / kLanes, part = threadIdx.x % kLanes;
-  const unsigned mask = 0xffu << ((threadIdx.x & 31) & ~(kLanes - 1));
+  const unsigned mask = ((1u << kLanes) - 1u) << ((threadIdx.x & 31) & ~(kLanes - 1));
 
   float qf[G][DPL];
 #pragma unroll
@@ -101,6 +111,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
       s += __shfl_xor_sync(mask, s, 1);
       s += __shfl_xor_sync(mask, s, 2);
       s += __shfl_xor_sync(mask, s, 4);
+      if constexpr (kLanes == 16) s += __shfl_xor_sync(mask, s, 8);
       if (empty) s = kNegInf;
       if (s > m[hh]) {
         const float corr = expf(m[hh] - s);
@@ -117,7 +128,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
   };
 
   for (int s = s0 + grp; s < s1; s += 2 * kGroups) {
-    const bool two = s + kGroups < s1;       // the same for the group's 8 threads
+    const bool two = s + kGroups < s1;       // the same for the group's threads
     unsigned k0[WPL], v0[WPL], k1[WPL], v1[WPL];
     lm::load_words<WPL>(kb + s * row, k0);
     lm::load_words<WPL>(vb + s * row, v0);
@@ -230,6 +241,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* valid_len,
       return by_group<T, 64>(q, k, v, valid_len, out, pacc, pml, B, H, Hkv, S, scale, stream);
     case 128:
       return by_group<T, 128>(q, k, v, valid_len, out, pacc, pml, B, H, Hkv, S, scale, stream);
+    case 256:
+      return by_group<T, 256>(q, k, v, valid_len, out, pacc, pml, B, H, Hkv, S, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -3,16 +3,19 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention_fwd
 // (Pallas), the attention of every dense-LM block in a prefill forward (36
-// launches per qwen3-8b forward).  q is (B, H, S, D), k and v (B, Hkv, S, D),
-// each with any strides along B, H and S and stride 1 along D (the model hands
-// over its (B, S, H, D) activations as views); out has q's strides.  Query
-// head h reads kv head h / (H / Hkv), as the TPU kernel's index map ih // g.
-// The mask keeps key j for query i when j < S, j ≤ i (causal) and i − j <
-// window (window > 0); masked logits are −1e30, not −inf, so a query row that
+// launches per qwen3-8b forward).  q is (B, H, Sq, D), k and v (B, Hkv, Sk, D)
+// (Sq = Sk for self-attention; Whisper's cross-attention has Sq decoder rows
+// against Sk encoder frames), each with any strides along B, H and S and
+// stride 1 along D (the model hands over its (B, S, H, D) activations as
+// views); out has q's strides; D ∈ {16, 32, 64, 128, 256}.  Query head h
+// reads kv head h / (H / Hkv), as the TPU kernel's index map ih // g.  The
+// mask keeps key j for query i when j < Sk, j ≤ i (causal) and i − j < window
+// (window > 0), positions counting from 0 on both axes as in the TPU kernel;
+// masked logits are −1e30, not −inf, so a query row that
 // sees no key in a tile carries sums that the next real key cancels, exactly
 // as in the TPU kernel.  Sums are float32; out = acc / max(l, 1e−30) is
 // stored in q's dtype.  Where the caller passes an lse pointer, each query
-// row's logsumexp m + log(max(l, 1e−30)) (natural log, float32, (B, H, S)
+// row's logsumexp m + log(max(l, 1e−30)) (natural log, float32, (B, H, Sq)
 // contiguous) is written too: what the training backward recomputes the
 // probabilities from (repro/models/attention.py _flash_fwd's residual).  A
 // null pointer writes nothing, so the serving path is unchanged.
@@ -26,16 +29,22 @@
 // * bfloat16 (the serving path) runs flash_bf16_kernel on the tensor cores.
 //   A block owns 128 query rows of one (b, h): warpgroups 0 and 1 each take
 //   64 rows and compute, warpgroup 2 loads (one thread issues every copy;
-//   setmaxnreg moves its registers to the other two).  The loader brings the
-//   q tile once and tiles of 64 keys (D = 128) or 128 keys (D ≤ 64) of k and
+//   setmaxnreg moves its registers to the other two); at D = 256, 64 rows,
+//   one consumer warpgroup and the loader.  The loader brings the
+//   q tile once and tiles of 64 keys (D ≥ 128) or 128 keys (D ≤ 64) of k and
 //   v into a ring of two stages with TMA (cp.async.bulk.tensor over a 4-D
 //   map (D, S, heads, B) with the view's own strides, 128-byte swizzle, rows
 //   past S read as zeros), each copy completing an mbarrier; consumers hand
 //   a stage back through an "empty" mbarrier.  (At D = 128 a 128-key tile
 //   needs more registers than a consumer has: ptxas spills and serializes
-//   every wgmma.)  Logits s = q kᵀ come from wgmma m64nNk16 with both
-//   operands K-major in shared memory; the 1/√D scale (times log2 e, for ex2) is
-//   applied to the float32 logits.  The online softmax runs on the wgmma
+//   every wgmma.  At D = 256 the output accumulator alone is 128 float32
+//   registers a thread, more than a consumer of the 384-thread block can
+//   hold beside the logits: there a block is one consumer warpgroup and the
+//   loader, 64 query rows, 64-key tiles, and p·v runs as two wgmma
+//   m64n128k16 a k-step, one per half of the output columns; shared memory
+//   is then 32 KB of q and 128 KB of k/v stages.)  Logits s = q kᵀ come from
+//   wgmma m64nNk16 with both operands K-major in shared memory; the 1/√D
+//   scale (times log2 e, for ex2) is applied to the float32 logits.  The online softmax runs on the wgmma
 //   accumulator layout (a row's values sit in the 4 threads of a quad: two
 //   shuffles reduce it); l sums the float32 p.  For p·v the tensor cores need
 //   p in bfloat16, and one rounding of p costs 2.6× the check's bound
@@ -64,7 +73,8 @@
 //   4tx … 4tx+3 (+32 j) from v, taking the probabilities of the other 7
 //   threads of its row by shuffle.  Key tiles wholly above the causal
 //   diagonal or outside the window are skipped.  Ragged S is masked, not
-//   padded.
+//   padded.  At D = 256 the tiles take 198,656 bytes of shared memory
+//   (above the 48 KB default: the launch opts in), one block an SM.
 //
 // Both kernels walk the query tiles heaviest-first under a causal mask.
 
@@ -113,8 +123,8 @@ __device__ __forceinline__ void load_tile(float* sm, int ss, const T* g, long lo
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, Strides st, int H, int Hkv, int S,
-                 int causal, int window, float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, Strides st, int H, int Hkv, int Sq,
+                 int Sk, int causal, int window, float scale) {
   constexpr int QS = D + 4;                   // padded row stride of Qs and Ks
   constexpr int NJ = D >= 32 ? D / 32 : 1;    // float4 output columns per thread
   extern __shared__ float4 smem4[];
@@ -133,7 +143,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int lane = threadIdx.x & 31;
   const int tx = threadIdx.x & 7, ty = threadIdx.x >> 3;
 
-  load_tile<T, D>(Qs, QS, qg, st.qs, q0, S, scale);
+  load_tile<T, D>(Qs, QS, qg, st.qs, q0, Sq, scale);
 
   float acc[4][NJ][4];
   float m[4], l[4];
@@ -147,14 +157,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
   }
 
-  const int hi = causal ? min(S, q0 + kBQ) : S;
+  const int hi = causal ? min(Sk, q0 + kBQ) : Sk;
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int kt1 = (hi + kBK - 1) / kBK;
   for (int kt = lo / kBK; kt < kt1; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();                          // the previous tile is consumed
-    load_tile<T, D>(Ks, QS, kg, st.ks, k0, S, 1.0f);
-    load_tile<T, D>(Vs, D, vg, st.vs, k0, S, 1.0f);
+    load_tile<T, D>(Ks, QS, kg, st.ks, k0, Sk, 1.0f);
+    load_tile<T, D>(Vs, D, vg, st.vs, k0, Sk, 1.0f);
     __syncthreads();
 
     float s[4][8];
@@ -187,7 +197,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int kpos = k0 + tx + 8 * j;
-        const bool keep = kpos < S && (!causal || qpos >= kpos) &&
+        const bool keep = kpos < Sk && (!causal || qpos >= kpos) &&
                           (window <= 0 || qpos - kpos < window);
         if (!keep) s[i][j] = kNegInf;
         mt = fmaxf(mt, s[i][j]);
@@ -244,10 +254,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + 4 * ty + i;
-    if (qpos >= S) continue;
+    if (qpos >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
     // m and l are the row's own in each of its 8 threads (reduced by shuffles)
-    if (lse != nullptr && tx == 0) lse[(long long)blockIdx.y * S + qpos] = m[i] + logf(den);
+    if (lse != nullptr && tx == 0) lse[(long long)blockIdx.y * Sq + qpos] = m[i] + logf(den);
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj) {
       const int col = 4 * tx + 32 * jj;
@@ -263,56 +273,69 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, const Strides& st,
-           int B, int H, int Hkv, int S, int causal, int window, float scale,
+           int B, int H, int Hkv, int Sq, int Sk, int causal, int window, float scale,
            cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((S + kBQ - 1) / kBQ), (unsigned)(B * H));
+  const dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)(B * H));
   flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, st, H, Hkv, S, causal, window, scale);
+      static_cast<T*>(o), lse, st, H, Hkv, Sq, Sk, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 int dispatch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
-                 const Strides& st, int B, int H, int Hkv, int S, int D, int causal, int window,
-                 float scale, cudaStream_t stream) {
+                 const Strides& st, int B, int H, int Hkv, int Sq, int Sk, int D, int causal,
+                 int window, float scale, cudaStream_t stream) {
+#define FLASH_F32(d) \
+  return launch<float, d>(q, k, v, o, lse, st, B, H, Hkv, Sq, Sk, causal, window, scale, stream)
   switch (D) {
-    case 16: return launch<float, 16>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 32: return launch<float, 32>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 64: return launch<float, 64>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 128: return launch<float, 128>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 16: FLASH_F32(16);
+    case 32: FLASH_F32(32);
+    case 64: FLASH_F32(64);
+    case 128: FLASH_F32(128);
+    case 256: FLASH_F32(256);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_F32
 }
 
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma, TMA and mbarriers
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 128;           // query rows of a block
 constexpr int kStages = 2;           // k/v tiles in flight
 constexpr int kWgThreads = 128;
 constexpr int kLoaderThreads = kWgThreads;     // the loader warpgroup; one thread issues
-constexpr int kBf16Threads = 2 * kWgThreads + kLoaderThreads;
 constexpr int kConsumerRegs = 240;
 constexpr int kLoaderRegs = 24;
-// setmaxnreg moves registers inside the block's allocation: the launch must
-// give each thread at least this many, or the consumers' increase never ends.
+// setmaxnreg moves registers inside the block's allocation: the launch of the
+// two-consumer block must give each thread at least this many, or the
+// consumers' increase never ends.
 constexpr int kLaunchRegs = (kLoaderThreads * kLoaderRegs + 2 * kWgThreads * kConsumerRegs +
-                             kBf16Threads - 1) / kBf16Threads;
+                             3 * kWgThreads - 1) / (3 * kWgThreads);
 constexpr long long kWaitCycles = 1ll << 35;    // ~17 s: a wait this long is a fault
 
 // Shared memory: the q tile, then kStages k tiles and kStages v tiles, each
-// stored as NCH slices of 64 columns (128-byte rows, 128-byte swizzle).
+// stored as NCH slices of 64 columns (128-byte rows, 128-byte swizzle).  The
+// output accumulator is NO parts of ON columns (one wgmma of N ≤ 128 each).
+// ptxas allocates the consumers' registers within the launch's budget (168 a
+// thread for 384 threads), whatever setmaxnreg hands them at run time; at D =
+// 256 the output alone takes 128, so the block has one consumer warpgroup
+// (256 threads, 255 registers a thread, no setmaxnreg) and 64 query rows.
 template <int D>
 struct Layout {
   static constexpr int DP = D < 64 ? 64 : D;   // head dim in shared memory
   static constexpr int NCH = DP / 64;          // 128-byte column slices of a row
-  static constexpr int BN = D == 128 ? 64 : 128;   // keys of a tile (what the registers hold)
-  static constexpr uint32_t kQSlice = kRows * 128, kKVSlice = BN * 128;
+  static constexpr int ON = DP < 128 ? DP : 128, NO = DP / ON;
+  static constexpr int NWG = D == 256 ? 1 : 2;          // consumer warpgroups
+  static constexpr int ROWS = 64 * NWG;                 // query rows of a block
+  static constexpr int THREADS = (NWG + 1) * kWgThreads;
+  // keys of a tile (what the registers hold beside the DP / 2 of the output)
+  static constexpr int BN = D >= 128 ? 64 : 128;
+  static constexpr uint32_t kQSlice = ROWS * 128, kKVSlice = BN * 128;
   static constexpr uint32_t kQTile = NCH * kQSlice, kKVTile = NCH * kKVSlice;
   static constexpr uint32_t kQ = 0, kK = kQTile, kV = kK + kStages * kKVTile;
   static constexpr uint32_t kBytes = kV + kStages * kKVTile;
@@ -407,6 +430,20 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uin
   const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
+}
+
+// d (+)= a · bᵀ, m64n32k16: a (64 × 16) and b (32 × 16) K-major in shared memory
+// (descriptors), accumulate unless scale_d is 0.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // d (+)= a · bᵀ, m64n64k16: a (64 × 16) and b (64 × 16) K-major in shared memory
@@ -517,7 +554,8 @@ __device__ __forceinline__ float row_softmax(float (&x)[BN / 2], float& m, float
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
   if constexpr (N == 128) wgmma_ss_n128(d, da, db, scale_d);
-  else wgmma_ss_n64(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n32(d, da, db, scale_d);
 }
 
 template <int N>
@@ -529,16 +567,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, u
 struct OutView {        // out in elements: base pointer and (batch, head, sequence) strides
   __nv_bfloat16* o;
   long long ob, oh, os;
-  float* lse;           // (B, H, S) logsumexp rows, or null
+  float* lse;           // (B, H, Sq) logsumexp rows, or null
 };
 
 template <int D>
-__global__ void __launch_bounds__(kBf16Threads, 1)
+__global__ void __launch_bounds__(Layout<D>::THREADS, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                  const __grid_constant__ CUtensorMap tm_v, OutView out, int H, int Hkv, int S,
-                  int causal, int window, float scale_log2) {
+                  const __grid_constant__ CUtensorMap tm_v, OutView out, int H, int Hkv, int Sq,
+                  int Sk, int causal, int window, float scale_log2) {
   using L = Layout<D>;
-  constexpr int DP = L::DP, BN = L::BN;
+  constexpr int BN = L::BN, ON = L::ON, NO = L::NO, NWG = L::NWG, ROWS = L::ROWS;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];    // q, full k, full v, empty
   // The swizzled tiles need 1024-byte alignment (the launch adds the slack).
@@ -551,8 +589,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int hk = h / (H / Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;     // heaviest causal tiles first
-  const int hi = causal ? min(S, q0 + kRows) : S;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;     // heaviest causal tiles first
+  const int hi = causal ? min(Sk, q0 + ROWS) : Sk;
   const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int kt0 = lo / BN, nt = (hi + BN - 1) / BN - kt0;
 
@@ -561,16 +599,16 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bar_k + 8 * s, 1);
       mbar_init(bar_v + 8 * s, 1);
-      mbar_init(bar_e + 8 * s, 2 * kWgThreads / 32);    // one arrival per consumer warp
+      mbar_init(bar_e + 8 * s, NWG * kWgThreads / 32);    // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= 2 * kWgThreads) {
+  if (threadIdx.x >= NWG * kWgThreads) {
     // ---- loader warpgroup: one thread issues every copy ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kLoaderRegs));
-    if (threadIdx.x == 2 * kWgThreads) {
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kLoaderRegs));
+    if (threadIdx.x == NWG * kWgThreads) {
       mbar_expect_tx(bar_q, L::kQTile);
 #pragma unroll
       for (int c = 0; c < L::NCH; ++c)
@@ -593,7 +631,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    if constexpr (NWG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
     const int wg = threadIdx.x / kWgThreads;
     const int t = threadIdx.x % kWgThreads, warp = t / 32, lane = t % 32;
     const int qw0 = q0 + 64 * wg;                     // the warpgroup's first row
@@ -601,9 +639,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     const int cq = 2 * (lane % 4);                    // acc column within each 8-column group
     const uint32_t qa = sm + L::kQ + 64 * wg * 128;
 
-    float o[DP / 2];
+    float o[NO][ON / 2];     // output columns 128c + 8j + cq + (0, 1) at o[c][4j + 2i + (0, 1)]
 #pragma unroll
-    for (int e = 0; e < DP / 2; ++e) o[e] = 0.0f;
+    for (int c = 0; c < NO; ++c)
+#pragma unroll
+      for (int e = 0; e < ON / 2; ++e) o[c][e] = 0.0f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;    // rows rb and rb + 8
 
     mbar_wait(bar_q, 0);
@@ -631,42 +671,50 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
       // key k0 + 8j + cq + c
 #pragma unroll
       for (int e = 0; e < BN / 2; ++e) x[e] *= scale_log2;
-      const bool edge = k0 + BN > S || (causal && k0 + BN - 1 > qw0) ||
+      const bool edge = k0 + BN > Sk || (causal && k0 + BN - 1 > qw0) ||
                         (window > 0 && qw0 + 63 - k0 >= window);
       if (edge) {
 #pragma unroll
         for (int e = 0; e < BN / 2; ++e) {
           const int qpos = q0 + rb + 8 * ((e / 2) % 2);
           const int kpos = k0 + 8 * (e / 4) + cq + e % 2;
-          const bool keep = kpos < S && (!causal || qpos >= kpos) &&
+          const bool keep = kpos < Sk && (!causal || qpos >= kpos) &&
                             (window <= 0 || qpos - kpos < window);
           if (!keep) x[e] = kNegInf;
         }
       }
       const float c0 = row_softmax<BN, 0>(x, m0, l0), c1 = row_softmax<BN, 1>(x, m1, l1);
 #pragma unroll
-      for (int e = 0; e < DP / 2; ++e) o[e] *= (e / 2) % 2 ? c1 : c0;
+      for (int c = 0; c < NO; ++c)
+#pragma unroll
+        for (int e = 0; e < ON / 2; ++e) o[c][e] *= (e / 2) % 2 ? c1 : c0;
 
       // p in bfloat16 halves: A fragment of k-step kk is x[8kk … 8kk+7] in pairs
       uint32_t ph[BN / 4], pl[BN / 4];
 #pragma unroll
       for (int e = 0; e < BN / 4; ++e) split_bf16(x[2 * e], x[2 * e + 1], ph[e], pl[e]);
 
-      // o += p_hi v + p_lo v (v MN-major: a k16 step is 16 key rows, 2048 bytes)
+      // o += p_hi v + p_lo v (v MN-major: a k16 step is 16 key rows, 2048 bytes;
+      // output part c starts at column slice c · ON / 64)
       mbar_wait(bar_v + 8 * s, phase);
-      pin(o);
+#pragma unroll
+      for (int c = 0; c < NO; ++c) pin(o[c]);
       pin(ph);
       pin(pl);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        const uint64_t dv = sw128_desc(vb + kk * 2048, L::kKVSlice, 1024);
-        wgmma_rs<DP>(o, ph + 4 * kk, dv);
-        wgmma_rs<DP>(o, pl + 4 * kk, dv);
-      }
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < NO; ++c) {
+          const uint64_t dv = sw128_desc(vb + c * (ON / 64) * L::kKVSlice + kk * 2048,
+                                         L::kKVSlice, 1024);
+          wgmma_rs<ON>(o[c], ph + 4 * kk, dv);
+          wgmma_rs<ON>(o[c], pl + 4 * kk, dv);
+        }
       wgmma_commit();
       wgmma_wait_all();
-      pin(o);
+#pragma unroll
+      for (int c = 0; c < NO; ++c) pin(o[c]);
       __syncwarp();
       if (lane == 0) mbar_arrive(bar_e + 8 * s);
     }
@@ -681,24 +729,27 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constan
     if (out.lse != nullptr && lane % 4 == 0) {
       // m is in log2 units of the scaled logits (the kernel runs on ex2):
       // the natural logsumexp is (m + log2 l)·ln 2
-      float* lg = out.lse + (long long)blockIdx.x * S + q0;
-      if (q0 + rb < S) lg[rb] = (m0 + log2f(den0)) * 0.6931471805599453f;
-      if (q0 + rb + 8 < S) lg[rb + 8] = (m1 + log2f(den1)) * 0.6931471805599453f;
+      float* lg = out.lse + (long long)blockIdx.x * Sq + q0;
+      if (q0 + rb < Sq) lg[rb] = (m0 + log2f(den0)) * 0.6931471805599453f;
+      if (q0 + rb + 8 < Sq) lg[rb + 8] = (m1 + log2f(den1)) * 0.6931471805599453f;
     }
 #pragma unroll
-    for (int e = 0; e < DP / 2; e += 2) {
-      const int r = rb + 8 * ((e / 2) % 2), col = 8 * (e / 4) + cq;
-      const uint32_t off = (col / 64) * L::kQSlice + r * 128 +
-                           ((((col % 64) / 8) ^ (r % 8)) * 16) + (col % 8) * 2;
-      const float den = (e / 2) % 2 ? den1 : den0;
-      *reinterpret_cast<uint32_t*>(smem + L::kQ + off) = pack_bf16(o[e] / den, o[e + 1] / den);
-    }
+    for (int c = 0; c < NO; ++c)
+#pragma unroll
+      for (int e = 0; e < ON / 2; e += 2) {
+        const int r = rb + 8 * ((e / 2) % 2), col = ON * c + 8 * (e / 4) + cq;
+        const uint32_t off = (col / 64) * L::kQSlice + r * 128 +
+                             ((((col % 64) / 8) ^ (r % 8)) * 16) + (col % 8) * 2;
+        const float den = (e / 2) % 2 ? den1 : den0;
+        *reinterpret_cast<uint32_t*>(smem + L::kQ + off) =
+            pack_bf16(o[c][e] / den, o[c][e + 1] / den);
+      }
     asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(kWgThreads) : "memory");
     __nv_bfloat16* og = out.o + b * out.ob + h * out.oh;
     constexpr int VPR = D / 8;                        // 16-byte vectors of an output row
     for (int idx = t; idx < 64 * VPR; idx += kWgThreads) {
       const int r = 64 * wg + idx / VPR, col = 8 * (idx % VPR);
-      if (q0 + r >= S) continue;
+      if (q0 + r >= Sq) continue;
       const uint32_t off = (col / 64) * L::kQSlice + r * 128 + ((((col % 64) / 8) ^ (r % 8)) * 16);
       *reinterpret_cast<uint4*>(og + (long long)(q0 + r) * out.os + col) =
           *reinterpret_cast<const uint4*>(smem + L::kQ + off);
@@ -746,15 +797,16 @@ bool encode_map(CUtensorMap* map, EncodeTiled encode, const void* base, int D, i
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
-                const Strides& st, int B, int H, int Hkv, int S, int causal, int window,
+                const Strides& st, int B, int H, int Hkv, int Sq, int Sk, int causal, int window,
                 float scale, cudaStream_t stream) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv;
   constexpr int BN = Layout<D>::BN;
-  if (!encode_map(&tq, encode, q, D, S, H, B, st.qs, st.qh, st.qb, kRows) ||
-      !encode_map(&tk, encode, k, D, S, Hkv, B, st.ks, st.kh, st.kb, BN) ||
-      !encode_map(&tv, encode, v, D, S, Hkv, B, st.vs, st.vh, st.vb, BN))
+  using L = Layout<D>;
+  if (!encode_map(&tq, encode, q, D, Sq, H, B, st.qs, st.qh, st.qb, L::ROWS) ||
+      !encode_map(&tk, encode, k, D, Sk, Hkv, B, st.ks, st.kh, st.kb, BN) ||
+      !encode_map(&tv, encode, v, D, Sk, Hkv, B, st.vs, st.vh, st.vb, BN))
     return (int)cudaErrorInvalidValue;
   constexpr int bytes = (int)Layout<D>::kBytes + 1024;
   cudaError_t err = cudaFuncSetAttribute(flash_bf16_kernel<D>,
@@ -763,24 +815,28 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, flash_bf16_kernel<D>);
   if (err != cudaSuccess) return (int)err;
-  if (attr.numRegs < kLaunchRegs) return (int)cudaErrorLaunchOutOfResources;
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + kRows - 1) / kRows));
+  if (L::NWG == 2 && attr.numRegs < kLaunchRegs) return (int)cudaErrorLaunchOutOfResources;
+  const dim3 grid((unsigned)(B * H), (unsigned)((Sq + L::ROWS - 1) / L::ROWS));
   const OutView out{static_cast<__nv_bfloat16*>(o), st.ob, st.oh, st.os, lse};
-  flash_bf16_kernel<D><<<grid, kBf16Threads, bytes, stream>>>(
-      tq, tk, tv, out, H, Hkv, S, causal, window, scale * 1.4426950408889634f);
+  flash_bf16_kernel<D><<<grid, L::THREADS, bytes, stream>>>(
+      tq, tk, tv, out, H, Hkv, Sq, Sk, causal, window, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
 int dispatch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
-                  const Strides& st, int B, int H, int Hkv, int S, int D, int causal, int window,
-                  float scale, cudaStream_t stream) {
+                  const Strides& st, int B, int H, int Hkv, int Sq, int Sk, int D, int causal,
+                  int window, float scale, cudaStream_t stream) {
+#define FLASH_BF16(d) \
+  return launch_bf16<d>(q, k, v, o, lse, st, B, H, Hkv, Sq, Sk, causal, window, scale, stream)
   switch (D) {
-    case 16: return launch_bf16<16>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 32: return launch_bf16<32>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 64: return launch_bf16<64>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
-    case 128: return launch_bf16<128>(q, k, v, o, lse, st, B, H, Hkv, S, causal, window, scale, stream);
+    case 16: FLASH_BF16(16);
+    case 32: FLASH_BF16(32);
+    case 64: FLASH_BF16(64);
+    case 128: FLASH_BF16(128);
+    case 256: FLASH_BF16(256);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_BF16
 }
 
 }  // namespace
@@ -788,15 +844,16 @@ int dispatch_bf16(const void* q, const void* k, const void* v, void* o, float* l
 extern "C" {
 
 // strides: 12 values in elements, (batch, head, sequence) of q, k, v and out.
-// lse: null, or a contiguous float32 (B, H, S) buffer for each row's logsumexp.
+// Sq query rows, Sk key rows (positions count from 0 on both axes).
+// lse: null, or a contiguous float32 (B, H, Sq) buffer for each row's logsumexp.
 int flash_attention(const void* q, const void* k, const void* v, void* o, float* lse,
-                    const long long* strides, int B, int H, int Hkv, int S, int D, int causal,
-                    int window, float scale, int bf16, void* stream) {
+                    const long long* strides, int B, int H, int Hkv, int Sq, int Sk, int D,
+                    int causal, int window, float scale, int bf16, void* stream) {
   const Strides st{strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
                    strides[6], strides[7], strides[8], strides[9], strides[10], strides[11]};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_bf16(q, k, v, o, lse, st, B, H, Hkv, S, D, causal, window, scale, s)
-              : dispatch_f32(q, k, v, o, lse, st, B, H, Hkv, S, D, causal, window, scale, s);
+  return bf16 ? dispatch_bf16(q, k, v, o, lse, st, B, H, Hkv, Sq, Sk, D, causal, window, scale, s)
+              : dispatch_f32(q, k, v, o, lse, st, B, H, Hkv, Sq, Sk, D, causal, window, scale, s);
 }
 
 }  // extern "C"

@@ -25,7 +25,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.build import KernelInputError
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instantiations (csrc/decode_attention.cu)
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations (csrc/decode_attention.cu)
 NEG_INF = -1e30
 
 

@@ -9,7 +9,9 @@ versions).  Parameters are drawn from seed 0 in bfloat16 (there are no
 weights to load), the cache holds ``--cache`` slots per sequence, and every
 sequence starts from token 0 at position 0.  A VLM (qwen2-vl) is fed
 ``repro``'s frontend stub at every step, a (B, 1, d_model) tensor of ones
-in ``cfg.dtype``, in place of its tokens.
+in ``cfg.dtype``, in place of its tokens.  Whisper decodes tokens against
+the cross cache ``init_cache`` gives it (zeros, as ``repro``'s serve
+does; ``models.whisper.fill_cross_cache`` writes an encoding's).
 """
 
 from __future__ import annotations

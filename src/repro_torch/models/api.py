@@ -1,7 +1,7 @@
 """Uniform model API: ``build_model(cfg)`` behind ``repro``'s member names.
 
 ``build_model(cfg)`` returns a ``ModelAPI`` for the decoder LMs (dense,
-mixture-of-experts, Mamba-2, VLM):
+mixture-of-experts, Mamba-2, VLM, RG-LRU hybrid) and for Whisper:
 
   - ``init_params(seed=0, device=None)``   an ``LM`` drawn on the device
   - ``forward(params, batch)``              prefill: (B, S) ``tokens`` -> (B, S, V) logits
@@ -19,11 +19,17 @@ tokens: (B, S, D) for ``forward``, (B, 1, D) for ``decode_step``, and
 ``forward`` takes (3, B, S) M-RoPE ``positions`` (t, h, w; default 0 … S − 1
 on each axis), as ``repro``'s ``input_specs`` lay the batch out.
 
+Whisper (``family == "encdec"``) takes ``repro``'s batch keys:
+``enc_frames`` (B, S_enc, D) and ``dec_tokens`` (B, S_dec) for ``forward``,
+plus ``labels`` for ``loss_fn``, and ``tokens`` and ``pos`` for
+``decode_step``; ``init_cache(batch, seq_len, enc_len=None, device=None)``
+holds ``enc_len`` (default max(seq_len // 4, 64)) cross-attention slots,
+zeros until ``whisper.fill_cross_cache`` writes an encoding's.
+
 ``device=None`` means the CUDA card (``RuntimeError`` without one);
 ``device="cpu"`` runs the kernels' plain versions.  ``forward`` and
 ``decode_step`` run where ``params`` live; token, embedding and position
-arrays are moved there.  Whisper and RG-LRU configs raise
-``NotImplementedError``.
+arrays are moved there.
 """
 
 from __future__ import annotations
@@ -35,13 +41,14 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
+from repro_torch.models import whisper as wh
 from repro_torch.models.common import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ModelConfig
-    init_params: Callable        # (seed=0, device=None) -> LM
+    init_params: Callable        # (seed=0, device=None) -> LM or Whisper
     loss_fn: Callable            # (params, batch) -> scalar
     forward: Callable            # (params, batch) -> logits
     init_cache: Callable         # (batch, seq_len, device=None) -> cache
@@ -49,8 +56,15 @@ class ModelAPI:
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
+    if cfg.family == "encdec":
+        return _build_whisper(cfg)
     tf.check_supported(cfg)
     return _build_lm(cfg)
+
+
+def _on(params, batch: dict, key: str):
+    v = batch.get(key)
+    return None if v is None else torch.as_tensor(v, device=params.device)
 
 
 def _build_lm(cfg: ModelConfig) -> ModelAPI:
@@ -60,10 +74,6 @@ def _build_lm(cfg: ModelConfig) -> ModelAPI:
 
     def loss_fn(params, batch: dict) -> torch.Tensor:
         return tf.lm_loss(params, batch, cfg)
-
-    def _on(params, batch: dict, key: str):
-        v = batch.get(key)
-        return None if v is None else torch.as_tensor(v, device=params.device)
 
     def forward(params: tf.LM, batch: dict) -> torch.Tensor:
         return tf.lm_forward(params, _on(params, batch, "tokens"), cfg,
@@ -77,6 +87,30 @@ def _build_lm(cfg: ModelConfig) -> ModelAPI:
         return tf.lm_decode_step(params, cache, _on(params, batch, "tokens"),
                                  _on(params, batch, "pos"), cfg,
                                  inputs_embeds=_on(params, batch, "inputs_embeds"))
+
+    return ModelAPI(cfg=cfg, init_params=init_params, loss_fn=loss_fn, forward=forward,
+                    init_cache=init_cache, decode_step=decode_step)
+
+
+def _build_whisper(cfg: ModelConfig) -> ModelAPI:
+    def init_params(seed: int = 0, device=None) -> wh.Whisper:
+        dev = resolve_device(device)
+        return wh.init_whisper_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+
+    def loss_fn(params, batch: dict) -> torch.Tensor:
+        return wh.whisper_loss(params, batch, cfg)
+
+    def forward(params: wh.Whisper, batch: dict) -> torch.Tensor:
+        return wh.whisper_forward(params, _on(params, batch, "enc_frames"),
+                                  _on(params, batch, "dec_tokens"), cfg)
+
+    def init_cache(batch: int, seq_len: int, enc_len: int | None = None, device=None) -> dict:
+        return wh.init_whisper_cache(cfg, batch, seq_len, enc_len or max(seq_len // 4, 64),
+                                     resolve_device(device))
+
+    def decode_step(params: wh.Whisper, cache: dict, batch: dict):
+        return wh.whisper_decode_step(params, cache, _on(params, batch, "tokens"),
+                                      _on(params, batch, "pos"), cfg)
 
     return ModelAPI(cfg=cfg, init_params=init_params, loss_fn=loss_fn, forward=forward,
                     init_cache=init_cache, decode_step=decode_step)

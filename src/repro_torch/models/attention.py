@@ -1,8 +1,9 @@
-"""Self-attention of the dense LM in the model layout, with its gradient.
+"""Attention of the LMs in the model layout, with its gradient.
 
 The port's copy of ``repro.models.attention.attention`` and of
-``flash_attention_jnp`` with its custom VJP: q ``(B, S, H, D)``, k/v ``(B,
-S, Hkv, D)``.  The forward is the flash-attention kernel on a CUDA tensor
+``flash_attention_jnp`` with its custom VJP: q ``(B, S_q, H, D)``, k/v
+``(B, S_k, Hkv, D)`` (S_q = S_k for self-attention; Whisper's
+cross-attention passes the encoder's keys, ``causal=False``).  The forward is the flash-attention kernel on a CUDA tensor
 (its plain version, ``flash_attention_plain``, on a CPU tensor) for every
 S.  ``repro`` picks its dense attention where S_q·S_k ≤ 512² and its
 chunked jnp attention above; all of them compute the same function, so
@@ -42,7 +43,7 @@ def flash_backward(q, k, v, out, lse, dout, *, causal: bool, window: int, q_bloc
                    kv_chunk: int):
     """``repro``'s ``_bwd_rule``: (dq, dk, dv) of attention in the model layout.
 
-    q, out, dout (B, S, H, D); k, v (B, S, Hkv, D); lse (B, H, S) float32.
+    q, out, dout (B, S_q, H, D); k, v (B, S_k, Hkv, D); lse (B, H, S_q) float32.
     """
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -115,7 +116,7 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
               window: int = 0, block: int = 1024) -> torch.Tensor:
-    """Self-attention of (B,S,H,D) queries over (B,S,Hkv,D) keys -> (B,S,H,D).
+    """Attention of (B, S_q, H, D) queries over (B, S_k, Hkv, D) keys -> (B, S_q, H, D).
 
     ``block`` is the backward's query block and kv chunk (``cfg.attn_chunk``)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

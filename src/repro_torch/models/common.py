@@ -35,9 +35,9 @@ def round_up(x: int, multiple: int) -> int:
 class ModelConfig:
     """``repro``'s config, field for field, with torch dtypes.
 
-    ``block_pattern`` selects the per-layer block type cycle; the port runs
-    "attn" (dense and mixture-of-experts transformers) and "ssm" (Mamba-2)
-    blocks.
+    ``block_pattern`` selects the per-layer block type cycle: "attn" (dense
+    and mixture-of-experts transformers), "ssm" (Mamba-2), "rglru" and
+    "local_attn" (RecurrentGemma); ``family == "encdec"`` is Whisper.
     """
 
     name: str = "model"
@@ -88,6 +88,10 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def resolved_lru_width(self) -> int:
+        return self.lru_width or self.d_model
 
     @property
     def padded_vocab(self) -> int:

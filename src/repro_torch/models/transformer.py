@@ -1,23 +1,27 @@
-"""Decoder LM for the dense, mixture-of-experts, Mamba-2 and VLM
-architectures: qwen3, granite, mistral-nemo, mistral-large, mixtral, olmoe,
-mamba2, qwen2-vl.
+"""Decoder LM for the dense, mixture-of-experts, Mamba-2, VLM and RG-LRU
+hybrid architectures: qwen3, granite, mistral-nemo, mistral-large,
+mixtral, olmoe, mamba2, qwen2-vl, recurrentgemma.
 
-The port's copy of ``repro.models.transformer`` for block kinds "attn" and
-"ssm": the same pre-norm blocks (RMSNorm; GQA attention with optional q/k
-norms and RoPE or M-RoPE; a SwiGLU MLP or, with ``cfg.num_experts``, the
-mixture-of-experts FFN of ``models/moe.py``; the Mamba-2 mixer of
-``models/ssm.py``), the same parameter names and ``(in, out)`` layouts,
-so a ``repro`` parameter tree carries over array for array
-(``repro_torch.convert.lm_params_from_numpy``).  PyTorch idiom in place of
-JAX's: ``LM`` holds one block module per layer (``Block``, ``MoEBlock`` or
-``SSMBlock``; ``repro`` stacks them for ``lax.scan``), parameters are drawn
-from a ``torch.Generator`` on the device, and the decode cache is updated
-in place (``repro`` donates it).  A VLM (qwen2-vl) takes ``inputs_embeds``
-in place of tokens and (3, B, S) M-RoPE positions (t, h, w).
+The port's copy of ``repro.models.transformer``: the same pre-norm blocks
+(RMSNorm; GQA attention with optional q/k norms and RoPE or M-RoPE, over
+the whole causal span ("attn", or ``cfg.window``) or a window of
+``cfg.local_window`` keys ("local_attn"); a SwiGLU MLP or, with
+``cfg.num_experts``, the mixture-of-experts FFN of ``models/moe.py``; the
+Mamba-2 mixer of ``models/ssm.py`` ("ssm"); Griffin's recurrent block of
+``models/rglru.py`` with its MLP ("rglru")), the same parameter names and
+``(in, out)`` layouts, so a ``repro`` parameter tree carries over array
+for array (``repro_torch.convert.lm_params_from_numpy``).  The layers
+follow ``cfg.block_pattern`` repeated (``repro``'s scanned groups, then
+the remainder).  PyTorch idiom in place of JAX's: ``LM`` holds one block
+module per layer (``Block``, ``MoEBlock``, ``SSMBlock`` or
+``RGLRUBlock``; ``repro`` stacks them for ``lax.scan``), parameters are
+drawn from a ``torch.Generator`` on the device, and the decode cache is
+updated in place (``repro`` donates it).  A VLM (qwen2-vl) takes
+``inputs_embeds`` in place of tokens and (3, B, S) M-RoPE positions (t, h,
+w).  The Whisper encoder-decoder is ``models/whisper.py``.
 
 The norms and both attentions run the port's CUDA kernels on a CUDA tensor
-(``rms_norm``, ``attention``, ``decode_attention``).  Block kinds "rglru"
-and "local_attn" and the Whisper encoder-decoder are not ported yet.
+(``rms_norm``, ``attention``, ``decode_attention``).
 
 Training: ``lm_loss`` runs the forward with gradients enabled, on an ``LM``
 or on ``bind(params, tensors)``, a stand-in whose parameters are other
@@ -55,21 +59,20 @@ from repro_torch.models.common import (
     swiglu,
 )
 from repro_torch.models.moe import moe_ffn
+from repro_torch.models.rglru import LAMBDA_INIT, rglru_block
 from repro_torch.models.ssm import mamba2_block
 
-LEFT = "not ported yet (ROADMAP.md Queue 1 item 2, 'LM substrate': what is left)"
-KINDS = ("attn", "ssm")
+KINDS = ("attn", "local_attn", "ssm", "rglru")
+ATTN_KINDS = ("attn", "local_attn")
 AUX_LOSS_COEF = 0.01
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not cover."""
-    if cfg.family == "encdec":
-        raise NotImplementedError(f"{cfg.name}: the Whisper encoder-decoder is {LEFT}")
-    left = sorted(set(cfg.block_pattern) - set(KINDS))
-    if left:
-        raise NotImplementedError(f"{cfg.name}: block kinds {left} are {LEFT}; "
-                                  f"the port runs {KINDS}")
+    """Raise ``ValueError`` for a block kind that no model has, as ``repro``'s
+    ``init_block_params`` does."""
+    unknown = sorted(set(cfg.block_pattern) - set(KINDS))
+    if unknown:
+        raise ValueError(f"{cfg.name}: unknown block kind {unknown[0]!r}; the kinds are {KINDS}")
 
 
 def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
@@ -149,16 +152,42 @@ class SSMBlock(nn.Module):
         self.out_proj = _param((di, d), pd, device)
 
 
+class RGLRUBlock(nn.Module):
+    """One "rglru" block: ``repro``'s ``ln1``, ``rec.{in_proj_x, in_proj_gate,
+    conv_w, conv_b, gate_a_w, gate_a_b, gate_x_w, gate_x_b, lambda_p,
+    out_proj}``, ``ln2`` and ``mlp.{w_gate, w_up, w_down}``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, w, f, pd = cfg.d_model, cfg.resolved_lru_width, cfg.d_ff, cfg.param_dtype
+        self.ln1 = _param((d,), pd, device)
+        self.in_proj_x = _param((d, w), pd, device)
+        self.in_proj_gate = _param((d, w), pd, device)
+        self.conv_w = _param((cfg.conv_width, w), pd, device)
+        self.conv_b = _param((w,), pd, device)
+        self.gate_a_w = _param((w, w), pd, device)
+        self.gate_a_b = _param((w,), pd, device)
+        self.gate_x_w = _param((w, w), pd, device)
+        self.gate_x_b = _param((w,), pd, device)
+        self.lambda_p = _param((w,), pd, device)
+        self.out_proj = _param((w, d), pd, device)
+        self.ln2 = _param((d,), pd, device)
+        self.w_gate = _param((d, f), pd, device)
+        self.w_up = _param((d, f), pd, device)
+        self.w_down = _param((f, d), pd, device)
+
+
 class LM(nn.Module):
-    """Embedding, ``num_layers`` blocks (``Block``, ``MoEBlock`` or ``SSMBlock``
-    by ``layer_kinds``), final norm and (untied) LM head."""
+    """Embedding, ``num_layers`` blocks (``Block``, ``MoEBlock``, ``SSMBlock``
+    or ``RGLRUBlock`` by ``layer_kinds``), final norm and (untied) LM head."""
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         pd = cfg.param_dtype
-        make = {"attn": MoEBlock if cfg.num_experts else Block, "ssm": SSMBlock}
+        attn = MoEBlock if cfg.num_experts else Block
+        make = {"attn": attn, "local_attn": attn, "ssm": SSMBlock, "rglru": RGLRUBlock}
         self.embed = _param((cfg.padded_vocab, cfg.d_model), pd, device)
         self.blocks = nn.ModuleList(make[kind](cfg, device) for kind in layer_kinds(cfg))
         self.final_norm = _param((cfg.d_model,), pd, device)
@@ -173,14 +202,24 @@ class LM(nn.Module):
         return self.embed.device
 
 
-def bind(params: LM, tensors: dict[str, torch.Tensor]) -> SimpleNamespace:
-    """A stand-in for ``params`` whose parameters are ``tensors[name]``, named
-    as ``params.named_parameters()`` names them ("embed", "blocks.3.wq", …):
-    what the training forward reads and differentiates."""
-    blocks = [SimpleNamespace(**{n: tensors[f"blocks.{i}.{n}"] for n, _ in blk.named_parameters()})
-              for i, blk in enumerate(params.blocks)]
-    top = {n: tensors[n] for n, _ in params.named_parameters(recurse=False)}
-    return SimpleNamespace(**top, blocks=blocks, rope_freqs=params.rope_freqs)
+def bind(params: nn.Module, tensors: dict[str, torch.Tensor]) -> SimpleNamespace:
+    """A stand-in for ``params`` (an ``LM`` or a ``Whisper``) whose parameters
+    are ``tensors[name]``, named as ``params.named_parameters()`` names them
+    ("embed", "blocks.3.wq", "dec_blocks.0.xattn.wq", …), with the same
+    submodules and lists of them, and the same buffers: what the training
+    forward reads and differentiates."""
+
+    def tree(module: nn.Module, prefix: str):
+        ns = {n: tensors[prefix + n] for n, _ in module.named_parameters(recurse=False)}
+        ns.update(module.named_buffers(recurse=False))
+        for name, child in module.named_children():
+            if isinstance(child, nn.ModuleList):
+                ns[name] = [tree(c, f"{prefix}{name}.{i}.") for i, c in enumerate(child)]
+            else:
+                ns[name] = tree(child, f"{prefix}{name}.")
+        return SimpleNamespace(**ns)
+
+    return tree(params, "")
 
 
 @torch.no_grad()
@@ -188,9 +227,9 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
     """An ``LM`` on the generator's device, drawn as ``repro`` draws: fan-in
     truncated normals for the matrices (the expert weights' fan-in is their
     D or F axis, the conv's its width), 0.02 normals for the embedding,
-    zeros for the norm scales and the conv bias, and the Mamba-2 mixer's
-    fixed A_log = log(linspace(1, 16, H)), D = 1 and dt_bias =
-    log(expm1(linspace(1e-3, 0.1, H)))."""
+    zeros for the norm scales, biases and the conv bias, the Mamba-2
+    mixer's fixed A_log = log(linspace(1, 16, H)), D = 1 and dt_bias =
+    log(expm1(linspace(1e-3, 0.1, H))), and the RG-LRU's Λ = 0.65."""
     params = LM(cfg, generator.device)
     pd = cfg.param_dtype
     h = cfg.ssm_heads
@@ -198,6 +237,7 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
         "A_log": lambda: torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32)),
         "D": lambda: torch.ones(h),
         "dt_bias": lambda: torch.as_tensor(np.log(np.expm1(np.linspace(1e-3, 1e-1, h)))),
+        "lambda_p": lambda: torch.tensor(LAMBDA_INIT),
     }
     params.embed.copy_(embed_init(generator, params.embed.shape, dtype=pd))
     for blk in params.blocks:
@@ -236,10 +276,10 @@ def _qkv(p: Block, x: torch.Tensor, cfg: ModelConfig, rope):
     return rotate(q, *rope), rotate(k, *rope), v
 
 
-def attn_apply_train(p: Block, x, cfg: ModelConfig, *, window: int, rope):
-    """Prefill causal self-attention (no cache interaction)."""
+def attn_apply_train(p: Block, x, cfg: ModelConfig, *, window: int, rope, causal: bool = True):
+    """Prefill self-attention (no cache interaction)."""
     q, k, v = _qkv(p, x, cfg, rope)
-    out = attention(q, k, v, causal=True, window=window, block=cfg.attn_chunk)
+    out = attention(q, k, v, causal=causal, window=window, block=cfg.attn_chunk)
     b, s = out.shape[:2]
     out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
     return out @ p.wo.to(out.dtype)
@@ -264,22 +304,28 @@ def block_apply(kind: str, p, x, cfg: ModelConfig, *, rope=None, cache=None,
                 decode: bool = False):
     """One block with pre-norm residual wiring -> (x, the block's
     mixture-of-experts auxiliary loss or None).  ``cache`` (decode only) is
-    ``(cache_k, cache_v, slot, valid_len)`` for "attn", ``(conv, ssm)`` for
-    "ssm"; both are updated in place."""
+    ``(cache_k, cache_v, slot, valid_len)`` for "attn" and "local_attn",
+    ``(conv, ssm)`` for "ssm", ``(conv, lru)`` for "rglru"; all are updated
+    in place."""
     h = rms_norm(x, p.ln1)
-    if kind == "ssm":
-        conv_state, ssm_state = cache if decode else (None, None)
-        y, (new_conv, new_ssm) = mamba2_block(p, h, cfg, conv_state, ssm_state, decode=decode)
+    if kind in ("ssm", "rglru"):
+        conv_state, state = cache if decode else (None, None)
+        mixer = mamba2_block if kind == "ssm" else rglru_block
+        y, (new_conv, new_state) = mixer(p, h, cfg, conv_state, state, decode=decode)
         if decode:
             conv_state.copy_(new_conv)
-            ssm_state.copy_(new_ssm)
-        return x + y, None
+            state.copy_(new_state)
+        if kind == "ssm":
+            return x + y, None
+        x = x + y
+        return x + mlp_apply(p, rms_norm(x, p.ln2)), None
     if decode:
         cache_k, cache_v, slot, valid_len = cache
         a = attn_apply_decode(p, h, cfg, cache_k=cache_k, cache_v=cache_v, slot=slot,
                               valid_len=valid_len, rope=rope)
     else:
-        a = attn_apply_train(p, h, cfg, window=cfg.window, rope=rope)
+        window = cfg.local_window if kind == "local_attn" else cfg.window
+        a = attn_apply_train(p, h, cfg, window=window, rope=rope)
     x = x + a
     h2 = rms_norm(x, p.ln2)
     if cfg.num_experts:
@@ -316,7 +362,7 @@ def _logits(params, tokens, cfg: ModelConfig, positions, remat: bool, inputs_emb
     b, s, _ = x.shape
     kinds = layer_kinds(cfg)
     rope = None
-    if "attn" in kinds:
+    if set(kinds) & set(ATTN_KINDS):
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
             if cfg.mrope:
@@ -364,27 +410,45 @@ def lm_loss(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     return ce + AUX_LOSS_COEF * aux if cfg.num_experts else ce
 
 
+# each kind's two cache entries (the (L_kind, …) stacks of its layers)
+CACHE_KEYS = {"attn": ("k", "v"), "local_attn": ("local_k", "local_v"), "ssm": ("conv", "ssm"),
+              "rglru": ("rec_conv", "lru")}
+
+
 def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
-    """The decode state of every layer, stacked by kind: "attn" layers' k/v
-    caches ``{"k", "v"}`` each (L_attn, B, S, Hkv, hd) in ``cfg.dtype``
-    (``repro``'s ``cache["groups"][0]``; a sliding-window model keeps a ring
-    buffer of min(seq_len, window) slots); "ssm" layers' ``{"conv": (L_ssm,
-    B, conv_width − 1, d_inner + 2N)`` in ``cfg.dtype``, ``"ssm": (L_ssm, B,
-    H, P, N)`` float32}."""
+    """The decode state of every layer, stacked by kind (``CACHE_KEYS``), the
+    layers of a kind in layer order: "attn" layers' k/v caches ``{"k", "v"}``
+    each (L_attn, B, S, Hkv, hd) in ``cfg.dtype`` (a sliding-window model
+    keeps a ring buffer of min(seq_len, window) slots); "local_attn" layers'
+    rings ``{"local_k", "local_v"}`` of min(seq_len, local_window) slots;
+    "ssm" layers' ``{"conv": (L_ssm, B, conv_width − 1, d_inner + 2N)`` in
+    ``cfg.dtype``, ``"ssm": (L_ssm, B, H, P, N)`` float32}; "rglru" layers'
+    ``{"rec_conv": (L_rglru, B, conv_width − 1, W)`` in ``cfg.dtype``,
+    ``"lru": (L_rglru, B, W)`` float32}.  ``repro`` keeps the same arrays per
+    scanned group and remainder layer."""
     kinds = layer_kinds(cfg)
     out = {}
-    n_attn, n_ssm = kinds.count("attn"), kinds.count("ssm")
-    if n_attn:
-        s = seq_len if not cfg.window else min(seq_len, cfg.window)
-        shape = (n_attn, batch, s, cfg.num_kv_heads, cfg.resolved_head_dim)
-        out["k"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
-        out["v"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
-    if n_ssm:
-        out["conv"] = torch.zeros((n_ssm, batch, cfg.conv_width - 1,
-                                   cfg.d_inner + 2 * cfg.ssm_state), dtype=cfg.dtype, device=device)
-        out["ssm"] = torch.zeros((n_ssm, batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
-                                 dtype=torch.float32, device=device)
+    for kind in KINDS:
+        n = kinds.count(kind)
+        if n:
+            for key, (shape, dtype) in zip(CACHE_KEYS[kind], _state_shapes(cfg, kind, seq_len)):
+                out[key] = torch.zeros((n, batch, *shape), dtype=dtype, device=device)
     return out
+
+
+def _state_shapes(cfg: ModelConfig, kind: str, seq_len: int):
+    """The (shape, dtype) of one layer's two cache entries, per sequence."""
+    hkv, hd, w = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.resolved_lru_width
+    if kind == "attn":
+        kv = ((seq_len if not cfg.window else min(seq_len, cfg.window), hkv, hd), cfg.dtype)
+        return kv, kv
+    if kind == "local_attn":
+        kv = ((min(seq_len, cfg.local_window), hkv, hd), cfg.dtype)
+        return kv, kv
+    if kind == "ssm":
+        return (((cfg.conv_width - 1, cfg.d_inner + 2 * cfg.ssm_state), cfg.dtype),
+                ((cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state), torch.float32))
+    return ((cfg.conv_width - 1, w), cfg.dtype), ((w,), torch.float32)
 
 
 @torch.no_grad()
@@ -392,23 +456,30 @@ def lm_decode_step(params: LM, cache: dict, tokens: torch.Tensor | None, pos: to
                    cfg: ModelConfig, inputs_embeds: torch.Tensor | None = None):
     """One decode step: the newest (B,) tokens, or (B, 1, D) ``inputs_embeds``,
     at (B,) absolute positions -> ((B, V) logits, the cache, updated in
-    place).  With M-RoPE the position drives all three axes."""
+    place).  With M-RoPE the position drives all three axes.  An attention
+    kind with a window writes its ring at ``pos % slots``, one without at
+    ``min(pos, slots − 1)``; either attends over the first min(pos + 1,
+    slots) slots."""
     x = _embed(params, None if tokens is None else tokens[:, None], cfg, inputs_embeds)
     pos = pos.to(torch.int64)
-    slot = valid_len = rope = None
-    if "k" in cache:
-        s_cache = cache["k"].shape[2]
-        slot = pos % s_cache if cfg.window else torch.clamp(pos, max=s_cache - 1)
-        # slots holding tokens within the attention span of pos: a prefix
-        valid_len = torch.clamp(pos + 1, 0, s_cache).to(torch.int32)
+    spans = {}
+    for kind, window in (("attn", cfg.window), ("local_attn", cfg.local_window)):
+        key = CACHE_KEYS[kind][0]
+        if key in cache:
+            s_cache = cache[key].shape[2]
+            slot = pos % s_cache if window else torch.clamp(pos, max=s_cache - 1)
+            # slots holding tokens within the attention span of pos: a prefix
+            spans[kind] = (slot, torch.clamp(pos + 1, 0, s_cache).to(torch.int32))
+    rope = None
+    if spans:
         positions = pos[:, None]
         rope = _rope(params, positions[None].expand(3, -1, -1) if cfg.mrope else positions, cfg)
-    seen = {"attn": 0, "ssm": 0}
+    seen = dict.fromkeys(KINDS, 0)
     for kind, blk in zip(layer_kinds(cfg), params.blocks):
         i = seen[kind]
         seen[kind] += 1
-        c = ((cache["k"][i], cache["v"][i], slot, valid_len) if kind == "attn"
-             else (cache["conv"][i], cache["ssm"][i]))
+        first, second = CACHE_KEYS[kind]
+        c = (cache[first][i], cache[second][i], *spans.get(kind, ()))
         x, _ = block_apply(kind, blk, x, cfg, rope=rope, cache=c, decode=True)
     x = rms_norm(x, params.final_norm)
     return _lm_head(params, x, cfg)[:, 0], cache

@@ -1322,3 +1322,137 @@ def test_family_lm_on_card_matches_cpu(cuda, arch):
         assert _max_abs(caches[0][key].cpu(), w) <= 1e-4 * float(w.abs().max()), key
     assert tk.launch_counts()["decode_attention"] == 8 * n_attn
     assert tk.launch_counts()["rmsnorm"] == 8 * norms
+
+
+# ---------------------------------------------------------------------------
+# the RG-LRU hybrid and Whisper: head dim 256, query and key lengths apart
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hkv,causal,window,dt",
+    [(1, 1000, 16, 1, True, 0, "bf16"), (1, 2048, 16, 1, True, 512, "bf16"),   # recurrentgemma
+     (2, 300, 4, 2, False, 0, "bf16"), (1, 77, 4, 1, True, 0, "bf16"),
+     (1, 640, 2, 1, False, 100, "bf16"), (1, 300, 4, 1, True, 64, "f32"),
+     (2, 129, 4, 2, False, 0, "f32"), (1, 1000, 16, 1, True, 0, "f32")],
+)
+def test_flash_kernel_head_dim_256_on_card(cuda, b, s, h, hkv, causal, window, dt):
+    """bfloat16: one consumer warpgroup of 64 rows, 64-key tiles; float32: the
+    SIMT kernel with its 198,656 bytes of shared memory."""
+    q = _randn((b, s, h, 256), dt, cuda, 1).transpose(1, 2)
+    k = _randn((b, s, hkv, 256), dt, cuda, 2).transpose(1, 2)
+    v = _randn((b, s, hkv, 256), dt, cuda, 3).transpose(1, 2)
+    before = tk.launch_counts()["flash_attention"]
+    got, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    want, want_lse = flash_attention_plain(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape and got.stride() == q.stride()
+    assert _attn_close(got, want), _max_abs(got, want)
+    assert float(((lse - want_lse).abs() / (1 + want_lse.abs())).max()) <= 1e-5
+    assert tk.launch_counts()["flash_attention"] == before + 1
+
+
+@pytest.mark.parametrize(
+    "b,sq,sk,h,hkv,d,causal,window,dt",
+    [(2, 448, 1500, 12, 12, 64, False, 0, "bf16"),     # Whisper's cross-attention
+     (2, 100, 1500, 12, 12, 64, True, 0, "bf16"), (2, 1500, 448, 4, 4, 64, False, 0, "bf16"),
+     (1, 70, 300, 4, 2, 256, True, 0, "bf16"), (2, 33, 1000, 8, 2, 128, False, 0, "bf16"),
+     (2, 448, 1500, 4, 4, 64, False, 0, "f32"), (1, 70, 300, 4, 2, 32, False, 16, "f32"),
+     (1, 1, 1500, 12, 12, 64, False, 0, "bf16")],
+)
+def test_flash_kernel_cross_lengths_on_card(cuda, b, sq, sk, h, hkv, d, causal, window, dt):
+    """S_q queries against S_k keys, positions from 0 on both axes: the output
+    and the (B, H, S_q) logsumexp against the plain version."""
+    q = _randn((b, sq, h, d), dt, cuda, 1).transpose(1, 2)
+    k = _randn((b, sk, hkv, d), dt, cuda, 2).transpose(1, 2)
+    v = _randn((b, sk, hkv, d), dt, cuda, 3).transpose(1, 2)
+    got, lse = flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    want, want_lse = flash_attention_plain(q, k, v, causal=causal, window=window, return_lse=True)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, sq, d) and lse.shape == (b, h, sq)
+    assert _attn_close(got, want), _max_abs(got, want)
+    assert float(((lse - want_lse).abs() / (1 + want_lse.abs())).max()) <= 1e-5
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hkv,dt,lens",
+    [(8, 2048, 16, 1, "bf16", "spread"), (3, 700, 16, 1, "f32", [0, 350, 700]),
+     (2, 513, 8, 2, "bf16", [1, 513]), (4, 2048, 16, 1, "bf16", [-1, 2048, 2049, 17]),
+     (1, 100, 4, 4, "f32", [100])],
+)
+def test_decode_kernel_head_dim_256_on_card(cuda, b, s, h, hkv, dt, lens):
+    """16 threads a slot; g = 16 (recurrentgemma's MQA) runs as 4 groups of 4."""
+    q = _randn((b, h, 256), dt, cuda, 4)
+    kc, vc = _randn((b, s, hkv, 256), dt, cuda, 5), _randn((b, s, hkv, 256), dt, cuda, 6)
+    if lens == "spread":
+        lens = np.linspace(1, s, b).astype(int).tolist()
+    vl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = tk.launch_counts()["decode_attention"]
+    got, want = decode_attention(q, kc, vc, vl), decode_attention_plain(q, kc, vc, vl)
+    torch.cuda.synchronize()
+    assert _attn_close(got, want), _max_abs(got, want)
+    assert tk.launch_counts()["decode_attention"] == before + 1
+
+
+@pytest.mark.parametrize("arch,kw", [("recurrentgemma-9b", {}),
+                                     ("recurrentgemma-9b", {"d_model": 512, "num_heads": 2,
+                                                            "lru_width": 512}),
+                                     ("whisper-small", {})])
+def test_hybrid_and_whisper_on_card_match_cpu(cuda, arch, kw):
+    """A float32 smoke config (recurrentgemma also at head dim 256) from the
+    same parameters on the card and the CPU: forward logits, 40 decode steps
+    through a 48-slot cache (the 32-slot local ring wraps; Whisper's cross
+    cache filled from an encoding on each side), every cache leaf within 1e-4
+    of the largest |value|, and the loss within 1e-5, with exact launches."""
+    from repro_torch.models.whisper import fill_cross_cache, whisper_encode
+
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32, **kw)
+    api = build_model(cfg)
+    on_cpu = api.init_params(0, device="cpu")
+    with torch.no_grad():
+        for p in on_cpu.parameters():
+            if p.dim() == 1:                                   # norm scales, biases, Λ
+                p.add_(torch.randn(p.shape, generator=torch.Generator().manual_seed(p.numel())))
+    on_card = copy.deepcopy(on_cpu).to(cuda)
+    r = np.random.default_rng(0)
+    encdec = cfg.family == "encdec"
+    if encdec:
+        batch = {"enc_frames": torch.from_numpy(r.standard_normal((2, 96, cfg.d_model))
+                                                .astype(np.float32)),
+                 "dec_tokens": torch.from_numpy(r.integers(0, cfg.vocab_size, (2, 40)))}
+        labels = (2, 40)
+        n_flash, norms, n_dec, dec_norms = (3 * cfg.num_layers, 5 * cfg.num_layers + 2,
+                                            2 * cfg.num_layers, 3 * cfg.num_layers + 1)
+    else:
+        batch = {"tokens": torch.from_numpy(r.integers(0, cfg.vocab_size, (2, 100)))}
+        labels = (2, 100)
+        n_flash = n_dec = 1
+        norms = dec_norms = 2 * cfg.num_layers + 1
+    tk.reset_launch_counts()
+    got = api.forward(on_card, batch)
+    want = api.forward(on_cpu, batch)
+    assert _max_abs(got.cpu(), want) <= 1e-4 * float(want.abs().max())
+    assert tk.launch_counts()["flash_attention"] == n_flash
+    assert tk.launch_counts()["rmsnorm"] == norms
+    enc_len = (96,) if encdec else ()
+    caches = [api.init_cache(2, 48, *enc_len, device=d) for d in (cuda, "cpu")]
+    if encdec:
+        with torch.no_grad():
+            for cache, params in zip(caches, (on_card, on_cpu)):
+                enc = whisper_encode(params, batch["enc_frames"].to(params.device), cfg)
+                fill_cross_cache(params, cache, enc, cfg)
+    tk.reset_launch_counts()
+    for t in range(40):
+        step = {"pos": torch.tensor([t, t + 3], dtype=torch.int32),
+                "tokens": torch.from_numpy(r.integers(0, cfg.vocab_size, (2,)))}
+        got, _ = api.decode_step(on_card, caches[0], step)
+        want, _ = api.decode_step(on_cpu, caches[1], step)
+        assert _max_abs(got.cpu(), want) <= 1e-4 * float(want.abs().max()), t
+    for key, w in caches[1].items():
+        assert _max_abs(caches[0][key].cpu(), w) <= 1e-4 * float(w.abs().max()), key
+    assert tk.launch_counts()["decode_attention"] == 40 * n_dec
+    assert tk.launch_counts()["rmsnorm"] == 40 * dec_norms
+    batch["labels"] = torch.from_numpy(r.integers(0, cfg.vocab_size, labels))
+    with torch.no_grad():
+        losses = [float(api.loss_fn(p, batch)) for p in (on_card, on_cpu)]
+    assert abs(losses[0] - losses[1]) <= 1e-5 * losses[1], losses

@@ -9,8 +9,8 @@
     engine ``repro_torch.sim`` and the host solver touch no device), the
     orchestration layer's ``ElasticScheduler``, ``run_scenario`` and
     ``run_sweep``, the LM trainer's ``init_train_state`` and
-    ``launch.train``, and the serve launcher and cache of the MoE, Mamba-2
-    and VLM families included.
+    ``launch.train``, and the serve launcher and cache of the MoE, Mamba-2,
+    VLM, RG-LRU hybrid and Whisper models included.
 """
 
 import ast
@@ -66,6 +66,7 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.train.trainer, repro_torch.train.optim, repro_torch.launch.train\n"
         "import repro_torch.ckpt, repro_torch.ckpt.checkpoint, repro_torch.models.attention\n"
         "import repro_torch.data.synthetic, repro_torch.models.moe, repro_torch.models.ssm\n"
+        "import repro_torch.models.rglru, repro_torch.models.whisper\n"
         "repro_torch.scenarios.list_scenarios()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'repro'"
         " or m.split('.')[0].startswith('jax'))\n"
@@ -98,7 +99,9 @@ def test_sources_import_no_jax_and_no_repro():
                  "scenarios/__main__.py", "train/trainer.py", "train/optim.py",
                  "ckpt/checkpoint.py", "launch/train.py", "models/attention.py",
                  "models/moe.py", "models/ssm.py", "configs/mixtral_8x7b.py",
-                 "configs/olmoe_1b_7b.py", "configs/mamba2_1_3b.py", "configs/qwen2_vl_72b.py"):
+                 "configs/olmoe_1b_7b.py", "configs/mamba2_1_3b.py", "configs/qwen2_vl_72b.py",
+                 "models/rglru.py", "models/whisper.py", "configs/recurrentgemma_9b.py",
+                 "configs/whisper_small.py"):
         assert PORT / name in files
     for path in files:
         bad = [n for n in _imports(path) if _forbidden(n)]
@@ -162,6 +165,15 @@ ENTRY_POINTS = {
                                                        "--batch", "1", "--tokens", "1"]),
     "build_model(mamba2).init_cache": lambda tg, cg: build_model(
         get_smoke_config("mamba2-1.3b")).init_cache(1, 8),
+    "serve.main(recurrentgemma)": lambda tg, cg: serve.main(["--arch", "recurrentgemma-9b",
+                                                             "--smoke", "--batch", "1",
+                                                             "--tokens", "1"]),
+    "serve.main(whisper)": lambda tg, cg: serve.main(["--arch", "whisper-small", "--smoke",
+                                                      "--batch", "1", "--tokens", "1"]),
+    "build_model(whisper).init_params": lambda tg, cg: build_model(
+        get_smoke_config("whisper-small")).init_params(0),
+    "build_model(whisper).init_cache": lambda tg, cg: build_model(
+        get_smoke_config("whisper-small")).init_cache(1, 8),
     "train.main": lambda tg, cg: train_launcher.main(["--smoke", "--steps", "1", "--seq", "8"]),
     "init_train_state": lambda tg, cg: init_train_state(_lm(), AdamW()),
     "ElasticScheduler": lambda tg, cg: ElasticScheduler(tg, cg, method="heft"),

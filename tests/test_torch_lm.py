@@ -13,7 +13,9 @@ the same tokens go through both.  Smoke configs of qwen3-8b (q/k norms, GQA
   - the port's decode against its own teacher-forced forward
     (tests/test_decode_paths.py::test_decode_matches_forward_next_token);
   - a sliding-window ring buffer that wraps twice;
-  - the CPU serve launcher end to end.
+  - the CPU serve launcher end to end;
+  - every full config's parameter count against ``repro``'s, and an
+    unknown block kind refused.
 
 Tolerances: float32 logits and caches within 1e-4 of the largest |value|;
 bfloat16 logits within 5e-2 of the largest |logit| (both sides round
@@ -185,26 +187,25 @@ def test_greedy_decode_writes_the_cache_in_place():
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "granite-3-2b", "mistral-nemo-12b",
                                   "mistral-large-123b", "mixtral-8x7b", "olmoe-1b-7b",
-                                  "mamba2-1.3b", "qwen2-vl-72b"])
+                                  "mamba2-1.3b", "qwen2-vl-72b", "recurrentgemma-9b",
+                                  "whisper-small"])
 def test_full_config_parameter_count_matches_repro(arch):
     from repro.configs import get_config as repro_get_config
+
+    from repro_torch.models import Whisper
 
     rcfg = repro_get_config(arch)
     shapes = jax.eval_shape(lambda: repro_build_model(rcfg).init_params(jax.random.PRNGKey(0)))
     want = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(shapes))
-    model = LM(get_config(arch), torch.device("meta"))
+    cfg = get_config(arch)
+    model = (Whisper if cfg.family == "encdec" else LM)(cfg, torch.device("meta"))
     assert sum(p.numel() for p in model.parameters()) == want
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "whisper-small"])
-def test_other_families_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
-
-
 def test_unported_members_raise():
+    """Every block kind of ``repro`` is ported; an unknown one raises, as
+    ``repro``'s ``init_block_params`` does."""
     _, pcfg = _configs("granite-3-2b")
-    for kw in ({"block_pattern": ("rglru",)}, {"block_pattern": ("rglru", "rglru", "local_attn")},
-               {"block_pattern": ("local_attn",)}, {"family": "encdec"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(pcfg.replace(**kw))
+    for pattern in (("mlstm",), ("rglru", "conv"), ("attn", "ssm", "moe")):
+        with pytest.raises(ValueError, match="unknown block kind"):
+            build_model(pcfg.replace(block_pattern=pattern))

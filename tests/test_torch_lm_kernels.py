@@ -3,9 +3,11 @@
 mode, on the same numpy inputs.
 
 The cases are those of tests/test_kernels.py, plus ragged S (no Pallas
-block divides it: oracle only), group sizes g ∈ {1, 2, 4}, sliding windows,
-and valid_len ∈ {1, S} (and 0, where every logit is −1e30 and both sides
-return the mean of v).  Tolerances are tests/test_kernels.py's: float32
+block divides it: oracle only), group sizes g ∈ {1, 2, 4, 16}, sliding
+windows, head dim 256 (recurrentgemma-9b), query and key lengths that
+differ (Whisper's cross-attention, S_q decoder rows against S_k encoder
+frames, positions from 0 on both axes), and valid_len ∈ {1, S} (and 0,
+where every logit is −1e30 and both sides return the mean of v).  Tolerances are tests/test_kernels.py's: float32
 atol 2e-5; bfloat16 atol 2e-2 (3e-2 for decode attention and RMSNorm).  On
 a CPU tensor each wrapper runs its plain version and counts no launch; the
 kernels themselves run on the card (tests/test_torch_card.py).
@@ -65,6 +67,10 @@ FLASH_CASES = [
     (2, 97, 4, 2, 32, False, 0, "bf16", 0),
     (1, 300, 8, 2, 64, True, 64, "f32", 0),
     (1, 130, 2, 1, 128, False, 40, "f32", 0),
+    # head dim 256 (recurrentgemma-9b: MQA, a local window)
+    (1, 256, 4, 1, 256, True, 64, "f32", 128),
+    (1, 256, 2, 2, 256, False, 0, "bf16", 128),
+    (1, 200, 16, 1, 256, True, 0, "bf16", 0),
 ]
 
 
@@ -83,6 +89,35 @@ def test_flash_attention_plain_matches_ref_and_pallas(b, s, h, hkv, d, causal, w
         pallas = flash_attention_fwd(qj, kj, vj, causal=causal, window=window,
                                      block_q=block, block_k=block, interpret=True)
         np.testing.assert_allclose(_np(got), _np(pallas), atol=atol)
+
+
+CROSS_CASES = [
+    # b, sq, sk, h, hkv, d, causal, window, dt, pallas block (0: oracle only)
+    (2, 128, 384, 4, 4, 64, False, 0, "f32", 128),       # decoder rows over encoder frames
+    (1, 384, 128, 4, 2, 32, False, 0, "bf16", 128),
+    (1, 128, 256, 2, 1, 256, True, 0, "f32", 128),
+    (2, 48, 150, 4, 4, 64, False, 0, "f32", 0),          # ragged: Whisper's 1,500 frames cut
+    (1, 40, 70, 4, 2, 16, True, 8, "bf16", 0),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal,window,dt,block", CROSS_CASES)
+def test_flash_attention_plain_cross_lengths_match_ref_and_pallas(b, sq, sk, h, hkv, d, causal,
+                                                                  window, dt, block):
+    seed = b * 1000 + sq + sk + d
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(_randn(seed + i, *shape), dt) for i, shape in
+                                    enumerate([(b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d)]))
+    atol = 2e-2 if dt == "bf16" else 2e-5
+    got = flash_attention(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == qt.dtype and got.shape == (b, h, sq, d)
+    want = kref.flash_attention_ref(qj, kj, vj, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), atol=atol)
+    if block:
+        pallas = flash_attention_fwd(qj, kj, vj, causal=causal, window=window,
+                                     block_q=block, block_k=block, interpret=True)
+        np.testing.assert_allclose(_np(got), _np(pallas), atol=atol)
+    _, lse = flash_attention(qt, kt, vt, causal=causal, window=window, return_lse=True)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
 
 
 def _attn_share(got, want) -> float:
@@ -141,6 +176,8 @@ DECODE_CASES = [
     (2, 256, 4, 1, 128, "bf16"),
     (3, 384, 4, 2, 16, "f32"),
     (2, 128, 8, 4, 128, "bf16"),
+    (2, 256, 16, 1, 256, "bf16"),     # recurrentgemma-9b: g = 16, head dim 256
+    (1, 384, 4, 2, 256, "f32"),
 ]
 
 
@@ -216,8 +253,10 @@ def test_wrappers_run_plain_versions_on_cpu_and_count_nothing():
         lambda: rmsnorm(torch.zeros(4, 8), torch.zeros(7)),
         lambda: flash_attention(torch.zeros(1, 4, 8, 16), torch.zeros(1, 3, 8, 16),
                                 torch.zeros(1, 3, 8, 16)),
-        lambda: flash_attention(torch.zeros(1, 4, 8, 16), torch.zeros(1, 2, 9, 16),
-                                torch.zeros(1, 2, 9, 16)),
+        lambda: flash_attention(torch.zeros(1, 4, 8, 16), torch.zeros(1, 2, 8, 32),
+                                torch.zeros(1, 2, 8, 32)),
+        lambda: flash_attention(torch.zeros(1, 4, 9, 16), torch.zeros(1, 2, 8, 16),
+                                torch.zeros(1, 2, 8, 16), window=4),
         lambda: flash_attention(torch.zeros(1, 4, 8, 16), torch.zeros(1, 2, 8, 16),
                                 torch.zeros(1, 2, 8, 16), window=-1),
         lambda: decode_attention(torch.zeros(2, 4, 16), torch.zeros(2, 8, 2, 16),
