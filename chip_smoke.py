@@ -55,7 +55,10 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      call's (``F.rms_norm``, ``F.scaled_dot_product_attention``); the bfloat16
      flash kernels' registers and spills (``ptxas -v``), a check that their
      SASS holds wgmma (HGMMA) and TMA loads (UTMALDG), and flash's TFLOP/s
-     on the counted work and on the tensor cores' (1.5×);
+     on the counted work and on the tensor cores' (1.5×); the decode
+     kernels' registers and spills, a check that every bfloat16 one holds
+     mma.sync (HMMA) and every one cp.async (LDGSTS), and each decode
+     check's second call bit-equal to its first;
  11. LM serve path: qwen3-8b at full width in bfloat16 through
      ``build_model`` and ``repro_torch.launch.serve``: (a) the launcher's
      default request, 8 sequences × 32 greedy tokens with a 256-slot cache;
@@ -998,6 +1001,17 @@ def library_ms(fn, arg_sets, reps: int):
         return None
 
 
+def library_sass() -> str:
+    """``cuobjdump -sass`` of the built kernel library (read once)."""
+    from repro_torch.kernels import build
+
+    if not hasattr(library_sass, "text"):
+        library_sass.text = subprocess.run(
+            [build.tool("cuobjdump"), "-sass", str(build.library_path())], capture_output=True,
+            text=True, check=True, timeout=300).stdout
+    return library_sass.text
+
+
 def flash_build_lines() -> None:
     """What the build made of the bfloat16 flash kernels: ``ptxas -v``'s
     registers, stack and spills, and the SASS opcodes that show the tensor
@@ -1019,10 +1033,8 @@ def flash_build_lines() -> None:
             print(f"ptxas {cur}: {line.split(':', 1)[-1].strip()} (at launch; the consumer "
                   f"warpgroups raise theirs to 240 with setmaxnreg); {spills}", flush=True)
             cur = None
-    sass = subprocess.run([build.tool("cuobjdump"), "-sass", str(build.library_path())],
-                          capture_output=True, text=True, check=True, timeout=300).stdout
     found = {}
-    for block in sass.split("Function : ")[1:]:
+    for block in library_sass().split("Function : ")[1:]:
         m = re.match(r"\S*flash_bf16_kernelILi(\d+)E", block)
         if m:
             found[int(m.group(1))] = {op: len(re.findall(rf"\b{op}\b", block))
@@ -1033,12 +1045,57 @@ def flash_build_lines() -> None:
           f"the bfloat16 flash kernels lack wgmma (HGMMA) or TMA loads (UTMALDG): {found}")
 
 
+DECODE_KERNEL = r"decode_(bf16|f32)_kernelILi(\d+)E(?:Li(\d+)E)?"
+
+
+def decode_kernel_name(m) -> str:
+    return f"decode_{m.group(1)}_kernel<{m.group(2)}{', ' + m.group(3) if m.group(3) else ''}>"
+
+
+def decode_build_lines() -> dict:
+    """What the build made of the decode kernels: ``ptxas -v``'s registers,
+    stack and spills of every instantiation, and the SASS opcodes of the
+    design: mma.sync (HMMA) in every bfloat16 one (D = 16 … 256), cp.async
+    copies (LDGSTS) in every one.  Fails on a missing opcode or a spill."""
+    import re
+
+    from repro_torch.kernels import build
+
+    cur, spilled = None, []
+    for line in build.ptxas_log("decode_attention").splitlines():
+        m = re.search(rf"entry function '\S*{DECODE_KERNEL}\S*'", line)
+        if m:
+            cur, spills = decode_kernel_name(m), ""
+        elif cur and "spill" in line:
+            spills = line.strip()
+            if re.search(r"[1-9]\d* bytes spill", spills):
+                spilled.append(cur)
+        elif cur and "Used" in line:
+            print(f"ptxas {cur}: {line.split(':', 1)[-1].strip()}; {spills}", flush=True)
+            cur = None
+    found = {}
+    for block in library_sass().split("Function : ")[1:]:
+        m = re.match(rf"\S*{DECODE_KERNEL}", block)
+        if m:
+            found[decode_kernel_name(m)] = {op: len(re.findall(rf"\b{op}\b", block))
+                                            for op in ("HMMA", "LDGSTS")}
+    print(f"sass decode kernels: {found}", flush=True)
+    bf16 = {k: v for k, v in found.items() if "bf16" in k}
+    check(len(bf16) == 5 and all(c["HMMA"] for c in bf16.values()),
+          f"the bfloat16 decode kernels lack mma.sync (HMMA): {found}")
+    check(len(found) == 20 and all(c["LDGSTS"] for c in found.values()),
+          f"the decode kernels lack cp.async copies (LDGSTS): {found}")
+    check(not spilled, f"decode kernels spill: {spilled}")
+    return found
+
+
 def lm_kernel_phase(dev, gen) -> list[dict]:
     """The LM kernels against their plain versions; their times at the serve
     path's shapes (qwen3-8b: d_model 4096, 32 heads, 8 kv heads, head_dim 128)."""
     import torch.nn.functional as F
 
     flash_build_lines()
+    decode_build_lines()
 
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
@@ -1087,8 +1144,10 @@ def lm_kernel_phase(dev, gen) -> list[dict]:
         share = attn_share(got, want)
         check(share <= 1, f"decode_attention S={S_} {dt}: max abs err {max_abs(got, want)}, "
               f"{share:.3f} of its bound")
+        check(torch.equal(decode_attention(q, kc, vc, lens_), got),
+              f"decode_attention S={S_} {dt}: a second call differs")
         print(f"kernel check decode_attention B=8 S={S_} valid_len {lens_.tolist()} {dt}: ok, "
-              f"{share:.3f} of the bound", flush=True)
+              f"{share:.3f} of the bound; bit-equal on a second call", flush=True)
         del q, kc, vc, got, want
     torch.cuda.empty_cache()
 
@@ -1171,6 +1230,8 @@ def lm_kernel_phase(dev, gen) -> list[dict]:
     got, want = decode_attention(q, kc, vc, lens), decode_attention_plain(q, kc, vc, lens)
     err, share = max_abs(got, want), attn_share(got, want)
     check(share <= 1, f"decode_attention B=8 S={S}: max abs err {err}, {share:.3f} of its bound")
+    check(torch.equal(decode_attention(q, kc, vc, lens), got),
+          f"decode_attention B=8 S={S}: a second call differs")
     valid = int(lens.sum())
     b, by = bound_ms(2 * (2 * valid * 8 * D + 2 * 8 * H * D) + 4 * 8, 4 * H * D * valid,
                      BF16_FLOPS)
@@ -2937,7 +2998,7 @@ def kernel_split(prof) -> dict:
         n = e.name.lower()
         if "flash_" in n:
             k = "flash_attention"
-        elif "decode_split" in n or "decode_combine" in n:
+        elif "decode_bf16_kernel" in n or "decode_f32_kernel" in n:
             k = "decode_attention"
         elif "rmsnorm" in n:
             k = "rmsnorm"
@@ -3046,6 +3107,8 @@ def lm_shape_part(dev, gen, flash, decode, norm) -> dict[str, dict]:
         share, err = attn_share(got, want), max_abs(got, want)
         check(share <= 1, f"decode_attention {label} S={S}: max abs err {err}, {share:.3f} of "
               "its bound")
+        check(torch.equal(decode_attention(q, kc, vc, lens), got),
+              f"decode_attention {label} S={S}: a second call differs")
         valid = int(lens.sum())
         b, by = bound_ms(2 * (2 * valid * Hkv * D + 2 * B * H * D) + 4 * B, 4 * H * D * valid,
                          BF16_FLOPS)
@@ -3059,7 +3122,8 @@ def lm_shape_part(dev, gen, flash, decode, norm) -> dict[str, dict]:
         lib = library_ms(lib_call, sets, 50)
         times["decode_attention"][f"{label} S={S}"] = {"ms": ms, "bound_ms": b, "library_ms": lib}
         print(f"kernel check decode_attention {label} B={B} H={H} Hkv={Hkv} S={S} D={D} valid "
-              f"{lens.tolist()} bf16: {share:.3f} of the bound, max abs err {err:.3g}; "
+              f"{lens.tolist()} bf16: {share:.3f} of the bound, max abs err {err:.3g}, "
+              f"bit-equal on a second call; "
               f"{ms * 1e3:.2f} us (bound {b * 1e3:.2f} us, {by}), SDPA with a mask "
               f"{'n/a' if lib is None else '%.2f us' % (lib * 1e3)}", flush=True)
         del sets, q, kc, vc, got, want

@@ -1,13 +1,13 @@
 """Time this tree's ``gossip_mix_all``, ``gossip_mix_block``, ``sdp_subspace``,
-``rank_k_update``, ``bottleneck_eval``, ``topk_mask``, ``int8_roundtrip`` and
-``flash_attention`` kernels against another tree's (the parent commit's) on
-one card, in turns.
+``rank_k_update``, ``bottleneck_eval``, ``topk_mask``, ``int8_roundtrip``,
+``flash_attention`` and ``decode_attention`` kernels against another tree's
+(the parent commit's) on one card, in turns.
 
     git archive <parent> src/repro_torch/kernels | tar -x -C build/parent
     python3 scripts/kernel_ab.py build/parent/src/repro_torch/kernels/csrc [groups]
 
 The other tree's ``gossip_mix.cu``, ``sdp_proj.cu``, ``bottleneck.cu``,
-``compress.cu`` and ``flash_attention.cu`` are
+``compress.cu``, ``flash_attention.cu`` and ``decode_attention.cu`` are
 compiled by their own ``nvcc`` (the flags of ``repro_torch.kernels.build``) into
 ``build/kernel_ab/`` and called through their C entry points, with the
 signatures that the other tree's own ``build.py`` (beside its ``csrc``)
@@ -46,11 +46,17 @@ cold), beside ``torch.matmul`` for the exchange:
     2, S = 4096) and the prefill's (B = 1, S = 32,768), H = 32, Hkv = 8, D =
     128: the other tree's C entry (with a null logsumexp pointer where it
     takes one) against this tree's wrapper without and with the logsumexp
-    output, the three outputs bit-equal.
+    output, the three outputs bit-equal;
+  - ``decode_attention``, bfloat16, B = 8, at the eight shapes of PERF.md row
+    10 (``DECODE_SHAPES``): the other tree's C entry (sized by its own
+    ``decode_attention_splits`` where it has one, else by this tree's
+    ``decode_plan``) against this tree's wrapper, beside one SDPA call with
+    a boolean mask; the two outputs within ``chip_smoke.attn_share``'s bound
+    of each other and of the plain version.
 
 A second argument picks groups of rows, comma-separated: ``exchange`` (rows
 4, 5), ``scheduler`` (rows 1-3), ``compression`` (rows 7, 8), ``attention``
-(row 9); all by default.
+(row 9), ``decode`` (row 10); all by default.
 
 Every result is also checked against the plain version (relative 1e-5;
 ``bottleneck_eval`` to the float32 rounding of its machine loads).
@@ -69,11 +75,20 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "src"))
+sys.path.insert(0, str(REPO))
+
+from chip_smoke import attn_share, bound_ms  # noqa: E402
 
 from repro_torch.fl.cnn import init_cnn_params  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bottleneck import bottleneck_eval, bottleneck_eval_plain  # noqa: E402
 from repro_torch.kernels.compress import int8_roundtrip_plain, topk_mask_plain  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention,
+    decode_attention_plain,
+    decode_plan,
+    sm_count,
+)
 from repro_torch.kernels.gossip_mix import (  # noqa: E402
     gossip_mix_all,
     gossip_mix_all_plain,
@@ -93,8 +108,22 @@ OUT = REPO / "build" / "kernel_ab"
 ENTRIES = ("gossip_mix_all_f32", "gossip_mix_all_scratch_floats", "gossip_mix_block_f32",
            "gossip_mix_block_scratch_floats", "sdp_subspace_f32", "sdp_subspace_scratch_floats",
            "rank_k_update_f32", "topk_mask_f32", "int8_roundtrip_f32", "bottleneck_eval",
-           "flash_attention")
-SOURCES = ("gossip_mix", "sdp_proj", "compress", "bottleneck", "flash_attention")
+           "flash_attention", "decode_attention", "decode_attention_splits")
+SOURCES = ("gossip_mix", "sdp_proj", "compress", "bottleneck", "flash_attention",
+           "decode_attention")
+# row 10's shapes (PERF.md §6): label, B, H, Hkv, S, D, lengths ("spread": 1..S
+# over the batch, "full": S each, "phase 10": 32,737 − 4,096·b, chip_smoke.py
+# phase 10's)
+DECODE_SHAPES = (
+    ("recurrentgemma ring g=16 D=256 S=2048", 8, 16, 1, 2048, 256, "spread"),
+    ("qwen2-vl g=8 S=256", 8, 64, 8, 256, 128, "spread"),
+    ("qwen2-vl g=8 S=4096", 8, 64, 8, 4096, 128, "spread"),
+    ("whisper self g=1 D=64 S=448", 8, 12, 12, 448, 64, "spread"),
+    ("olmoe g=1 S=256", 8, 16, 16, 256, 128, "spread"),
+    ("whisper cross g=1 D=64 S=1500", 8, 12, 12, 1500, 64, "full"),
+    ("olmoe g=1 S=4096", 8, 16, 16, 4096, 128, "spread"),
+    ("qwen3-8b g=4 S=32768", 8, 32, 8, 32768, 128, "phase 10"),
+)
 
 
 def parent_signatures(csrc: Path) -> dict:
@@ -501,8 +530,82 @@ def attention_ab(old, gen, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def decode_lengths(kind: str, B: int, S: int, dev) -> torch.Tensor:
+    if kind == "full":
+        return torch.full((B,), S, dtype=torch.int32, device=dev)
+    if kind == "phase 10":
+        return (32736 - 4096 * torch.arange(B, device=dev) + 1).to(torch.int32)
+    return torch.linspace(1, S, B, device=dev).round().to(torch.int32)
+
+
+def decode_sets(gen, dev, B, H, Hkv, S, D, lens) -> list:
+    """Distinct bfloat16 (q, k, v, lengths) sets, more bytes than twice the L2."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+    n = max(2, -(-100_000_000 // (2 * B * S * Hkv * D * 2)))
+    return [(randn(B, H, D), randn(B, S, Hkv, D), randn(B, S, Hkv, D), lens) for _ in range(n)]
+
+
+def decode_bound(B, H, Hkv, D, lens) -> tuple[float, str]:
+    """chip_smoke.py's bound: the live slots' k and v, q and out, the lengths."""
+    valid = int(lens.clamp(min=0).sum())
+    return bound_ms(2 * (2 * valid * Hkv * D + 2 * B * H * D) + 4 * B, 4 * H * D * valid, 989e12)
+
+
+def decode_ab(old, gen, dev) -> None:
+    """Row 10: the other tree's decode kernel (through its C entry and its own
+    scratch sizing) against this tree's wrapper, beside SDPA with a mask."""
+    import math
+
+    fn = old.decode_attention
+    chunked = len(fn.argtypes) == 17       # q … out, pacc, pml, tickets, B … D, chunk, …
+    tickets = torch.zeros(1 << 16, dtype=torch.int32, device=dev)
+
+    def parent(q, k, v, lens):
+        B, H, D = q.shape
+        S, Hkv = k.shape[1], k.shape[2]
+        out = torch.empty_like(q)
+        if chunked:
+            plan = decode_plan(B, H, Hkv, S, D, sm_count(dev.index))
+            n, extra = plan.splits, ([tickets.data_ptr()], [plan.chunk])
+        else:
+            n, extra = old.decode_attention_splits(S), ([], [])
+        pa = torch.empty((B, H, n, D), dtype=torch.float32, device=dev)
+        pm = torch.empty((B, H, n, 2), dtype=torch.float32, device=dev)
+        build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                       pa.data_ptr(), pm.data_ptr(), *extra[0], B, H, Hkv, S, D, *extra[1],
+                       1.0 / math.sqrt(D), 1, stream()), "parent decode_attention")
+        return out
+
+    for label, B, H, Hkv, S, D, kind in DECODE_SHAPES:
+        lens = decode_lengths(kind, B, S, dev)
+        sets = decode_sets(gen, dev, B, H, Hkv, S, D, lens)
+        a, b = parent(*sets[0]), decode_attention(*sets[0])
+        want = decode_attention_plain(*sets[0])
+        shares = (attn_share(b, a), attn_share(a, b), attn_share(b, want), attn_share(a, want))
+        if max(shares) > 1:
+            raise SystemExit(f"ab decode_attention {label}: outputs apart, attn_share {shares}")
+        mask = (torch.arange(S, device=dev)[None] < lens[:, None])[:, None, None]
+
+        def sdpa(q, k, v, _lens):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+                enable_gqa=True)
+        reps = 20 if S >= 32768 else 200
+        plan = decode_plan(B, H, Hkv, S, D, sm_count(dev.index))
+        bound, by = decode_bound(B, H, Hkv, D, lens)
+        print(f"ab decode_attention {label}: lengths {lens.tolist()}, plan {tuple(plan)}; "
+              f"attn_share change/parent {shares[0]:.3f}, parent/change {shares[1]:.3f}, "
+              f"change/plain {shares[2]:.3f}, parent/plain {shares[3]:.3f}; bound "
+              f"{bound * 1e3:.2f} us ({by}); SDPA with a mask {device_us(sdpa, sets, reps):.2f} us",
+              flush=True)
+        turns(f"decode_attention {label}", parent, decode_attention, sets, reps)
+        del sets, a, b, want, mask
+        torch.cuda.empty_cache()
+
+
 GROUPS = {"exchange": exchange_ab, "scheduler": scheduler_ab, "compression": compression_ab,
-          "attention": attention_ab}
+          "attention": attention_ab, "decode": decode_ab}
 
 
 def main() -> int:

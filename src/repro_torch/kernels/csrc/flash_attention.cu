@@ -413,24 +413,9 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// p = hi + lo + r with hi = bf16(p), lo = bf16(p − hi), |r| ≤ 2^-17 |p|
-// (kernels/flash_attention.py split_bf16).
-__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
-}
+using lm::ex2;
+using lm::pack_bf16;
+using lm::split_bf16;
 
 // d (+)= a · bᵀ, m64n32k16: a (64 × 16) and b (32 × 16) K-major in shared memory
 // (descriptors), accumulate unless scale_d is 0.

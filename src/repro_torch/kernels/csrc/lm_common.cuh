@@ -2,11 +2,13 @@
 // decode_attention.cu): loads of 4, 8 or 16 bytes of float32 or bfloat16 as
 // 32-bit words, their conversion to float32, and the packing of float32
 // results back into the stored type (round to nearest even, as PyTorch's
-// and XLA's casts).
+// and XLA's casts); the base-2 exponential and the two-part bfloat16 split of
+// the probabilities that the tensor-core attention kernels multiply by v.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cstdint>
 
 namespace lm {
 
@@ -87,6 +89,25 @@ __device__ __forceinline__ void store_f32(T* p, const float* f) {
 #pragma unroll
   for (int i = 0; i < W; ++i) Words<T>::from_f32(f + i * Words<T>::kPer, w + i, 1);
   store_words<W>(p, w);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// p = hi + lo + r with hi = bf16(p), lo = bf16(p − hi), |r| ≤ 2^-17 |p|
+// (kernels/flash_attention.py split_bf16).
+__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(p0 - __low2float(h), p1 - __high2float(h));
 }
 
 }  // namespace lm

@@ -9,15 +9,20 @@ float32 and the result ``(B, H, D)`` in q's dtype.  With ``valid_len[b] ≤
 the mean of v over all S slots, as ``repro``'s reference and TPU kernel do.
 
 ``decode_attention`` chooses by the tensor's device: on a CUDA tensor it
-launches the hand-written kernels (``csrc/decode_attention.cu``: a pass over
-splits of the cache and a pass that merges them) or raises; on a CPU tensor
-it runs ``decode_attention_plain``.  ``decode_attention.launches`` counts
-wrapper launches (one per call on the card).
+launches the hand-written kernel (``csrc/decode_attention.cu``: one launch, a
+block per (split, kv head, sequence) over all query heads of its kv head,
+the splits merged by the block that finishes last) or raises; on a CPU
+tensor it runs ``decode_attention_plain``.  ``decode_attention.launches``
+counts wrapper launches (one per call on the card).  ``decode_plan`` sizes the
+splits from the shapes and the SM count alone, so a call never reads
+``valid_len`` back to the host.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -27,6 +32,77 @@ from repro_torch.kernels.build import KernelInputError
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations (csrc/decode_attention.cu)
 NEG_INF = -1e30
+ROWS = 16            # query heads a block holds at most (kMaxRows)
+UNIT = 64            # a split is a multiple of this many slots (kUnit: 4 warps × 16)
+WAVES = 2            # blocks the grid aims at, per SM
+MERGE_FLOATS = 65536  # partial floats (splits × heads × D) the finishing block may read
+MAX_SPLITS = 32      # splits the finishing block merges at most
+BLOCK_BYTES = 131072  # bfloat16 k and v a block reads at most, where S allows
+
+
+def min_units(D: int) -> int:
+    """Units of 64 slots a split takes at least: a merge of splits costs the
+    last block ~2–3 µs on the H100, about 4 warp steps of 16 slots at D ≤ 128
+    and 2 at D = 256, so a shorter split does not pay."""
+    return 2 if D >= 256 else 4
+
+
+def max_units(D: int) -> int:
+    """Units of 64 slots a split takes at most: BLOCK_BYTES of bfloat16 k and
+    v.  Smaller blocks balance lengths that differ across the batch; ~128 KB
+    a block was the fastest or within 5 % of it at every shape timed
+    (``scripts/decode_plan_sweep.py``)."""
+    return max(min_units(D), BLOCK_BYTES // (4 * D * UNIT))
+
+
+class DecodePlan(NamedTuple):
+    chunk: int         # slots a split (a multiple of UNIT)
+    splits: int        # ceil(S / chunk)
+    head_groups: int   # blocks a kv head takes, each over at most ROWS of its query heads
+
+
+def merge_cap(g: int, D: int) -> int:
+    """Splits the finishing block merges at most: MAX_SPLITS, and no more
+    than MERGE_FLOATS partial floats of its (min(g, ROWS), D) rows."""
+    return max(1, min(MAX_SPLITS, MERGE_FLOATS // (min(g, ROWS) * D)))
+
+
+def decode_plan(B: int, H: int, Hkv: int, S: int, D: int, sms: int) -> DecodePlan:
+    """The kernel's grid from the shapes and the card's SM count alone.
+
+    Splits of whole units of 64 slots, between ``min_units(D)`` and
+    ``max_units(D)`` units long, the shortest that still leave the B · Hkv ·
+    head_groups · splits blocks at least WAVES · sms, and no more than
+    ``merge_cap(g, D)`` splits, since the block that finishes last reads every
+    split's (heads, D) partial.
+    """
+    g = H // Hkv
+    groups = -(-g // ROWS)
+    units = max(1, -(-S // UNIT))
+    want = -(-WAVES * sms // (B * Hkv * groups))
+    cap = merge_cap(g, D)
+    per = min(max(units // max(want, 1), min_units(D)), max_units(D))
+    per = min(max(per, -(-units // cap)), units)
+    return DecodePlan(per * UNIT, -(-units // per), groups)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The kernel's per-(sequence, kv head, head group) counters for this
+    stream: zeroed once, and set back to zero by the block that finishes last."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -75,20 +151,30 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         raise KernelInputError("decode_attention: q and the caches must be 16-byte aligned")
     out = torch.empty_like(q)
     if B * H and S:
-        lib = build.library()
-        splits = lib.decode_attention_splits(S)
-        part_acc = torch.empty((B, H, splits, D), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((B, H, splits, 2), dtype=torch.float32, device=q.device)
-        with torch.cuda.device(q.device):
-            err = lib.decode_attention(
-                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid_len.data_ptr(),
-                out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), B, H, Hkv, S, D,
-                1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
-                torch.cuda.current_stream(q.device).cuda_stream,
-            )
-        build.check(err, "decode_attention")
+        launch(q, k_cache, v_cache, valid_len, out,
+               decode_plan(B, H, Hkv, S, D, sm_count(q.device.index)))
         decode_attention.launches += 1
     return out
+
+
+def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+           valid_len: torch.Tensor, out: torch.Tensor, plan: DecodePlan) -> None:
+    """One launch of the kernel under ``plan`` on checked CUDA inputs (the
+    wrapper's body; ``scripts/decode_plan_sweep.py`` times other plans)."""
+    B, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    lib = build.library()
+    part_acc = torch.empty((B, H, plan.splits, D), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B, H, plan.splits, 2), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        tickets = _tickets(q.device, stream, B * Hkv * plan.head_groups)
+        err = lib.decode_attention(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid_len.data_ptr(),
+            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), B, H,
+            Hkv, S, D, plan.chunk, 1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16), stream,
+        )
+    build.check(err, "decode_attention")
 
 
 decode_attention.launches = 0

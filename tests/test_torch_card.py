@@ -42,7 +42,13 @@ from repro_torch.kernels.compress import (
     topk_mask_plain,
 )
 from repro_torch.configs import get_smoke_config
-from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+from repro_torch.kernels.decode_attention import (
+    _TICKETS,
+    decode_attention,
+    decode_attention_plain,
+    decode_plan,
+    sm_count,
+)
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.gossip_mix import (
     gossip_mix,
@@ -1171,11 +1177,76 @@ def test_flash_kernel_family_shapes_on_card(cuda, b, s, h, hkv, window):
      (64, 8, 300, "f32"), (16, 16, 77, "f32")],
 )
 def test_decode_kernel_family_groups_on_card(cuda, h, hkv, s, dt):
-    """g = 1 (olmoe) and g = 8 (qwen2-vl, where the kernel takes 4 query heads
-    of a kv head at a time) over 8 sequences."""
+    """g = 1 (olmoe) and g = 8 (qwen2-vl, all 8 query heads of a kv head in
+    one block) over 8 sequences."""
     q = _randn((8, h, 128), dt, cuda, 4)
     kc, vc = _randn((8, s, hkv, 128), dt, cuda, 5), _randn((8, s, hkv, 128), dt, cuda, 6)
     vl = torch.tensor(np.linspace(1, s, 8).astype(int).tolist(), dtype=torch.int32, device=cuda)
+    got, want = decode_attention(q, kc, vc, vl), decode_attention_plain(q, kc, vc, vl)
+    torch.cuda.synchronize()
+    assert _attn_close(got, want), _max_abs(got, want)
+
+
+def _decode_lengths(b, h, hkv, s, d, dev):
+    """Lengths −1, 0, 1, a warp step (16), a unit (64), a split boundary ± 1
+    under the wrapper's plan, S − 1, S and past S, then S again up to b."""
+    chunk = decode_plan(b, h, hkv, s, d, sm_count(dev.index)).chunk
+    lens = [-1, 0, 1, 16, 64, chunk - 1, chunk + 1, s - 1, s, s + 7]
+    return (lens + [s] * b)[:b]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 16])
+def test_decode_kernel_every_group_size_on_card(cuda, g, d, dt):
+    """All g query heads of a kv head in one block, at the lengths that cross
+    its edges (4 splits of 256 slots here, 8 of 128 at D = 256, merged by the
+    block that finishes last); one launch a call, and a second call
+    bit-equal."""
+    b, hkv, s = 10, 2, 1000
+    lens = _decode_lengths(b, g * hkv, hkv, s, d, cuda)
+    q = _randn((b, g * hkv, d), dt, cuda, 40 + g)
+    kc, vc = _randn((b, s, hkv, d), dt, cuda, 41), _randn((b, s, hkv, d), dt, cuda, 42)
+    vl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = tk.launch_counts()["decode_attention"]
+    got = decode_attention(q, kc, vc, vl)
+    again = decode_attention(q, kc, vc, vl)
+    want = decode_attention_plain(q, kc, vc, vl)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert _attn_close(got, want), _max_abs(got, want)
+    assert torch.equal(got, again)
+    assert tk.launch_counts()["decode_attention"] == before + 2
+
+
+@pytest.mark.parametrize(
+    "b,s,h,hkv,d,dt",
+    [(8, 2048, 16, 1, 256, "bf16"), (8, 4096, 64, 8, 128, "bf16"), (8, 1500, 12, 12, 64, "bf16"),
+     (2, 32768, 32, 8, 128, "bf16"), (3, 2048, 16, 1, 256, "f32")],
+)
+def test_decode_kernel_same_on_every_run(cuda, b, s, h, hkv, d, dt):
+    """The serve paths' shapes (recurrentgemma's ring, qwen2-vl, Whisper's
+    cross cache, qwen3-8b at 32,768 slots): lengths spread over 1..S, ten
+    calls bit-equal, and every ticket back at zero."""
+    q = _randn((b, h, d), dt, cuda, 43)
+    kc, vc = _randn((b, s, hkv, d), dt, cuda, 44), _randn((b, s, hkv, d), dt, cuda, 45)
+    vl = torch.tensor(np.linspace(1, s, b).astype(int).tolist(), dtype=torch.int32, device=cuda)
+    first = decode_attention(q, kc, vc, vl)
+    for _ in range(9):
+        assert torch.equal(decode_attention(q, kc, vc, vl), first)
+    torch.cuda.synchronize()
+    assert _attn_close(first, decode_attention_plain(q, kc, vc, vl))
+    assert all(int(t.abs().sum()) == 0 for t in _TICKETS.values())
+
+
+@pytest.mark.parametrize("h,hkv,d,dt", [(32, 1, 128, "bf16"), (40, 2, 64, "bf16"),
+                                        (24, 1, 64, "f32"), (34, 2, 32, "f32")])
+def test_decode_kernel_more_than_16_heads_a_kv_head_on_card(cuda, h, hkv, d, dt):
+    """g > 16 (no configuration of the registry has it): blocks of 16 heads."""
+    b, s = 4, 700
+    q = _randn((b, h, d), dt, cuda, 46)
+    kc, vc = _randn((b, s, hkv, d), dt, cuda, 47), _randn((b, s, hkv, d), dt, cuda, 48)
+    vl = torch.tensor([0, 1, 350, 700], dtype=torch.int32, device=cuda)
     got, want = decode_attention(q, kc, vc, vl), decode_attention_plain(q, kc, vc, vl)
     torch.cuda.synchronize()
     assert _attn_close(got, want), _max_abs(got, want)
@@ -1381,7 +1452,7 @@ def test_flash_kernel_cross_lengths_on_card(cuda, b, sq, sk, h, hkv, d, causal, 
      (1, 100, 4, 4, "f32", [100])],
 )
 def test_decode_kernel_head_dim_256_on_card(cuda, b, s, h, hkv, dt, lens):
-    """16 threads a slot; g = 16 (recurrentgemma's MQA) runs as 4 groups of 4."""
+    """Head dim 256; g = 16 (recurrentgemma's MQA) in one block a kv head."""
     q = _randn((b, h, 256), dt, cuda, 4)
     kc, vc = _randn((b, s, hkv, 256), dt, cuda, 5), _randn((b, s, hkv, 256), dt, cuda, 6)
     if lens == "spread":

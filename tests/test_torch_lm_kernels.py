@@ -23,7 +23,20 @@ from repro.kernels.decode_attention import decode_attention_fwd
 from repro.kernels.flash_attention import flash_attention_fwd
 from repro.kernels.rmsnorm import rmsnorm_fwd
 from repro_torch import kernels as tk
-from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.kernels.decode_attention import (
+    HEAD_DIMS,
+    MERGE_FLOATS,
+    ROWS,
+    UNIT,
+    WAVES,
+    decode_attention,
+    decode_attention_plain,
+    decode_plan,
+    max_units,
+    merge_cap,
+    min_units,
+)
 from repro_torch.kernels.flash_attention import (
     flash_attention,
     flash_attention_plain,
@@ -178,6 +191,8 @@ DECODE_CASES = [
     (2, 128, 8, 4, 128, "bf16"),
     (2, 256, 16, 1, 256, "bf16"),     # recurrentgemma-9b: g = 16, head dim 256
     (1, 384, 4, 2, 256, "f32"),
+    (2, 256, 64, 8, 128, "bf16"),     # qwen2-vl-72b: g = 8
+    (2, 256, 16, 2, 64, "f32"),       # g = 8 in float32
 ]
 
 
@@ -203,6 +218,62 @@ def test_decode_attention_plain_matches_ref_and_pallas(b, s, h, hkv, d, dt, lens
         mean = _np(vt).reshape(b, s, hkv, 1, d).mean(axis=1)
         mean = np.broadcast_to(mean, (b, hkv, h // hkv, d)).reshape(b, h, d)
         np.testing.assert_allclose(_np(got)[0], mean[0], atol=atol)
+
+
+def _check_plan(B, H, Hkv, S, D, sms):
+    """decode_plan's invariants: whole units of 64 slots, every slot in one
+    split and no split empty, every query head in one block with its kv head,
+    the finishing block's merge bounded, splits between min_units(D) (or S)
+    and max_units(D) units unless the merge bound lengthens them, and the grid
+    at WAVES blocks an SM unless the shortest split or the merge bound stops
+    it."""
+    plan = decode_plan(B, H, Hkv, S, D, sms)
+    g = H // Hkv
+    assert plan.chunk > 0 and plan.chunk % UNIT == 0
+    assert plan.splits == -(-S // plan.chunk) and (plan.splits - 1) * plan.chunk < S
+    blocks = [(hk, [hk * g + hg * ROWS + r for r in range(min(ROWS, g - hg * ROWS))])
+              for hk in range(Hkv) for hg in range(plan.head_groups)]
+    assert sorted(h for _, heads in blocks for h in heads) == list(range(H))
+    assert all(h // g == hk for hk, heads in blocks for h in heads)
+    cap = merge_cap(g, D)
+    assert plan.splits <= cap
+    assert plan.splits * min(g, ROWS) * D <= max(MERGE_FLOATS, min(g, ROWS) * D)
+    units = -(-S // UNIT)
+    shortest = min(min_units(D), units) * UNIT
+    assert plan.chunk >= shortest
+    assert plan.chunk <= max(max_units(D), -(-units // cap)) * UNIT
+    grid = B * Hkv * plan.head_groups * plan.splits
+    assert grid >= WAVES * sms or plan.chunk == shortest or 2 * plan.splits >= cap
+    return plan
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 16])
+def test_decode_plan_invariants(g, d):
+    for S in (1, 2, 63, 64, 65, 127, 448, 1000, 1500, 2048, 4096, 32768, 524288):
+        for B in (1, 8, 128):
+            for hkv in (1, 2, 8):
+                for sms in (132, 114):
+                    _check_plan(B, g * hkv, hkv, S, d, sms)
+
+
+def test_decode_plan_registry_shapes_and_the_shapes_alone():
+    """Every attention configuration of the registry at its serve caches
+    (256 slots, the local window, decode_32k, long_500k) and B ∈ {1, 8, 128};
+    the plan is a function of the shapes and the SM count alone."""
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        D = cfg.resolved_head_dim
+        if D not in HEAD_DIMS:
+            continue
+        for S in (256, cfg.local_window, 4096, 32768, 524288):
+            for B in (1, 8, 128):
+                plan = _check_plan(B, cfg.num_heads, cfg.num_kv_heads, S, D, 132)
+                assert plan == decode_plan(B, cfg.num_heads, cfg.num_kv_heads, S, D, 132)
+    # the recurrentgemma ring: 16 splits of 128 slots, one block a kv head and split;
+    # a 256-slot cache at D = 128 in one split
+    assert decode_plan(8, 16, 1, 2048, 256, 132) == (128, 16, 1)
+    assert decode_plan(8, 64, 8, 256, 128, 132) == (256, 1, 1)
 
 
 # ---------------------------------------------------------------------------
