@@ -50,9 +50,14 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      losses to rtol 1e-4;
  10. LM kernels: RMSNorm, flash attention and decode attention against their
      plain versions on the card (float32 and bfloat16, ragged S, windows,
-     g = 1 and 4, valid_len over 1 … 32,768), and their times at the serve
-     path's shapes beside their bounds, the plain versions' and one library
-     call's (``F.rms_norm``, ``F.scaled_dot_product_attention``); the bfloat16
+     g = 1 and 4, valid_len over 1 … 32,768; RMSNorm at every width the
+     registry normalises, ``NORM_WIDTHS``, in all four dtype pairings, a
+     second call bit-equal, and its kernels' registers and spills from
+     ``ptxas -v``), and their times at the serve path's shapes beside their
+     bounds, the plain versions' and one library call's (``F.rms_norm`` with a
+     bfloat16 weight, ``F.scaled_dot_product_attention``; RMSNorm also at
+     widths 5,120, 8,192 and 12,288, flash also at S = 4096, and the host's µs
+     a call of ``rmsnorm`` and ``F.rms_norm`` at (8, 4096)); the bfloat16
      flash kernels' registers and spills (``ptxas -v``), a check that their
      SASS holds wgmma (HGMMA) and TMA loads (UTMALDG), and flash's TFLOP/s
      on the counted work and on the tensor cores' (1.5×); the decode
@@ -148,7 +153,8 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      float32, S = 4096 causal and S = 1000 with a window): the output with it
      requested bit-equal to the output without it, the logsumexp within
      ``LSE_TOL`` of the plain version's, and the forward with and without it
-     timed in turns at the training shape (B = 2, S = 4096); the attention
+     timed in turns at the training shape (B = 2, S = 4096), beside its bound
+     and one SDPA call; the attention
      and RMSNorm autograd Functions against autograd through the plain
      versions (attention at (1, 32, 8, 2048, 128), both dtypes); (a)
      qwen3-8b at full width, depth cut to 8 layers, 3 AdamW steps of 2 ×
@@ -162,7 +168,8 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      ``repro_torch.launch.train`` on the card;
  20. LM families: (c) rows 9–11 at the shapes the new families give them
      (flash at H = Hkv = 16, at H = 64 / Hkv = 8, and with a live window of
-     4096 at S = 8192; decode at g = 1 and g = 8 over 256 and 4096 slots;
+     4096 at S = 8192; decode at g = 1 and g = 8 over 256 and 4096 slots and
+     at mistral-large's g = 12 (96 / 8 heads) over 4096;
      RMSNorm at widths 4096 and 2048) against their plain versions, timed
      beside their bounds and one SDPA (``F.rms_norm``) call; then
      mixtral-8x7b (8 of 32 layers), olmoe-1b-7b (16), mamba2-1.3b (48) and
@@ -226,6 +233,8 @@ FL_ROUNDS = 3                  # rounds of the FL path and of each population ru
 F32_TOL = 1e-5                 # relative Frobenius error, float32 kernels
 BF16_TOL = 0.05                # tests/test_kernel_diff.py's bfloat16 tolerance
 LONG_POS0 = 32736              # LM part (b): sequence b decodes from position 32,736 − 4,096·b
+# the widths the registry normalises: head dims with q/k norms, d_model, Mamba-2's d_inner
+NORM_WIDTHS = (128, 768, 2048, 4096, 5120, 8192, 12288)
 ASYNC_ROUNDS = 4               # rounds of phase 17's run_fl_async
 # phase 17 (b): relative Frobenius differences, card against CPU, after one
 # round from the same state; about 5x the largest reading on the H100
@@ -271,6 +280,21 @@ def device_ms(fn, arg_sets, reps: int = 200) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Host µs a call of ``fn()``: ``calls`` calls queued while a sleep kernel
+    holds the stream, so the host's time is measured alone."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
 
 
 def bound_ms(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
@@ -991,6 +1015,37 @@ def flash_tflops(S: int, ms: float, H: int = 32, D: int = 128) -> str:
             f"tensor cores ({1.5 * flops / ms / 1e9 / (BF16_FLOPS / 1e12):.3f} of {BF16_FLOPS / 1e12:.0f})")
 
 
+def flash_bound(B: int, H: int, Hkv: int, S: int, D: int = 128) -> tuple[float, str]:
+    """Row 9's bound for a causal bfloat16 call: q, k, v and out once; the
+    S(S+1)/2 pairs' 4·D operations a head at the bfloat16 tensor-core rate."""
+    return bound_ms(2 * (2 * H + 2 * Hkv) * B * S * D, 4 * B * H * D * (S * (S + 1) // 2),
+                    BF16_FLOPS)
+
+
+def rmsnorm_build_lines() -> None:
+    """What the build made of the RMSNorm kernels (``ptxas -v``): how many
+    instantiations, the most registers any uses, and none spilling."""
+    import re
+
+    from repro_torch.kernels import build
+
+    regs, spilled, cur = {}, [], None
+    for line in build.ptxas_log("rmsnorm").splitlines():
+        m = re.search(r"entry function '(\S*rmsnorm_kernel\S*)'", line)
+        if m:
+            cur = m.group(1)
+        elif cur and "spill" in line and re.search(r"[1-9]\d* bytes spill", line):
+            spilled.append(cur)
+        elif cur and "Used" in line:
+            regs[cur] = int(re.search(r"Used (\d+) registers", line).group(1))
+            cur = None
+    print(f"ptxas rmsnorm_kernel: {len(regs)} instantiations, at most {max(regs.values())} "
+          f"registers, {len(spilled)} spilling", flush=True)
+    # x in 2 dtypes × rows of 8, 16, 32 or a block's threads × 1–8 loads a thread
+    check(len(regs) == 64 and not spilled, f"rmsnorm kernels: {len(regs)} built, spills in "
+          f"{spilled}")
+
+
 def library_ms(fn, arg_sets, reps: int):
     """``device_ms`` of a PyTorch library call used only as a yardstick; None
     (with the reason printed) where this PyTorch does not offer the call."""
@@ -1104,15 +1159,22 @@ def lm_kernel_phase(dev, gen) -> list[dict]:
     def randn(*shape, dt=torch.bfloat16):
         return torch.randn(*shape, generator=gen, device=dev).to(dt)
 
-    for dt in (torch.float32, torch.bfloat16):
-        for R in (1, 7, 256, 32768):
-            for D in (128, 4096):
-                x, s = randn(R, D, dt=dt), randn(D, dt=dt) * 0.5
+    rmsnorm_build_lines()
+    for dt, sdt in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+        for D in NORM_WIDTHS:
+            s = randn(D, dt=sdt) * 0.5
+            for R in (1, 7, 256, 4097) + ((32768,) if D in (128, 4096) else ()):
+                x = randn(R, D, dt=dt)
                 got, want = rmsnorm(x, s), rmsnorm_plain(x, s)
                 check(rmsnorm_ok(got, want),
-                      f"rmsnorm R={R} D={D} {dt}: max abs err {max_abs(got, want)}")
-        print(f"kernel check rmsnorm R in (1, 7, 256, 32768), D in (128, 4096), {dt}: ok",
-              flush=True)
+                      f"rmsnorm R={R} D={D} {dt} scale {sdt}: max abs err {max_abs(got, want)}")
+                check(torch.equal(rmsnorm(x, s), got),
+                      f"rmsnorm R={R} D={D} {dt} scale {sdt}: a second call differs")
+                del x, got, want
+        print(f"kernel check rmsnorm R in (1, 7, 256, 4097; 32768 at D = 128, 4096), D in "
+              f"{NORM_WIDTHS}, {dt} scale {sdt}: ok, bit-equal on a second call", flush=True)
+    torch.cuda.empty_cache()
 
     B, H, D = 1, 32, 128
     for dt in (torch.float32, torch.bfloat16):
@@ -1152,9 +1214,14 @@ def lm_kernel_phase(dev, gen) -> list[dict]:
     torch.cuda.empty_cache()
 
     rows = []
-    # RMSNorm at the path's shapes: ln1/ln2 of the prefill (the JSON row), q_norm, k_norm, decode
+    # RMSNorm at the path's shapes: ln1/ln2 of the prefill (the JSON row), q_norm, k_norm,
+    # decode; then the registry's other widths (mistral-nemo 5,120, qwen2-vl 8,192,
+    # mistral-large 12,288) at decode's 8 rows and a 4,096-token prefill
     for R, Dn, label in ((32768, 4096, ""), (32768 * 32, 128, " q_norm"),
-                         (32768 * 8, 128, " k_norm"), (8, 4096, " decode")):
+                         (32768 * 8, 128, " k_norm"), (8, 4096, " decode"),
+                         (8, 5120, " decode"), (4096, 5120, " prefill"),
+                         (8, 8192, " decode"), (4096, 8192, " prefill"),
+                         (8, 12288, " decode"), (4096, 12288, " prefill")):
         sets = copies(lambda: (randn(R, Dn), randn(Dn) * 0.5), R * Dn * 2)
         x, s = sets[0]
         got, want = rmsnorm(x, s), rmsnorm_plain(x, s)
@@ -1162,7 +1229,7 @@ def lm_kernel_phase(dev, gen) -> list[dict]:
         check(rmsnorm_ok(got, want), f"rmsnorm ({R}, {Dn}) bf16: max abs err {err}")
         del got, want
         b, by = bound_ms(2 * (2 * R * Dn + Dn), 4 * R * Dn)
-        lib_sets = [(x_, 1.0 + s_.float()) for x_, s_ in sets]
+        lib_sets = [(x_, 1.0 + s_) for x_, s_ in sets]     # a bfloat16 weight, as x
         row = dict(
             name="rmsnorm", route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
             replaces="src/repro/kernels/rmsnorm.py:23", max_abs_err=err,
@@ -1175,6 +1242,16 @@ def lm_kernel_phase(dev, gen) -> list[dict]:
         if not label:
             rows.append(row)
         del sets, lib_sets
+    x, s = randn(8, 4096), randn(4096)
+    w = 1.0 + s
+    h = [host_us(lambda: rmsnorm(x, s)), host_us(lambda: F.rms_norm(x, (4096,), w, 1e-6))]
+    h += [host_us(lambda: F.rms_norm(x, (4096,), w, 1e-6)), host_us(lambda: rmsnorm(x, s))]
+    print(f"host rmsnorm (8, 4096) bf16: {h[0]:.2f} / {h[3]:.2f} us a call, F.rms_norm "
+          f"{h[1]:.2f} / {h[2]:.2f} us a call (in turns, the stream held by a sleep kernel)",
+          flush=True)
+    rows[-1]["host_us_8x4096"] = min(h[0], h[3])
+    rows[-1]["library_host_us_8x4096"] = min(h[1], h[2])
+    del x, s, w
 
     # flash attention at the prefill shape S = 32,768, causal, bf16; the plain version at 4096
     def flash_inputs(S_):
@@ -1184,8 +1261,13 @@ def lm_kernel_phase(dev, gen) -> list[dict]:
     small = [flash_inputs(4096) for _ in range(2)]
     plain_ms = device_ms(lambda q_, k_, v_: flash_attention_plain(q_, k_, v_), small, 3)
     small_ms = device_ms(lambda q_, k_, v_: flash_attention(q_, k_, v_), small, 10)
-    print(f"kernel flash_attention S=4096 bf16: {small_ms * 1e3:.2f} us, plain "
-          f"{plain_ms * 1e3:.2f} us, {flash_tflops(4096, small_ms)}", flush=True)
+    small_sdpa = library_ms(lambda q_, k_, v_: F.scaled_dot_product_attention(
+        q_, k_, v_, is_causal=True, enable_gqa=True), small, 10)
+    b, by = flash_bound(1, 32, 8, 4096)
+    print(f"kernel flash_attention S=4096 bf16: {small_ms * 1e3:.2f} us (bound {b * 1e3:.2f} "
+          f"us, {by}), plain {plain_ms * 1e3:.2f} us, SDPA "
+          f"{'n/a' if small_sdpa is None else '%.2f us' % (small_sdpa * 1e3)}, "
+          f"{flash_tflops(4096, small_ms)}", flush=True)
     del small
     torch.cuda.empty_cache()
     S = 32768
@@ -1205,8 +1287,7 @@ def lm_kernel_phase(dev, gen) -> list[dict]:
           f"{share:.3f} of the bound", flush=True)
     del got
     torch.cuda.empty_cache()
-    pairs = S * (S + 1) // 2
-    b, by = bound_ms(2 * (2 * H + 2 * 8) * S * D, 4 * H * D * pairs, BF16_FLOPS)
+    b, by = flash_bound(1, H, 8, S)
     ms = device_ms(lambda q_, k_, v_: flash_attention(q_, k_, v_), sets, 2)
     row = dict(
         name="flash_attention", route="cuda",
@@ -2683,9 +2764,14 @@ def lse_part(dev, gen) -> dict:
         fn = ((lambda q_, k_, v_: flash_attention(q_, k_, v_)) if label == "plain" else
               (lambda q_, k_, v_: flash_attention(q_, k_, v_, return_lse=True)))
         times.setdefault(label, []).append(device_ms(fn, sets, 20))
+    sdpa = library_ms(lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
+        q_, k_, v_, is_causal=True, enable_gqa=True), sets, 20)
+    b, by = flash_bound(TRAIN_BATCH, H, 8, TRAIN_SEQ)
     print(f"lm train (b) flash forward (B, H, Hkv, S, D) = ({TRAIN_BATCH}, 32, 8, {TRAIN_SEQ}, "
           f"128) causal bf16: with lse {[round(t * 1e3, 2) for t in times['lse']]} us, without "
-          f"{[round(t * 1e3, 2) for t in times['plain']]} us (in turns)", flush=True)
+          f"{[round(t * 1e3, 2) for t in times['plain']]} us (in turns); bound "
+          f"{b * 1e3:.2f} us ({by}); SDPA "
+          f"{'n/a' if sdpa is None else '%.2f us' % (sdpa * 1e3)}", flush=True)
     del sets
     torch.cuda.empty_cache()
     return {"train_ms": min(times["lse"]), "train_nolse_ms": min(times["plain"])}
@@ -2960,7 +3046,8 @@ FAMILY_FLASH = (
      torch.bfloat16))
 FAMILY_DECODE = tuple((label, FAMILY_BATCH, H, Hkv, S, 128, False)
                       for label, H, Hkv in (("olmoe g=1 H=16", 16, 16), ("qwen2-vl g=8 H=64", 64, 8))
-                      for S in (FAMILY_CACHE, WRAP_CACHE))
+                      for S in (FAMILY_CACHE, WRAP_CACHE)) + (
+    ("mistral-large g=12 H=96", FAMILY_BATCH, 96, 8, WRAP_CACHE, 128, False),)
 FAMILY_NORM = (("mamba d_inner prefill", 4096, 4096), ("mamba d_inner decode", 8, 4096),
                ("d_model 2048 prefill", 4096, 2048), ("d_model 2048 decode", 8, 2048))
 
@@ -3776,7 +3863,10 @@ def main() -> int:
             "family_launches", "family_ms",
             # rows 9–11 on the RG-LRU hybrid / Whisper serve path and at their shapes
             # (phase 21)
-            "rglru_whisper_launches", "rglru_whisper_ms")
+            "rglru_whisper_launches", "rglru_whisper_ms",
+            # row 11: the host's µs a call at (8, 4096), not the row's shape, and
+            # F.rms_norm's there (phase 10)
+            "host_us_8x4096", "library_host_us_8x4096")
     print(card)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r} for r in rows]}))
     print(json.dumps({"ok": True, "device": {

@@ -40,7 +40,6 @@ Needs one CUDA card; exits non-zero without one.
 
 from __future__ import annotations
 
-import ctypes
 import re
 import subprocess
 import sys
@@ -50,9 +49,11 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "src"))
+sys.path.insert(0, str(REPO / "scripts"))
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bottleneck import bottleneck_eval_plain  # noqa: E402
+from variant_build import build_variants, device_us, patched  # noqa: E402
 
 SOURCE = build.CSRC / "bottleneck.cu"
 OUT = REPO / "build" / "bottleneck_variants"
@@ -103,39 +104,15 @@ SHAPES = ((64, 4000, 128, 8, 384), (1, 4000, 104, 16, 302))
 CHECKED = ("base", "diag", "occ8", "warps4", "spw4", "lb5", "colsum", "table16", "notable")
 
 
-def variant_source(name: str) -> str:
-    src = SOURCE.read_text()
-    for old, new in VARIANTS[name]:
-        if old not in src:
-            raise SystemExit(f"variant {name}: the text to replace is not in {SOURCE.name}")
-        src = src.replace(old, new)
-    return src
-
-
 def compile_all(names) -> dict:
-    procs = {}
-    for name in names:
-        d = OUT / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "bottleneck.cu").write_text(variant_source(name))
-        cmd = [build.tool(), *build.ARCH_FLAGS, *build.CFLAGS, "-shared", str(d / "bottleneck.cu"),
-               "-o", str(d / "lib.so")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                       text=True)
-    libs = {}
-    for name, p in procs.items():
-        log, _ = p.communicate()
-        if p.returncode:
-            raise SystemExit(f"variant {name}: nvcc failed\n{log}")
+    libs = build_variants(SOURCE, OUT, {n: patched(SOURCE, VARIANTS[n], n) for n in names},
+                          ("bottleneck_eval",))
+    for name, (_, log) in libs.items():
         regs = re.findall(r"Used (\d+) registers.*?(\d+) bytes smem|Used (\d+) registers", log)
         spills = sorted(set(re.findall(r"(\d+) bytes spill stores", log)))
         print(f"variant {name}: registers {[r[0] or r[2] for r in regs]}, spill stores {spills}",
               flush=True)
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        lib.bottleneck_eval.argtypes, lib.bottleneck_eval.restype = build.SIGNATURES[
-            "bottleneck_eval"]
-        libs[name] = lib
-    return libs
+    return {name: lib for name, (lib, _) in libs.items()}
 
 
 def main() -> int:
@@ -181,15 +158,7 @@ def main() -> int:
                 ok = bool(torch.all((res - want).abs() <= 2 * T * 2.0 ** -24 * want.abs()))
                 if not ok:
                     raise SystemExit(f"FAILED: variant {name} disagrees with the plain version")
-            reps = 20 if B > 1 else 200
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(200_000_000)
-            start.record()
-            for i in range(reps):
-                run(*sets[i % len(sets)])
-            end.record()
-            end.synchronize()
-            times[name] = start.elapsed_time(end) / reps * 1e3
+            times[name] = device_us(run, sets, 20 if B > 1 else 200)
         print(f"variants B={B} S={S} T={T} K={K} E={E} (us): "
               + ", ".join(f"{n} {t:.2f}" for n, t in times.items()), flush=True)
         del sets, res, want

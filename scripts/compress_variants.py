@@ -30,7 +30,6 @@ Needs one CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import ctypes
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -39,6 +38,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "src"))
+sys.path.insert(0, str(REPO / "scripts"))
 
 from repro_torch.fl.cnn import init_cnn_params  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -46,6 +46,7 @@ from repro_torch.kernels.compress import int8_roundtrip_plain, topk_mask_plain  
 from repro_torch.kernels.gossip_mix import gossip_mix_all  # noqa: E402
 from repro_torch.train.compression import int8_scale, topk_count  # noqa: E402
 from repro_torch.train.tree import ParamLayout  # noqa: E402
+from variant_build import build_variants, device_us, patched, ptxas_line  # noqa: E402
 
 SOURCE = build.CSRC / "compress.cu"
 OUT = REPO / "build" / "compress_variants"
@@ -61,62 +62,12 @@ VARIANTS = {
     "scalar": [("  if (!vec) {", "  if (true) {")],
 }
 ENTRIES = ("topk_mask_f32", "int8_roundtrip_f32")
+KERNEL = r"rowstat_kernel\S*TopKEf"   # the float32 topk_mask kernel
 
 
-def variant_source(name: str) -> str:
-    src = SOURCE.read_text()
-    for old, new in VARIANTS[name]:
-        if old not in src:
-            raise SystemExit(f"variant {name}: the line to replace is not in {SOURCE.name}")
-        src = src.replace(old, new)
-    return src
-
-
-def compile_all(names) -> dict[str, tuple[ctypes.CDLL, str]]:
-    nvcc = build.tool()
-    procs = {}
-    for name in names:
-        d = OUT / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "compress.cu").write_text(variant_source(name))
-        procs[name] = subprocess.Popen(
-            [nvcc, *build.ARCH_FLAGS, *build.CFLAGS, "-shared", str(d / "compress.cu"), "-o",
-             str(d / "libcompress.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"variant {name}: nvcc failed\n{log}")
-        lib = ctypes.CDLL(str(OUT / name / "libcompress.so"))
-        for entry in ENTRIES:
-            fn = getattr(lib, entry)
-            fn.argtypes, fn.restype = build.SIGNATURES[entry]
-        libs[name] = (lib, log)
-    return libs
-
-
-def ptxas_line(log: str) -> str:
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if re.search(r"entry function '\S*rowstat_kernel\S*TopKEf", line):
-            return " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
-                            if "spill" in x or "Used" in x)
-    return "not found"
-
-
-def device_us(fn, sets, reps: int) -> float:
-    for args in sets[:2]:
-        fn(*args)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for i in range(reps):
-        fn(*sets[i % len(sets)])
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps * 1e3
+def compile_all(names) -> dict:
+    return build_variants(SOURCE, OUT, {n: patched(SOURCE, VARIANTS[n], n) for n in names},
+                          ENTRIES)
 
 
 def main() -> int:
@@ -129,7 +80,7 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"nvidia-smi: {out}", flush=True)
     for name in names:
-        print(f"variant {name}: ptxas {ptxas_line(libs[name][1])}", flush=True)
+        print(f"variant {name}: ptxas {ptxas_line(libs[name][1], KERNEL)}", flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     cols = ParamLayout(init_cnn_params(torch.Generator(), (32, 32, 3))).columns()

@@ -28,6 +28,7 @@ sys.path.insert(0, str(REPO / "scripts"))
 from chip_smoke import attn_share, decode_build_lines, smi  # noqa: E402
 from kernel_ab import DECODE_SHAPES, decode_bound, decode_lengths, decode_sets  # noqa: E402
 from kernel_ab import device_us  # noqa: E402
+from repro_torch.device import sm_count  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     UNIT,
@@ -36,7 +37,6 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain,
     decode_plan,
     launch,
-    sm_count,
 )
 
 

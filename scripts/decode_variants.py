@@ -32,10 +32,7 @@ Needs one CUDA card; exits non-zero without one.
 
 from __future__ import annotations
 
-import ctypes
 import math
-import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -48,12 +45,13 @@ sys.path.insert(0, str(REPO / "scripts"))
 
 from chip_smoke import attn_share, smi  # noqa: E402
 from kernel_ab import DECODE_SHAPES, decode_bound, decode_lengths, decode_sets  # noqa: E402
+from repro_torch.device import sm_count  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain,
     decode_plan,
-    sm_count,
 )
+from variant_build import build_variants, in_turns, patched, ptxas_line  # noqa: E402
 
 SOURCE = build.CSRC / "decode_attention.cu"
 OUT = REPO / "build" / "decode_variants"
@@ -84,46 +82,13 @@ VARIANTS = {
 }
 
 
-def variant_source(name: str) -> str:
-    src = SOURCE.read_text()
-    for old, new in VARIANTS[name]:
-        if old not in src:
-            raise SystemExit(f"variant {name}: the line to replace is not in {SOURCE.name}")
-        src = src.replace(old, new)
-    return src
-
-
-def compile_all(names) -> dict[str, ctypes.CDLL]:
-    nvcc = build.tool()
-    procs = {}
-    for name in names:
-        d = OUT / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "decode_attention.cu").write_text(variant_source(name))
-        procs[name] = subprocess.Popen(
-            [nvcc, *build.ARCH_FLAGS, *build.CFLAGS, "-I", str(build.CSRC), "-shared",
-             str(d / "decode_attention.cu"), "-o", str(d / "libdecode.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"variant {name}: nvcc failed\n{log}")
-        print(f"variant {name}: decode_bf16_kernel<128> {ptxas_line(log)}", flush=True)
-        lib = ctypes.CDLL(str(OUT / name / "libdecode.so"))
-        lib.decode_attention.argtypes, lib.decode_attention.restype = build.SIGNATURES[
-            "decode_attention"]
-        libs[name] = lib
-    return libs
-
-
-def ptxas_line(log: str) -> str:
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if re.search(r"entry function '\S*decode_bf16_kernelILi128E", line):
-            return " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
-                            if "spill" in x or "Used" in x)
-    return "not found"
+def compile_all(names) -> dict:
+    libs = build_variants(SOURCE, OUT, {n: patched(SOURCE, VARIANTS[n], n) for n in names},
+                          ("decode_attention",))
+    for name, (_, log) in libs.items():
+        line = ptxas_line(log, "decode_bf16_kernelILi128E")
+        print(f"variant {name}: decode_bf16_kernel<128> {line}", flush=True)
+    return {name: lib for name, (lib, _) in libs.items()}
 
 
 def runner(lib, dev):
@@ -142,27 +107,6 @@ def runner(lib, dev):
             1.0 / math.sqrt(D), 1, torch.cuda.current_stream().cuda_stream), "variant")
         return out
     return run
-
-
-def in_turns(runs: dict, sets: list, reps: int) -> dict[str, list[float]]:
-    """Device us a call of each run, timed a, b, …, b, a (CUDA events around
-    ``reps`` calls on the cycled inputs, the stream held by a sleep first)."""
-    names = list(runs)
-    times = {name: [] for name in names}
-    for name in names + names[::-1]:
-        fn = runs[name]
-        for args in sets[:2]:
-            fn(*args)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000_000)
-        start.record()
-        for i in range(reps):
-            fn(*sets[i % len(sets)])
-        end.record()
-        end.synchronize()
-        times[name].append(start.elapsed_time(end) / reps * 1e3)
-    return times
 
 
 def main() -> int:

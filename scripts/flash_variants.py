@@ -41,9 +41,11 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "src"))
+sys.path.insert(0, str(REPO / "scripts"))
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
+from variant_build import build_variants, device_us, patched  # noqa: E402
 
 SOURCE = build.CSRC / "flash_attention.cu"
 OUT = REPO / "build" / "flash_variants"
@@ -175,39 +177,18 @@ VARIANTS = {
 
 
 def variant_source(name: str) -> str:
-    src = SOURCE.read_text()
-    for sub in VARIANTS[name]:
-        if sub == "loop":
-            a, b = src.index(LOOP_HEAD), src.index(EPILOGUE)
-            src = src[:a] + PIPELINED_LOOP + src[b:]
-            continue
-        old, new = sub
-        if old not in src:
-            raise SystemExit(f"flash_variants: {name}: the source no longer has {old[:60]!r}")
-        src = src.replace(old, new)
+    src = patched(SOURCE, [sub for sub in VARIANTS[name] if sub != "loop"], name)
+    if "loop" in VARIANTS[name]:
+        a, b = src.index(LOOP_HEAD), src.index(EPILOGUE)
+        src = src[:a] + PIPELINED_LOOP + src[b:]
     return src
 
 
 def build_all(names: list[str]) -> dict:
-    procs = {}
-    for name in names:
-        d = OUT / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "flash_attention.cu").write_text(variant_source(name))
-        for h in build.CSRC.glob("*.cuh"):
-            (d / h.name).write_text(h.read_text())
-        procs[name] = subprocess.Popen(
-            [build.tool(), *build.ARCH_FLAGS, *build.CFLAGS, "-shared",
-             str(d / "flash_attention.cu"), "-o", str(d / "lib.so")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    built = build_variants(SOURCE, OUT, {n: variant_source(n) for n in names},
+                           ("flash_attention",))
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"flash_variants: {name} failed to build\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        lib.flash_attention.argtypes, lib.flash_attention.restype = build.SIGNATURES[
-            "flash_attention"]
+    for name, (lib, log) in built.items():
         libs[name] = lib
         sass = subprocess.run([build.tool("cuobjdump"), "-sass", str(OUT / name / "lib.so")],
                               capture_output=True, text=True, check=True).stdout
@@ -242,19 +223,6 @@ def share(got, want) -> float:
     return float((diff / (w * 2.0 ** -7 + w.amax(-1, keepdim=True) * 2.0 ** -10)).max())
 
 
-def device_ms(fn, sets, reps: int) -> float:
-    fn(*sets[0])
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
-    start.record()
-    for i in range(reps):
-        fn(*sets[i % len(sets)])
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("flash_variants: no CUDA device", file=sys.stderr)
@@ -278,8 +246,8 @@ def main() -> int:
     big = [inputs(32768) for _ in range(2)]
     flops = 4 * 32 * 128 * (32768 * 32769 // 2)
     for name in names + names[::-1]:
-        ms = device_ms(lambda *a: call(libs[name], *a), big, 4)
-        us = device_ms(lambda *a: call(libs[name], *a), small, 20) * 1e3
+        ms = device_us(lambda *a: call(libs[name], *a), big, 4) / 1e3
+        us = device_us(lambda *a: call(libs[name], *a), small, 20)
         print(f"{name}: S=32768 {ms * 1e3:.2f} us ({flops / ms / 1e9:.1f} TFLOP/s counted), "
               f"S=4096 {us:.2f} us", flush=True)
     return 0

@@ -1,13 +1,13 @@
 """Time this tree's ``gossip_mix_all``, ``gossip_mix_block``, ``sdp_subspace``,
 ``rank_k_update``, ``bottleneck_eval``, ``topk_mask``, ``int8_roundtrip``,
-``flash_attention`` and ``decode_attention`` kernels against another tree's
-(the parent commit's) on one card, in turns.
+``flash_attention``, ``decode_attention`` and ``rmsnorm`` kernels against
+another tree's (the parent commit's) on one card, in turns.
 
     git archive <parent> src/repro_torch/kernels | tar -x -C build/parent
     python3 scripts/kernel_ab.py build/parent/src/repro_torch/kernels/csrc [groups]
 
 The other tree's ``gossip_mix.cu``, ``sdp_proj.cu``, ``bottleneck.cu``,
-``compress.cu``, ``flash_attention.cu`` and ``decode_attention.cu`` are
+``compress.cu``, ``flash_attention.cu``, ``decode_attention.cu`` and ``rmsnorm.cu`` are
 compiled by their own ``nvcc`` (the flags of ``repro_torch.kernels.build``) into
 ``build/kernel_ab/`` and called through their C entry points, with the
 signatures that the other tree's own ``build.py`` (beside its ``csrc``)
@@ -52,11 +52,20 @@ cold), beside ``torch.matmul`` for the exchange:
     ``decode_attention_splits`` where it has one, else by this tree's
     ``decode_plan``) against this tree's wrapper, beside one SDPA call with
     a boolean mask; the two outputs within ``chip_smoke.attn_share``'s bound
-    of each other and of the plain version.
+    of each other and of the plain version;
+  - ``rmsnorm``, bfloat16 x and scale, at ``NORM_SHAPES`` (PERF.md row 11's
+    shapes and the registry's widths 5,120, 8,192 and 12,288 at 8 and 4,096
+    rows): the other tree's C entry (given this tree's plan where it takes
+    one) against this tree's wrapper, beside ``F.rms_norm`` with the bfloat16
+    weight 1 + scale, both outputs within ``chip_smoke.rmsnorm_ok`` of the
+    plain version; the host's µs a call of the wrapper and of ``F.rms_norm``
+    at (8, 4,096) while a sleep kernel holds the stream, beside the other
+    tree's own ``rmsnorm.py`` wrapper over its library; and rows 9 and 10 of
+    the two trees bit-equal at one flash and two decode shapes.
 
 A second argument picks groups of rows, comma-separated: ``exchange`` (rows
 4, 5), ``scheduler`` (rows 1-3), ``compression`` (rows 7, 8), ``attention``
-(row 9), ``decode`` (row 10); all by default.
+(row 9), ``decode`` (row 10), ``rmsnorm`` (row 11); all by default.
 
 Every result is also checked against the plain version (relative 1e-5;
 ``bottleneck_eval`` to the float32 rounding of its machine loads).
@@ -76,9 +85,11 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "src"))
 sys.path.insert(0, str(REPO))
+sys.path.insert(0, str(REPO / "scripts"))
 
-from chip_smoke import attn_share, bound_ms  # noqa: E402
+from chip_smoke import attn_share, bound_ms, host_us, rmsnorm_ok  # noqa: E402
 
+from repro_torch.device import sm_count  # noqa: E402
 from repro_torch.fl.cnn import init_cnn_params  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.bottleneck import bottleneck_eval, bottleneck_eval_plain  # noqa: E402
@@ -87,7 +98,6 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention,
     decode_attention_plain,
     decode_plan,
-    sm_count,
 )
 from repro_torch.kernels.gossip_mix import (  # noqa: E402
     gossip_mix_all,
@@ -103,14 +113,15 @@ from repro_torch.kernels.sdp_proj import (  # noqa: E402
 )
 from repro_torch.train.compression import int8_scale, topk_count  # noqa: E402
 from repro_torch.train.tree import ParamLayout  # noqa: E402
+from variant_build import device_us  # noqa: E402
 
 OUT = REPO / "build" / "kernel_ab"
 ENTRIES = ("gossip_mix_all_f32", "gossip_mix_all_scratch_floats", "gossip_mix_block_f32",
            "gossip_mix_block_scratch_floats", "sdp_subspace_f32", "sdp_subspace_scratch_floats",
            "rank_k_update_f32", "topk_mask_f32", "int8_roundtrip_f32", "bottleneck_eval",
-           "flash_attention", "decode_attention", "decode_attention_splits")
+           "flash_attention", "decode_attention", "decode_attention_splits", "rmsnorm")
 SOURCES = ("gossip_mix", "sdp_proj", "compress", "bottleneck", "flash_attention",
-           "decode_attention")
+           "decode_attention", "rmsnorm")
 # row 10's shapes (PERF.md §6): label, B, H, Hkv, S, D, lengths ("spread": 1..S
 # over the batch, "full": S each, "phase 10": 32,737 − 4,096·b, chip_smoke.py
 # phase 10's)
@@ -124,6 +135,10 @@ DECODE_SHAPES = (
     ("olmoe g=1 S=4096", 8, 16, 16, 4096, 128, "spread"),
     ("qwen3-8b g=4 S=32768", 8, 32, 8, 32768, 128, "phase 10"),
 )
+# row 11's shapes (PERF.md §6), bfloat16: (R, D)
+NORM_SHAPES = ((12000, 768), (4096, 2048), (4096, 4096), (8192, 4096), (32768, 4096),
+               (32768 * 32, 128), (8, 4096), (8, 2048), (8, 5120), (4096, 5120), (8, 8192),
+               (4096, 8192), (8, 12288), (4096, 12288))
 
 
 def parent_signatures(csrc: Path) -> dict:
@@ -155,6 +170,7 @@ def compile_parent(csrc: Path) -> ctypes.CDLL:
     for name, (args, res) in parent_signatures(csrc).items():
         if name in ENTRIES:
             getattr(dll, name).argtypes, getattr(dll, name).restype = args, res
+    dll.csrc = csrc
     return dll
 
 
@@ -244,20 +260,6 @@ def compress_split(run, n: int, cols, L: int, gen, flush) -> str:
     per = ", ".join(f"{b - a}: {t:.2f}" for (a, b), t in zip(cols, times))
     return (f"each leaf alone (columns: us) {per}; sum {sum(times[:len(cols)]):.2f} us; big leaf "
             f"rows as they lie {times[big]:.2f} us, every row aligned {times[-1]:.2f} us")
-
-
-def device_us(fn, arg_sets, reps: int) -> float:
-    for args in arg_sets[:2]:
-        fn(*args)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000_000)
-    start.record()
-    for i in range(reps):
-        fn(*arg_sets[i % len(arg_sets)])
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps * 1e3
 
 
 def rel(a, b) -> float:
@@ -489,12 +491,9 @@ def compression_ab(old, gen, dev) -> None:
                       flush=True)
 
 
-def attention_ab(old, gen, dev) -> None:
-    """Row 9: the other tree's bfloat16 flash forward against this tree's,
-    without and with the logsumexp output."""
+def flash_parent(old):
+    """The other tree's causal bfloat16 flash forward through its C entry."""
     import math
-
-    from repro_torch.kernels.flash_attention import flash_attention
 
     fn = old.flash_attention
     # the other tree's entry point: 15 arguments, 16 with the lse pointer, 17 with
@@ -510,6 +509,15 @@ def attention_ab(old, gen, dev) -> None:
         build.check(fn(*ptrs, strides, B, H, k.shape[1], *lengths, D, 1, 0, 1.0 / math.sqrt(D),
                        1, stream()), "parent flash_attention")
         return out
+    return parent
+
+
+def attention_ab(old, gen, dev) -> None:
+    """Row 9: the other tree's bfloat16 flash forward against this tree's,
+    without and with the logsumexp output."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    parent = flash_parent(old)
 
     def change(q, k, v):
         return flash_attention(q, k, v)
@@ -552,9 +560,9 @@ def decode_bound(B, H, Hkv, D, lens) -> tuple[float, str]:
     return bound_ms(2 * (2 * valid * Hkv * D + 2 * B * H * D) + 4 * B, 4 * H * D * valid, 989e12)
 
 
-def decode_ab(old, gen, dev) -> None:
-    """Row 10: the other tree's decode kernel (through its C entry and its own
-    scratch sizing) against this tree's wrapper, beside SDPA with a mask."""
+def decode_parent(old, dev):
+    """The other tree's bfloat16 decode attention through its C entry (and
+    its own scratch sizing)."""
     import math
 
     fn = old.decode_attention
@@ -576,7 +584,13 @@ def decode_ab(old, gen, dev) -> None:
                        pa.data_ptr(), pm.data_ptr(), *extra[0], B, H, Hkv, S, D, *extra[1],
                        1.0 / math.sqrt(D), 1, stream()), "parent decode_attention")
         return out
+    return parent
 
+
+def decode_ab(old, gen, dev) -> None:
+    """Row 10: the other tree's decode kernel (through its C entry and its own
+    scratch sizing) against this tree's wrapper, beside SDPA with a mask."""
+    parent = decode_parent(old, dev)
     for label, B, H, Hkv, S, D, kind in DECODE_SHAPES:
         lens = decode_lengths(kind, B, S, dev)
         sets = decode_sets(gen, dev, B, H, Hkv, S, D, lens)
@@ -604,8 +618,112 @@ def decode_ab(old, gen, dev) -> None:
         torch.cuda.empty_cache()
 
 
+def parent_wrapper(old):
+    """The other tree's ``rmsnorm.py`` wrapper, its ``build`` pointed at the
+    other tree's library (so its own host path calls its own C entry)."""
+    import types
+
+    spec = importlib.util.spec_from_file_location("parent_rmsnorm",
+                                                  old.csrc.parent / "rmsnorm.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build = types.SimpleNamespace(library=lambda: old, check=build.check)
+    return mod.rmsnorm
+
+
+def rmsnorm_host(gen, dev, parent=None) -> None:
+    """The host's µs a call at (8, 4096) bf16, the stream held by a sleep
+    kernel: the wrapper (and the other tree's, where given), ``F.rms_norm``,
+    and the wrapper's steps alone."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plan
+
+    x = torch.randn(8, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    s = torch.randn(4096, generator=gen, device=dev).to(torch.bfloat16)
+    w, out = 1.0 + s, torch.empty_like(x)
+    plan = rmsnorm_plan(8, 4096, 2, sm_count(dev.index))
+    entry = build.library().rmsnorm
+    args = (x.data_ptr(), s.data_ptr(), out.data_ptr(), 8, 4096, 1e-6, 1, 1, *plan, stream())
+
+    def device_scope():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = {"rmsnorm": lambda: rmsnorm(x, s),
+             "F.rms_norm": lambda: F.rms_norm(x, (4096,), w, 1e-6),
+             "torch.empty_like": lambda: torch.empty_like(x),
+             "torch.cuda.device scope": device_scope,
+             "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+             "rmsnorm_plan (cached)": lambda: rmsnorm_plan(8, 4096, 2, sm_count(dev.index)),
+             "ctypes call (launch)": lambda: entry(*args)}
+    if parent is not None:
+        steps["parent rmsnorm"] = lambda: parent(x, s)
+    for _ in range(2):        # in turns
+        t = {k: host_us(f) for k, f in steps.items()}
+        print("ab rmsnorm host (8, 4096) bf16, us a call (the stream held by a sleep kernel): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in t.items()), flush=True)
+
+
+def rmsnorm_ab(old, gen, dev) -> None:
+    """Row 11: the other tree's RMSNorm (through its C entry) against this
+    tree's wrapper, beside ``F.rms_norm`` with a bfloat16 weight; the host's
+    cost a call; rows 9 and 10 of the two trees bit-equal."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain, rmsnorm_plan
+
+    fn = old.rmsnorm
+    planned = len(fn.argtypes) == 13          # … x bf16, scale bf16, the plan, stream
+    sms = sm_count(dev.index)
+
+    def parent(x, s):
+        out = torch.empty_like(x)
+        R, D = x.shape
+        plan = tuple(rmsnorm_plan(R, D, x.element_size(), sms)) if planned else ()
+        build.check(fn(x.data_ptr(), s.data_ptr(), out.data_ptr(), R, D, 1e-6,
+                       int(x.dtype == torch.bfloat16), int(s.dtype == torch.bfloat16), *plan,
+                       stream()), "parent rmsnorm")
+        return out
+
+    for R, D in NORM_SHAPES:
+        def one_set():
+            return (torch.randn(R, D, generator=gen, device=dev).to(torch.bfloat16),
+                    (torch.randn(D, generator=gen, device=dev) * 0.5).to(torch.bfloat16))
+        sets = [one_set() for _ in range(max(2, -(-100_000_000 // (4 * R * D))))]
+        a, b = parent(*sets[0]), rmsnorm(*sets[0])
+        want = rmsnorm_plain(*sets[0])
+        if not (rmsnorm_ok(a, want) and rmsnorm_ok(b, want)):
+            raise SystemExit(f"FAILED: rmsnorm ({R}, {D}) outside rmsnorm_ok: parent "
+                             f"{rmsnorm_ok(a, want)}, change {rmsnorm_ok(b, want)}")
+        bound, by = bound_ms(2 * (2 * R * D + D), 4 * R * D)
+        weights = [(x, 1.0 + s) for x, s in sets]      # F.rms_norm's weight, made before timing
+        lib = device_us(lambda x, w: F.rms_norm(x, (D,), w, 1e-6), weights, 100)
+        print(f"ab rmsnorm ({R}, {D}) bf16: plan {tuple(rmsnorm_plan(R, D, 2, sms))}, both within "
+              f"rmsnorm_ok, bit-equal {torch.equal(a, b)}; bound {bound * 1e3:.2f} us ({by}); "
+              f"F.rms_norm (bf16 weight) {lib:.2f} us", flush=True)
+        turns(f"rmsnorm ({R}, {D}) bf16", parent, rmsnorm, sets, 100)
+        del sets, weights, a, b, want
+        torch.cuda.empty_cache()
+
+    rmsnorm_host(gen, dev, parent_wrapper(old))
+    flash_old = flash_parent(old)
+    q, k, v = (torch.randn(1, 4096, h, 128, generator=gen, device=dev).to(torch.bfloat16)
+               .transpose(1, 2) for h in (32, 8, 8))
+    same = torch.equal(flash_old(q, k, v), flash_attention(q, k, v))
+    decode_old = decode_parent(old, dev)
+    for label, B, H, Hkv, S, D, kind in (DECODE_SHAPES[2], DECODE_SHAPES[3]):
+        args = decode_sets(gen, dev, B, H, Hkv, S, D, decode_lengths(kind, B, S, dev))[0]
+        same = same and torch.equal(decode_old(*args), decode_attention(*args))
+    print(f"ab rmsnorm: flash (1, 32, 8, 4096, 128) causal and decode {DECODE_SHAPES[2][0]}, "
+          f"{DECODE_SHAPES[3][0]} bit-equal to the parent's: {same}", flush=True)
+    if not same:
+        raise SystemExit("FAILED: rows 9 and 10 differ from the parent's")
+
+
 GROUPS = {"exchange": exchange_ab, "scheduler": scheduler_ab, "compression": compression_ab,
-          "attention": attention_ab, "decode": decode_ab}
+          "attention": attention_ab, "decode": decode_ab, "rmsnorm": rmsnorm_ab}
 
 
 def main() -> int:

@@ -44,8 +44,6 @@ Needs one CUDA card; exits non-zero without one.
 
 from __future__ import annotations
 
-import ctypes
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -54,12 +52,14 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "src"))
+sys.path.insert(0, str(REPO / "scripts"))
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.gossip_mix import (  # noqa: E402
     gossip_mix_all_plain,
     gossip_mix_block_plain,
 )
+from variant_build import build_variants, in_turns, patched, ptxas_line  # noqa: E402
 
 SOURCE = build.CSRC / "gossip_mix.cu"
 OUT = REPO / "build" / "mix_variants"
@@ -91,50 +91,15 @@ VARIANTS = {
     "nounroll": [(SPLIT, SPLIT.replace("#pragma unroll 8\n", ""))],
     "twolist": [(ONE, ONE.replace("!kTwo || ", ""))],
 }
+KERNEL = "mix_tf32_kernelILi128ELi4ELi4E"   # TM = 128, 4 k-steps, a ring of 4
 ACCURACY_L = 65536
 ACCURACY_N = (128, 300, 1024, 2048)
 
 
-def variant_source(name: str) -> str:
-    src = SOURCE.read_text()
-    for old, new in VARIANTS[name]:
-        if old not in src:
-            raise SystemExit(f"variant {name}: the line to replace is not in {SOURCE.name}")
-        src = src.replace(old, new)
-    return src
-
-
-def compile_all(names) -> dict[str, tuple[ctypes.CDLL, str]]:
-    nvcc = build.tool()
-    procs = {}
-    for name in names:
-        d = OUT / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "gossip_mix.cu").write_text(variant_source(name))
-        procs[name] = subprocess.Popen(
-            [nvcc, *build.ARCH_FLAGS, *build.CFLAGS, "-shared", str(d / "gossip_mix.cu"), "-o",
-             str(d / "libmix.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"variant {name}: nvcc failed\n{log}")
-        lib = ctypes.CDLL(str(OUT / name / "libmix.so"))
-        for fn in ("gossip_mix_all_f32", "gossip_mix_all_scratch_floats", "gossip_mix_block_f32",
-                   "gossip_mix_block_scratch_floats"):
-            getattr(lib, fn).argtypes, getattr(lib, fn).restype = build.SIGNATURES[fn]
-        libs[name] = (lib, log)
-    return libs
-
-
-def ptxas_line(log: str) -> str:
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if re.search(r"entry function '\S*mix_tf32_kernelILi128ELi4ELi4E", line):
-            rest = " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
-                            if "spill" in x or "Used" in x)
-            return rest
-    return "not found"
+def compile_all(names) -> dict:
+    return build_variants(SOURCE, OUT, {n: patched(SOURCE, VARIANTS[n], n) for n in names},
+                          ("gossip_mix_all_f32", "gossip_mix_all_scratch_floats",
+                           "gossip_mix_block_f32", "gossip_mix_block_scratch_floats"))
 
 
 def main() -> int:
@@ -174,7 +139,7 @@ def main() -> int:
     L = 552714
     for n in (128, 10):
         W = torch.rand(n, n, generator=gen, device=dev) / n
-        sets = [torch.randn(n, L, generator=gen, device=dev)
+        sets = [(torch.randn(n, L, generator=gen, device=dev),)
                 for _ in range(max(2, 200_000_000 // (n * L * 4)))]
         o = torch.empty(n, L, device=dev)
 
@@ -188,16 +153,16 @@ def main() -> int:
                     raise SystemExit(f"launch failed: cudaError_t {err}")
             return run
 
-        want = gossip_mix_all_plain(sets[0], W)
+        want = gossip_mix_all_plain(sets[0][0], W)
         runs = {}
         for name in names:
             lib, log = libs[name]
             runs[name] = call(lib)
-            runs[name](sets[0])
+            runs[name](*sets[0])
             torch.cuda.synchronize()
             e = torch.linalg.norm((o - want).double()) / torch.linalg.norm(want.double())
             if n == 128:
-                print(f"variant {name}: ptxas {ptxas_line(log)}", flush=True)
+                print(f"variant {name}: ptxas {ptxas_line(log, KERNEL)}", flush=True)
             print(f"variant {name} N_T={n}: rel error {float(e):.3e}", flush=True)
         times = in_turns(runs, sets, 50)
         for name in names:
@@ -217,8 +182,8 @@ def main() -> int:
         def call_block(lib):
             scratch = torch.empty(lib.gossip_mix_block_scratch_floats(m, h), device=dev)
 
-            def run(xs):
-                err = lib.gossip_mix_block_f32(xs[0].data_ptr(), wb.data_ptr(), xs[1].data_ptr(),
+            def run(x, xh):
+                err = lib.gossip_mix_block_f32(x.data_ptr(), wb.data_ptr(), xh.data_ptr(),
                                                wh.data_ptr(), o.data_ptr(), scratch.data_ptr(),
                                                m, h, L, stream)
                 if err:
@@ -229,7 +194,7 @@ def main() -> int:
         runs = {}
         for name in names:
             runs[name], resident = call_block(libs[name][0])
-            runs[name](sets[0])
+            runs[name](*sets[0])
             torch.cuda.synchronize()
             e = torch.linalg.norm((o - want).double()) / torch.linalg.norm(want.double())
             print(f"variant {name} block m={m} H={h}: rel error {float(e):.3e}, W "
@@ -242,27 +207,6 @@ def main() -> int:
         del sets, o, want
         torch.cuda.empty_cache()
     return 0
-
-
-def in_turns(runs: dict, sets: list, reps: int) -> dict[str, list[float]]:
-    """Device us a call of each run, timed a, b, …, b, a (CUDA events around
-    ``reps`` calls on the cycled inputs, the stream held by a sleep first)."""
-    names = list(runs)
-    times = {name: [] for name in names}
-    for name in names + names[::-1]:
-        fn = runs[name]
-        for x in sets[:2]:
-            fn(x)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000_000)
-        start.record()
-        for i in range(reps):
-            fn(sets[i % len(sets)])
-        end.record()
-        end.synchronize()
-        times[name].append(start.elapsed_time(end) / reps * 1e3)
-    return times
 
 
 if __name__ == "__main__":

@@ -31,8 +31,6 @@ Needs one CUDA card; exits non-zero without one.
 
 from __future__ import annotations
 
-import ctypes
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -41,9 +39,11 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO / "src"))
+sys.path.insert(0, str(REPO / "scripts"))
 
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.sdp_proj import rank_k_update_plain  # noqa: E402
+from variant_build import build_variants, in_turns, patched, ptxas_line  # noqa: E402
 
 SOURCE = build.CSRC / "sdp_proj.cu"
 OUT = REPO / "build" / "rank_k_variants"
@@ -70,44 +70,9 @@ VARIANTS = {
 N, K = 1665, 16
 
 
-def variant_source(name: str) -> str:
-    src = SOURCE.read_text()
-    for old, new in VARIANTS[name]:
-        if old not in src:
-            raise SystemExit(f"variant {name}: the line to replace is not in {SOURCE.name}")
-        src = src.replace(old, new)
-    return src
-
-
-def compile_all(names) -> dict[str, tuple[ctypes.CDLL, str]]:
-    nvcc = build.tool()
-    procs = {}
-    for name in names:
-        d = OUT / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "sdp_proj.cu").write_text(variant_source(name))
-        procs[name] = subprocess.Popen(
-            [nvcc, *build.ARCH_FLAGS, *build.CFLAGS, "-shared", str(d / "sdp_proj.cu"), "-o",
-             str(d / "libsdp.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"variant {name}: nvcc failed\n{log}")
-        lib = ctypes.CDLL(str(OUT / name / "libsdp.so"))
-        fn = lib.rank_k_update_f32
-        fn.argtypes, fn.restype = build.SIGNATURES["rank_k_update_f32"]
-        libs[name] = (lib, log)
-    return libs
-
-
-def ptxas_line(log: str) -> str:
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if re.search(r"entry function '\S*rank_k_kernelIfE", line):
-            return " ".join(x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
-                            if "spill" in x or "Used" in x)
-    return "not found"
+def compile_all(names) -> dict:
+    return build_variants(SOURCE, OUT, {n: patched(SOURCE, VARIANTS[n], n) for n in names},
+                          ("rank_k_update_f32",))
 
 
 def main() -> int:
@@ -130,7 +95,7 @@ def main() -> int:
     def call(lib):
         def run(Y, A, B):
             err = lib.rank_k_update_f32(Y.data_ptr(), A.data_ptr(), B.data_ptr(), o.data_ptr(), N,
-                                        K, stream)
+                                        K, 1, stream)   # one lane
             if err:
                 raise SystemExit(f"launch failed: cudaError_t {err}")
         return run
@@ -144,29 +109,14 @@ def main() -> int:
         e = float(torch.linalg.norm((o - want).double()) / torch.linalg.norm(want.double()))
         same = "" if first is None else f", bit-equal to {names[0]}: {torch.equal(o, first)}"
         first = o.clone() if first is None else first
-        print(f"variant {name}: ptxas {ptxas_line(libs[name][1])}; rel error {e:.3e}{same}",
-              flush=True)
+        ptxas = ptxas_line(libs[name][1], "rank_k_kernelIfE")
+        print(f"variant {name}: ptxas {ptxas}; rel error {e:.3e}{same}", flush=True)
         if e > 1e-5:
             raise SystemExit(f"FAILED: variant {name} disagrees with the plain version")
 
     runs["torch.sub"] = lambda Y, A, B: torch.sub(Y, 1.0, out=o)
-    order = names + ["torch.sub"]
-    times = {name: [] for name in order}
-    for name in order + order[::-1]:
-        fn = runs[name]
-        for args in sets[:2]:
-            fn(*args)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000_000)
-        start.record()
-        reps = 200
-        for i in range(reps):
-            fn(*sets[i % len(sets)])
-        end.record()
-        end.synchronize()
-        times[name].append(start.elapsed_time(end) / reps * 1e3)
-    for name in order:
+    times = in_turns(runs, sets, 200)
+    for name in runs:
         t = times[name]
         print(f"variant {name} n={N} k={K}: {t[0]:.2f} / {t[1]:.2f} us", flush=True)
     return 0

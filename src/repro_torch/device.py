@@ -14,6 +14,8 @@ convolutions it would move the card's losses away from the CPU's.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -32,3 +34,10 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise RuntimeError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index`` (the kernels' plans
+    size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

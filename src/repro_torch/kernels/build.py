@@ -57,7 +57,9 @@ SIGNATURES = {
     "gossip_mix_bf16": ([_P, _P, _P, _I, _LL, _P], _I),
 }
 SIGNATURES.update({
-    "rmsnorm": ([_P, _P, _P, _LL, _I, _F, _I, _I, _P], _I),
+    # x, scale, out, R, D, eps, x bf16, scale bf16, the plan (threads a row, loads a thread,
+    # rows a block, grid), stream
+    "rmsnorm": ([_P, _P, _P, _LL, _I, _F, _I, _I, _I, _I, _I, _I, _P], _I),
     # q, k, v, out, lse (or null), strides, B, H, Hkv, Sq, Sk, D, causal, window, scale, bf16,
     # stream
     "flash_attention": ([_P, _P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _I, _I, _I,

@@ -20,12 +20,12 @@ splits from the shapes and the SM count alone, so a call never reads
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 from repro_torch.kernels.build import KernelInputError
 
@@ -84,11 +84,6 @@ def decode_plan(B: int, H: int, Hkv: int, S: int, D: int, sms: int) -> DecodePla
     per = min(max(units // max(want, 1), min_units(D)), max_units(D))
     per = min(max(per, -(-units // cap)), units)
     return DecodePlan(per * UNIT, -(-units // per), groups)
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}

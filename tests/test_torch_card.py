@@ -33,6 +33,7 @@ import torch
 import repro_torch.core as P
 from repro_torch import kernels as tk
 from repro_torch.core.sdp import SDPOptions
+from repro_torch.device import sm_count
 from repro_torch.kernels.bottleneck import bottleneck_eval, bottleneck_eval_plain
 from repro_torch.kernels.compress import (
     MAX_LEAVES,
@@ -47,7 +48,6 @@ from repro_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_plain,
     decode_plan,
-    sm_count,
 )
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.gossip_mix import (
@@ -58,7 +58,7 @@ from repro_torch.kernels.gossip_mix import (
     gossip_mix_block_plain,
     gossip_mix_plain,
 )
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain, rmsnorm_plan
 from repro_torch.models import build_model
 from repro_torch.kernels.sdp_proj import (
     rank_k_update,
@@ -664,14 +664,21 @@ def test_rmsnorm_kernel_on_card(cuda, r, d, dt, sdt):
     s = _randn((d,), sdt, cuda, d) * 0.5
     before = tk.launch_counts()["rmsnorm"]
     got, want = rmsnorm(x, s), rmsnorm_plain(x, s)
+    again = rmsnorm(x, s)
     torch.cuda.synchronize()
     assert got.dtype == x.dtype and got.shape == x.shape
+    assert _rmsnorm_close(got, want), _max_abs(got, want)
+    assert torch.equal(got, again)
+    assert tk.launch_counts()["rmsnorm"] == before + 2
+
+
+def _rmsnorm_close(got, want) -> bool:
+    """chip_smoke.rmsnorm_ok: 2e-5 in float32, one bfloat16 ulp of the plain
+    value in bfloat16."""
     diff = (got.float() - want.float()).abs()
-    if dt == "bf16":
-        assert torch.all(diff <= want.float().abs() * 2.0 ** -7)
-    else:
-        assert float(diff.max()) <= 2e-5
-    assert tk.launch_counts()["rmsnorm"] == before + 1
+    if got.dtype == torch.bfloat16:
+        return bool(torch.all(diff <= want.float().abs() * 2.0 ** -7))
+    return float(diff.max()) <= 2e-5
 
 
 @pytest.mark.parametrize(
@@ -1197,7 +1204,7 @@ def _decode_lengths(b, h, hkv, s, d, dev):
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("d", [64, 128, 256])
-@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 12, 16])
 def test_decode_kernel_every_group_size_on_card(cuda, g, d, dt):
     """All g query heads of a kv head in one block, at the lengths that cross
     its edges (4 splits of 256 slots here, 8 of 128 at D = 256, merged by the
@@ -1252,12 +1259,40 @@ def test_decode_kernel_more_than_16_heads_a_kv_head_on_card(cuda, h, hkv, d, dt)
     assert _attn_close(got, want), _max_abs(got, want)
 
 
-@pytest.mark.parametrize("r,d", [(64, 4096), (8, 4096), (300, 2048), (8, 2048)])
-def test_rmsnorm_family_widths_on_card(cuda, r, d):
-    x, s = _randn((r, d), "bf16", cuda, r), _randn((d,), "bf16", cuda, d) * 0.5
-    got, want = rmsnorm(x, s), rmsnorm_plain(x, s)
-    torch.cuda.synchronize()
-    assert torch.all((got.float() - want.float()).abs() <= want.float().abs() * 2.0 ** -7)
+@pytest.mark.parametrize("dt,sdt", [("bf16", "bf16"), ("bf16", "f32"), ("f32", "f32"),
+                                    ("f32", "bf16")])
+@pytest.mark.parametrize("d", [128, 768, 2048, 4096, 5120, 8192, 12288])
+def test_rmsnorm_family_widths_on_card(cuda, d, dt, sdt):
+    """Every width the registry normalises, in all four dtype pairings, at row
+    counts that divide neither the plan's rows a block nor its grid: one
+    launch a call, a second call bit-equal."""
+    x_size = 2 if dt == "bf16" else 4
+    sms = sm_count(cuda.index)
+    rows = rmsnorm_plan(1 << 20, d, x_size, sms).rows     # the many-row plan's
+    s = _randn((d,), sdt, cuda, d) * 0.5
+    for r in (1, 7, 8, 4097, 132 * rows + 1, 2 * sms * rows + 1):
+        x = _randn((r, d), dt, cuda, r)
+        before = tk.launch_counts()["rmsnorm"]
+        got, again = rmsnorm(x, s), rmsnorm(x, s)
+        want = rmsnorm_plain(x, s)
+        torch.cuda.synchronize()
+        assert got.dtype == x.dtype and got.shape == x.shape
+        assert _rmsnorm_close(got, want), (r, _max_abs(got, want))
+        assert torch.equal(got, again), r
+        assert tk.launch_counts()["rmsnorm"] == before + 2
+
+
+def test_rmsnorm_unaligned_scale_on_card(cuda):
+    """A scale that starts off its vector alignment is read one element at a
+    time: the same result as an aligned copy of it."""
+    for dt, sdt in (("bf16", "f32"), ("bf16", "bf16"), ("f32", "bf16"), ("f32", "f32")):
+        x = _randn((33, 768), dt, cuda, 3)
+        base = _randn((769,), sdt, cuda, 4) * 0.5
+        s = base[1:]
+        assert s.data_ptr() % 8
+        got = rmsnorm(x, s)
+        assert torch.equal(got, rmsnorm(x, s.clone()))
+        assert _rmsnorm_close(got, rmsnorm_plain(x, s))
 
 
 def _moe_inputs(arch, dev, dt=torch.float32, seed=0, **kw):

@@ -42,7 +42,13 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_plain,
     split_bf16,
 )
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.build import KernelInputError
+from repro_torch.kernels.rmsnorm import BLOCK as RMS_BLOCK
+from repro_torch.kernels.rmsnorm import LOADS as RMS_LOADS
+from repro_torch.kernels.rmsnorm import MAX_LOADS as RMS_MAX_LOADS
+from repro_torch.kernels.rmsnorm import THREADS as RMS_THREADS
+from repro_torch.kernels.rmsnorm import WARP_LOADS as RMS_WARP_LOADS
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain, rmsnorm_plan
 
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -282,7 +288,8 @@ def test_decode_plan_registry_shapes_and_the_shapes_alone():
 
 
 @pytest.mark.parametrize("r,d,dt", [(256, 768, "f32"), (512, 1024, "bf16"), (128, 4096, "f32"),
-                                    (7, 128, "bf16"), (64, 16, "f32"), (3, 4096, "bf16")])
+                                    (7, 128, "bf16"), (64, 16, "f32"), (3, 4096, "bf16"),
+                                    (5, 5120, "bf16"), (3, 8192, "f32"), (9, 12288, "bf16")])
 @pytest.mark.parametrize("sdt", ["f32", "bf16"])
 def test_rmsnorm_plain_matches_ref_and_pallas(r, d, dt, sdt):
     xj, xt = _pair(_randn(r + d, r, d), dt)
@@ -294,6 +301,81 @@ def test_rmsnorm_plain_matches_ref_and_pallas(r, d, dt, sdt):
     block = 64 if r % 64 == 0 else r
     pallas = rmsnorm_fwd(xj, sj, block_rows=block, interpret=True)
     np.testing.assert_allclose(_np(got), _np(pallas), atol=atol)
+
+
+def _norm_widths() -> set[int]:
+    """Every width the registry normalises: d_model (ln1, ln2, the final norm),
+    the head dim where q and k are normed, and Mamba-2's d_inner."""
+    out = set()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        out.add(cfg.d_model)
+        if cfg.qk_norm:
+            out.add(cfg.resolved_head_dim)
+        if cfg.family == "ssm":
+            out.add(cfg.d_inner)
+    return out
+
+
+NORM_WIDTHS = (128, 768, 2048, 4096, 5120, 8192, 12288)
+
+
+def test_rmsnorm_registry_widths():
+    assert _norm_widths() == set(NORM_WIDTHS)
+
+
+def _check_rmsnorm_plan(R, D, itemsize, sms):
+    plan = rmsnorm_plan(R, D, itemsize, sms)
+    t, n, rows, grid = plan
+    nvec = D * itemsize // 16
+    assert t in RMS_THREADS and 1 <= n <= RMS_MAX_LOADS     # the register budget
+    assert t <= 32 or t % 32 == 0                          # a row within a warp, or whole warps
+    assert t * n >= nvec and t * (n - 1) < nvec            # the loads cover the row
+    assert rows == (RMS_BLOCK // t if t <= 32 else 1)
+    assert grid == -(-R // rows)                           # every row, one block a tile
+    return plan
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("d", NORM_WIDTHS)
+def test_rmsnorm_plan_at_registry_widths(d, itemsize):
+    """No idle load slot at any width the registry runs, in both dtypes and at
+    every R; where the rows fill the card, a row of at most one warp's loads
+    (32 · WARP_LOADS) within a warp, reduced by shuffles alone, and wider rows
+    at most LOADS loads a thread; where they do not, the fewest loads any
+    exact split gives."""
+    nvec = d * itemsize // 16
+    many = _check_rmsnorm_plan(1 << 20, d, itemsize, 132)
+    assert many.threads * many.loads == nvec
+    if nvec <= 32 * RMS_WARP_LOADS:
+        assert many.threads <= 32 and many.loads <= RMS_WARP_LOADS
+    else:                      # above LOADS only where no more threads a row are left
+        assert many.loads <= RMS_LOADS or many.threads == RMS_THREADS[-1]
+    for R in (1, 7, 8, 256, 4097):
+        t, n, rows, grid = _check_rmsnorm_plan(R, d, itemsize, 132)
+        assert t * n == nvec
+        if -(-R // many.rows) >= 132:
+            assert (t, n) == many[:2]
+        else:
+            assert n == min(nvec // u for u in RMS_THREADS if nvec % u == 0)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("loads", [1, 3, 5, 16, 33, 96, 257, 1000, 2049, 3072, 4097, 8192])
+def test_rmsnorm_plan_every_row_length(loads, itemsize):
+    """Rows of 1 to 8,192 loads: covered within the budget, at R = 1 and at a
+    ragged R on a small card."""
+    for R, sms in ((1, 132), (4097, 7)):
+        _check_rmsnorm_plan(R, loads * 16 // itemsize, itemsize, sms)
+
+
+@pytest.mark.parametrize("d,itemsize", [(8193 * 8, 2), (8193 * 4, 4), (12, 2), (6, 4), (0, 2),
+                                        (4100, 2)])
+def test_rmsnorm_plan_refuses_what_the_kernel_cannot_take(d, itemsize):
+    """Past 8,192 16-byte loads a row, or a D that is not a whole number of
+    16-byte loads: ``KernelInputError``, as the wrapper raised before."""
+    with pytest.raises(KernelInputError):
+        rmsnorm_plan(8, d, itemsize, 132)
 
 
 # ---------------------------------------------------------------------------
