@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port once on the card: the SDP scheduler, the
 gossip-FL engines (stacked, per-user reference, mesh-sharded, barrier-free),
 the orchestration layer (elastic scheduler, scenario sweep), the dense
-LM's serving and training paths, and serving the mixture-of-experts,
-Mamba-2 and VLM families.
+LM's serving and training paths, serving every other family (mixture of
+experts, Mamba-2, VLM, the RG-LRU hybrid, Whisper) and training the
+mixture-of-experts, Mamba-2 and RG-LRU families.
 
     python3 chip_smoke.py
 
@@ -133,8 +134,10 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      assignment's Eq. 2 checked on the host;
  18. orchestration: (a) ``run_sweep`` over every registered scenario preset
      at seed 0 and the quick budget (fig6 at its ``paper_setting`` full
-     budget) and seeds 1–2 of ``ring_uniform`` and ``torus_cluster``, in
-     this process, every method's bottleneck beside ``repro``'s stored record,
+     budget; the three churn presets cut to ``CHURN_ROUNDS`` rounds, their
+     records then not comparable with ``repro``'s) and seeds 1–2 of
+     ``ring_uniform`` and ``torus_cluster``, in this process, every other
+     method's bottleneck beside ``repro``'s stored record,
      each record checked for ``repro``'s keys, finite values and, on static
      sync presets, a simulated total of Eq. 2 × rounds; the batched
      scenarios' records against ``run_scenario`` alone (the same
@@ -159,7 +162,8 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      versions (attention at (1, 32, 8, 2048, 128), both dtypes); (a)
      qwen3-8b at full width, depth cut to 8 layers, 3 AdamW steps of 2 ×
      4096 tokens through ``make_train_step`` (bfloat16 compute, float32
-     masters, remat): each step's wall, the device split forward / backward /
+     masters, remat): each step's wall and model-FLOPs share (``mfu``, from
+     ``models/flops.py``), the device split forward / backward /
      optimizer (CUDA events), tokens/s, peak memory, the idle share of the
      last step (profiled), finite losses near ln V, every master changed and
      exact launch counts (``train_launches``); (c) the smoke configs in
@@ -205,6 +209,22 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      dim 256) in float32 on the card against the CPU: forward, 48 decode
      steps through a 64-slot cache (the 32-slot local ring wraps), every
      cache leaf, ``loss_fn`` and every gradient.
+ 22. LM family training: (b) row 9's logsumexp at recurrentgemma's training
+     shape ((1, 16, 4096, 256) over one kv head, causal, window 2,048),
+     bfloat16 and float32: the output with it bit-equal to the output
+     without it and within ``attn_share`` of the plain version's, the
+     logsumexp within ``LSE_TOL``; the bfloat16 forward with and without it
+     timed in turns beside its bound and one SDPA call; (a) mixtral-8x7b (2
+     of 32 layers), olmoe-1b-7b (4 of 16), mamba2-1.3b (48) at 2 × 4096
+     tokens and recurrentgemma-9b (3 of 38) at 1 × 4096, full width, one at
+     a time, each as phase 19 (a) trains qwen3-8b (``train_run``: 3 AdamW
+     steps, one microbatch, walls, ``mfu`` from ``models/flops.py``, split,
+     tokens/s, peak, idle share, exact launch counts
+     (``family_train_launches``)); (c) the four smoke configs in float32 on
+     the card against the CPU for 3 steps at their configs' microbatches
+     (losses and every leaf's gradient side by side, the parameters after a
+     step from the CPU's state), and ``repro_torch.launch.train --smoke``
+     on the card for each.
 
 Each phase prints its wall time.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object with every kernel's numbers, and
@@ -2373,6 +2393,11 @@ ORCH_ROUNDS = 12               # (b): rounds of the churn trace on the 16 machin
 # (b): a Markov trace that fails 3 machines and recovers 3 in 12 rounds (stream (0, 2))
 ORCH_TRACE = {"model": "markov", "p_fail": 0.03, "p_recover": 0.5, "min_up": 8}
 ORCH_BACKLOG = 8               # (b): delay matrices in the on_delay_updates backlog
+# (a): the churn presets' rounds, cut from 24 / 24 / 20 in this script only (their
+# lone dense DR re-solves, one a round, took 401.69 s of phase 18 on a slow host);
+# their records are then not comparable with repro's stored ones
+CHURN_PRESETS = ("smallworld_churn_markov", "torus_churn_weibull", "er_churn_degraded")
+CHURN_ROUNDS = 6
 REPRO_RECORDS = Path(__file__).resolve().parent / "BENCH_scenarios.json"
 # docs/benchmarks.md's record schema: keys every record, its axes, its graph
 # and each of its method entries carry
@@ -2417,14 +2442,18 @@ def static_sync(sc) -> bool:
 
 def sweep_part(dev, out: Path) -> dict:
     """(a) ``run_sweep`` over every registered preset (seed 0, quick; fig6 at
-    its ``paper_setting`` full budget) and seeds 1..2 of ``ring_uniform`` and
-    ``torus_cluster``, on the card, in this process; returns the records."""
+    its ``paper_setting`` full budget; the churn presets at ``CHURN_ROUNDS``)
+    and seeds 1..2 of ``ring_uniform`` and ``torus_cluster``, on the card, in
+    this process; returns the records."""
+    import dataclasses
+
     import repro_torch.launch.elastic as elastic
     from repro_torch import kernels as tk
     from repro_torch.scenarios import get_scenario, list_scenarios, run_scenario, run_sweep
     from repro_torch.scenarios.engine import record_key, scenario_key
 
-    scs = list(list_scenarios().values())
+    scs = [dataclasses.replace(sc, rounds=CHURN_ROUNDS) if sc.name in CHURN_PRESETS else sc
+           for sc in list_scenarios().values()]
     scs += [get_scenario(n).with_seed(s) for n in ("ring_uniform", "torus_cluster")
             for s in range(1, ORCH_SEEDS)]
     batches = []
@@ -2464,17 +2493,22 @@ def sweep_part(dev, out: Path) -> dict:
     for sc in scs:
         key = scenario_key(sc, True)
         rec, ref = records[key], stored.get(key)
+        cut = sc.name in CHURN_PRESETS
         cols = []
         for m, e in rec["methods"].items():
-            theirs = ref["methods"].get(m) if ref else None
+            theirs = ref["methods"].get(m) if ref and not cut else None
             cols.append(f"{m} {e['predicted_bottleneck']:.6f}" + (
                 f" (repro {theirs['predicted_bottleneck']:.6f})" if theirs else ""))
         sdp = [e for e in rec["methods"].values() if "sdp_seconds" in e]
         solve = (f" (the first sdp solve {sdp[0]['sdp_seconds']:.3f} s, batch "
                  f"{sdp[0].get('solve_batch', 1)})" if sdp else "")
+        note = "; no stored repro record" if not ref else ""
+        if cut:
+            note = (f"; rounds cut to {rec['rounds']} from {get_scenario(sc.name).rounds} "
+                    f"in this script: repro's stored record is not comparable")
         print(f"sweep {key[0]} seed {key[1]} quick {key[2]}: {rec['elapsed_seconds']:.2f} s"
               f"{solve}, launches {launches.get(f'{key[0]}@{key[1]}', {})}; " + ", ".join(cols)
-              + ("" if ref else "; no stored repro record"), flush=True)
+              + note, flush=True)
         json.dumps(rec)
         check(record_schema_ok(rec, ref), f"sweep {key}: record keys")
         check(finite_floats(rec["methods"]) and all(
@@ -2709,6 +2743,20 @@ ATTN_GRAD_TOL = {torch.float32: F32_TOL, torch.bfloat16: 2e-2}
 TRAIN_LOSS_REL, TRAIN_PARAM_ABS = 1e-4, 5e-4
 
 
+def lse_turns(sets, window: int = 0) -> dict[str, list[float]]:
+    """Device ms of row 9's causal forward without ("plain") and with ("lse")
+    its logsumexp output, in turns (plain, lse, lse, plain) over ``sets``."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    times = {}
+    for label in ("plain", "lse", "lse", "plain"):
+        lse = label == "lse"
+        times.setdefault(label, []).append(device_ms(
+            lambda q_, k_, v_: flash_attention(q_, k_, v_, window=window, return_lse=lse),
+            sets, 20))
+    return times
+
+
 def lse_part(dev, gen) -> dict:
     """(b) The flash kernel's logsumexp output: the output with it requested
     bit-equal to the output without it, the logsumexp against the plain
@@ -2759,11 +2807,7 @@ def lse_part(dev, gen) -> dict:
           f"flash_attention lse B={TRAIN_BATCH} S={TRAIN_SEQ} bf16")
     del q, k, v, out, lse, want, want_out, plain_out
     torch.cuda.empty_cache()
-    times = {}
-    for label in ("plain", "lse", "lse", "plain"):      # in turns
-        fn = ((lambda q_, k_, v_: flash_attention(q_, k_, v_)) if label == "plain" else
-              (lambda q_, k_, v_: flash_attention(q_, k_, v_, return_lse=True)))
-        times.setdefault(label, []).append(device_ms(fn, sets, 20))
+    times = lse_turns(sets)
     sdpa = library_ms(lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
         q_, k_, v_, is_causal=True, enable_gqa=True), sets, 20)
     b, by = flash_bound(TRAIN_BATCH, H, 8, TRAIN_SEQ)
@@ -2824,21 +2868,41 @@ def grads_part(dev, gen) -> None:
     torch.cuda.empty_cache()
 
 
-def train_full_part(dev) -> dict[str, int]:
-    """(a) qwen3-8b at full width (depth cut to 8 layers) for 3 AdamW steps of
-    2 × 4096 tokens through ``make_train_step``, with exact launch counts."""
+def train_expect(cfg, steps: int) -> dict[str, int]:
+    """Exact launches of ``steps`` training steps of ``cfg``: each step a
+    forward (RMSNorm twice a block, ln1 and ln2 or ln1 and Mamba-2's gated
+    norm, twice more with q/k norms, and the final norm; one attention an
+    "attn" or "local_attn" block) and, under remat, each block's forward
+    again in the backward (the final norm runs outside the checkpoints)."""
+    from repro_torch.models.transformer import ATTN_KINDS, layer_kinds
+
+    kinds = layer_kinds(cfg)
+    block_norms = 2 * len(kinds) + 2 * kinds.count("attn") * cfg.qk_norm
+    n_attn = sum(k in ATTN_KINDS for k in kinds)
+    again = 2 if cfg.remat else 1
+    return launch_table(steps, again * block_norms + 1, again * n_attn)
+
+
+def train_run(dev, cfg, tag: str, batch_size: int, predicted_gb: str) -> tuple[dict, dict]:
+    """``TRAIN_STEPS`` AdamW steps of ``cfg`` (bfloat16 compute, float32
+    masters, remat, one microbatch) on ``batch_size`` × ``TRAIN_SEQ`` tokens
+    of the synthetic stream through ``make_train_step``: each step's wall,
+    its model-FLOPs share (``models/flops.py`` at this depth over the wall at
+    the bfloat16 tensor-core rate), the device split forward / backward /
+    optimizer (CUDA events), tokens/s, peak memory, the idle share of the
+    last step (profiled); finite losses and gradient norms, the step-1 loss
+    within 1 of ln V, every master changed, the optimizer's step and exact
+    launch counts.  Returns (launch counts, numbers)."""
     import dataclasses
     import math
 
     from repro_torch import kernels as tk
-    from repro_torch.configs import get_config
     from repro_torch.data import LMStream
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, model_flops
+    from repro_torch.shapes import ShapeSpec
     from repro_torch.train.optim import AdamW, cosine_warmup_schedule
     from repro_torch.train.trainer import init_train_state, make_train_step
 
-    cfg = get_config("qwen3-8b").replace(num_layers=TRAIN_LAYERS)
-    L = cfg.num_layers
     events = {}
 
     def event(name):
@@ -2868,13 +2932,14 @@ def train_full_part(dev) -> dict[str, int]:
     torch.cuda.synchronize()
     named = dict(state["params"].named_parameters())
     n_params = sum(p.numel() for p in named.values())
-    print(f"lm train (a): qwen3-8b, {L} layers, {n_params} float32 parameters and moments drawn "
-          f"in {time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB; "
-          f"dtype {cfg.dtype}, remat {cfg.remat}, attn_chunk {cfg.attn_chunk}", flush=True)
+    print(f"{tag}: {cfg.name}, {cfg.num_layers} layers, {n_params} float32 parameters and "
+          f"moments drawn in {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; dtype {cfg.dtype}, remat {cfg.remat}, "
+          f"attn_chunk {cfg.attn_chunk}, 1 microbatch", flush=True)
     stride = {n: max(1, p.numel() // 65536) for n, p in named.items()}
     before = {n: p.detach().reshape(-1)[::stride[n]].clone() for n, p in named.items()}
-    step = make_train_step(dataclasses.replace(api, loss_fn=timed_loss), opt)
-    stream = LMStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    step = make_train_step(dataclasses.replace(api, loss_fn=timed_loss), opt, microbatches=1)
+    stream = LMStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=batch_size)
     batches = [stream.batch(i) for i in range(TRAIN_STEPS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2902,37 +2967,60 @@ def train_full_part(dev) -> dict[str, int]:
              for k in ("forward", "optimizer", "step")}
     split["backward"] = [round(a.elapsed_time(b), 2) for a, b in
                          zip(events["forward end"], events["optimizer start"])]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"lm train (a): {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: walls "
+    tokens = batch_size * TRAIN_SEQ
+    flops = model_flops(cfg, ShapeSpec("train", "train", TRAIN_SEQ, batch_size))["model_flops"]
+    mfu = [flops / (w * BF16_FLOPS) for w in walls]
+    print(f"{tag}: {TRAIN_STEPS} steps of {batch_size} x {TRAIN_SEQ} tokens: walls "
           f"{[round(w, 4) for w in walls]} s (the last profiled), {tokens / walls[1]:.1f} tokens/s "
-          f"(step 2), peak device memory {peak:.2f} GB (predicted 55-65)", flush=True)
-    print(f"lm train (a): device split (CUDA events, ms) forward {split['forward']}, backward "
+          f"(step 2), peak device memory {peak:.2f} GB (predicted {predicted_gb})", flush=True)
+    print(f"{tag}: model FLOPs a step {flops:.6g} (models/flops.py at {cfg.num_layers} layers); "
+          f"mfu {[round(x, 4) for x in mfu]} of {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16", flush=True)
+    print(f"{tag}: device split (CUDA events, ms) forward {split['forward']}, backward "
           f"{split['backward']}, optimizer {split['optimizer']}, step {split['step']}", flush=True)
+    idle = None
     if busy > 0:
-        print(f"lm train (a): profiled step {walls[-1] * 1e3:.2f} ms wall, device busy "
-              f"{busy * 1e3:.2f} ms, idle share {1 - busy / walls[-1]:.3f}", flush=True)
+        idle = 1 - busy / walls[-1]
+        print(f"{tag}: profiled step {walls[-1] * 1e3:.2f} ms wall, device busy "
+              f"{busy * 1e3:.2f} ms, idle share {idle:.3f}", flush=True)
     else:
-        print("lm train (a): profiler recorded no device time: idle share not measured",
-              flush=True)
-    print(f"lm train (a): metrics {metrics}; ln V = {math.log(cfg.padded_vocab):.4f}", flush=True)
-    expect = dict.fromkeys(counts, 0)
-    # each step: a forward (4 norms a block and the final norm, one attention a
-    # block) and, under remat, each block's forward again in the backward
-    expect.update(rmsnorm=TRAIN_STEPS * (2 * 4 * L + 1), flash_attention=TRAIN_STEPS * 2 * L)
-    print(f"lm train (a): launches {counts}, expected {expect}", flush=True)
+        print(f"{tag}: profiler recorded no device time: idle share not measured", flush=True)
+    print(f"{tag}: metrics {metrics}; ln V = {math.log(cfg.padded_vocab):.4f}", flush=True)
+    expect = train_expect(cfg, TRAIN_STEPS)
+    print(f"{tag}: launches {counts}, expected {expect}", flush=True)
     check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) and m["grad_norm"] > 0
-              for m in metrics), "lm train (a): losses and gradient norms")
+              for m in metrics), f"{tag}: losses and gradient norms")
     check(abs(metrics[0]["loss"] - math.log(cfg.padded_vocab)) <= 1.0,
-          f"lm train (a): step 1 loss {metrics[0]['loss']} not within 1 of ln V")
+          f"{tag}: step 1 loss {metrics[0]['loss']} not within 1 of ln V")
     check(int(state["opt"].step) == TRAIN_STEPS and metrics[-1]["step"] == TRAIN_STEPS,
-          "lm train (a): optimizer step")
+          f"{tag}: optimizer step")
     unchanged = [n for n, p in named.items()
                  if torch.equal(p.detach().reshape(-1)[::stride[n]], before[n])]
-    check(not unchanged, f"lm train (a): masters unchanged: {unchanged}")
-    check(counts == expect, "lm train (a): launch counts")
+    check(not unchanged, f"{tag}: masters unchanged: {unchanged}")
+    check(counts == expect, f"{tag}: launch counts")
     del state, named, before, step
     torch.cuda.empty_cache()
-    return counts
+    return counts, {"walls": walls, "mfu": mfu, "peak_gb": peak, "idle": idle,
+                    "params": n_params}
+
+
+def train_full_part(dev) -> dict[str, int]:
+    """(a) qwen3-8b at full width (depth cut to 8 layers) for 3 AdamW steps of
+    2 × 4096 tokens through ``make_train_step``, with exact launch counts."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-8b").replace(num_layers=TRAIN_LAYERS)
+    return train_run(dev, cfg, "lm train (a)", TRAIN_BATCH, "55-65")[0]
+
+
+def state_on(dev, state: dict) -> dict:
+    """A copy of a train state on ``dev``."""
+    import copy
+
+    opt_state = state["opt"]
+    return {"params": copy.deepcopy(state["params"]).to(dev),
+            "opt": type(opt_state)(opt_state.step.to(dev, copy=True),
+                                   {n: t.to(dev, copy=True) for n, t in opt_state.m.items()},
+                                   {n: t.to(dev, copy=True) for n, t in opt_state.v.items()})}
 
 
 def train_card_vs_cpu_part(dev) -> None:
@@ -2953,14 +3041,6 @@ def train_card_vs_cpu_part(dev) -> None:
 
     out_dir = Path(__file__).resolve().parent / "build"      # git-ignored
     out_dir.mkdir(exist_ok=True)
-
-    def on_card(state):
-        opt_state = state["opt"]
-        return {"params": copy.deepcopy(state["params"]).to(dev),
-                "opt": type(opt_state)(opt_state.step.to(dev, copy=True),
-                                       {n: t.to(dev, copy=True) for n, t in opt_state.m.items()},
-                                       {n: t.to(dev, copy=True) for n, t in opt_state.v.items()})}
-
     for arch in ("qwen3-8b", "granite-3-2b"):
         cfg = get_smoke_config(arch).replace(dtype=torch.float32)
         api, opt = build_model(cfg), AdamW(learning_rate=1e-3)
@@ -2968,7 +3048,7 @@ def train_card_vs_cpu_part(dev) -> None:
         on_cpu = init_train_state(api, opt, 0, device="cpu")
         worst = {"loss": 0.0, "param": 0.0}
         for mb in (1, 2):
-            states = {"cpu": copy.deepcopy(on_cpu), "card": on_card(on_cpu)}
+            states = {"cpu": copy.deepcopy(on_cpu), "card": state_on(dev, on_cpu)}
             step = make_train_step(api, opt, microbatches=mb)
             for i in range(3):
                 losses = {}
@@ -2984,7 +3064,7 @@ def train_card_vs_cpu_part(dev) -> None:
                 straight = states["card"]
         # restart: 2 steps, save, restore into a fresh state, step 3
         step = make_train_step(api, opt)
-        part = on_card(on_cpu)
+        part = state_on(dev, on_cpu)
         for i in range(2):
             part, _ = step(part, stream.batch(i))
         with tempfile.TemporaryDirectory(dir=out_dir) as d:
@@ -3772,6 +3852,173 @@ def hybrid_whisper_phase(dev, gen) -> tuple[dict[str, int], dict]:
     return total, times
 
 
+# phase 22: training the mixture-of-experts, Mamba-2 and RG-LRU families
+# (a): full width, depth cut to fit one card beside float32 masters and moments
+# (16 bytes a parameter), one microbatch, TRAIN_SEQ tokens a sequence:
+# (arch, layers, batch, the peak predicted before the first card run, GB)
+FAMILY_TRAIN = (("mixtral-8x7b", 2, 2, "55-62"), ("olmoe-1b-7b", 4, 2, "33-40"),
+                ("mamba2-1.3b", 48, 2, "26-34"), ("recurrentgemma-9b", 3, 1, "55-66"))
+# (b): row 9 at recurrentgemma's training shape: (B, H, Hkv, S, D, window)
+HYBRID_TRAIN_ATTN = (1, 16, 1, TRAIN_SEQ, 256, 2048)
+# (c): card against CPU, each leaf's gradient a step, relative Frobenius
+# (tests/test_torch_families_train.py's bound against repro)
+TRAIN_GRAD_REL = 1e-4
+
+
+def lse_d256_part(dev, gen) -> dict:
+    """(b) Row 9's logsumexp at recurrentgemma's training shape, bfloat16
+    and float32 ((1, 16, 4096, 256) queries over one kv head, causal, window
+    2,048; the one-consumer-warpgroup kernel at D = 256 in bfloat16): the
+    output with the logsumexp requested bit-equal to the output without it
+    and within ``attn_share`` of the plain version's, the logsumexp within
+    ``LSE_TOL`` of the plain version's; in bfloat16 the forward with it timed
+    in turns with the forward without it, beside its bound and one SDPA
+    call (the window as a boolean mask)."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    B, H, Hkv, S, D, window = HYBRID_TRAIN_ATTN
+
+    def one_set(dt):
+        return (torch.randn(B, S, H, D, generator=gen, device=dev).to(dt).transpose(1, 2),
+                torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dt).transpose(1, 2),
+                torch.randn(B, S, Hkv, D, generator=gen, device=dev).to(dt).transpose(1, 2))
+
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = one_set(dt)
+        plain_out = flash_attention(q, k, v, window=window)
+        out, lse = flash_attention(q, k, v, window=window, return_lse=True)
+        want_out, want = flash_attention_plain(q, k, v, window=window, return_lse=True)
+        same = torch.equal(out, plain_out)
+        out_share = attn_share(out, want_out)
+        share = float(((lse - want).abs() / (LSE_TOL * (1 + want.abs()))).max())
+        print(f"lm family train (b) lse (B, H, Hkv, S, D) = ({B}, {H}, {Hkv}, {S}, {D}) causal "
+              f"window {window} {dt}: output bit-equal with and without lse {same}, "
+              f"{out_share:.3f} of its bound against the plain version; lse max abs err "
+              f"{max_abs(lse, want):.3g}, {share:.3f} of the bound", flush=True)
+        check(same and out_share <= 1 and share <= 1 and lse.shape == (B, H, S)
+              and lse.dtype == torch.float32, f"flash_attention lse D={D} window={window} {dt}")
+        del q, k, v, out, lse, want, want_out, plain_out
+        torch.cuda.empty_cache()
+    sets = copies(lambda: one_set(torch.bfloat16), 2 * B * (H + 2 * Hkv) * S * D)
+    times = lse_turns(sets, window)
+    lib = library_ms(lambda q_, k_, v_: sdpa(q_, k_, v_, causal=True, window=window), sets, 20)
+    b, by = bound_ms(2 * (2 * H + 2 * Hkv) * B * S * D, 4 * B * H * D * flash_pairs(S, window),
+                     BF16_FLOPS)
+    print(f"lm family train (b) flash forward (B, H, Hkv, S, D) = ({B}, {H}, {Hkv}, {S}, {D}) "
+          f"causal window {window} bf16: with lse {[round(t * 1e3, 2) for t in times['lse']]} us, "
+          f"without {[round(t * 1e3, 2) for t in times['plain']]} us (in turns); bound "
+          f"{b * 1e3:.2f} us ({by}); SDPA with a boolean window mask "
+          f"{'n/a' if lib is None else '%.2f us' % (lib * 1e3)}", flush=True)
+    del sets
+    torch.cuda.empty_cache()
+    return {"train_d256_ms": min(times["lse"]), "train_d256_nolse_ms": min(times["plain"]),
+            "train_d256_bound_ms": b, "train_d256_library_ms": lib}
+
+
+def family_train_full_part(dev) -> dict[str, int]:
+    """(a) Each of ``FAMILY_TRAIN`` at full width through ``train_run``, one at
+    a time (the state freed between them); returns the launches summed."""
+    from repro_torch.configs import get_config
+
+    total = {}
+    for arch, layers, batch, predicted in FAMILY_TRAIN:
+        cfg = get_config(arch).replace(num_layers=layers)
+        counts, _ = train_run(dev, cfg, f"lm family train (a) {arch}", batch, predicted)
+        add_counts(total, counts)
+        torch.cuda.empty_cache()
+    return total
+
+
+def family_train_card_vs_cpu_part(dev) -> None:
+    """(c) The four smoke configs in float32 from the same parameters on the
+    card and the CPU, 3 steps at each config's microbatches (mixtral 4,
+    recurrentgemma 2): run side by side, the losses within
+    ``TRAIN_LOSS_REL`` and every leaf's gradient within ``TRAIN_GRAD_REL``
+    each step; each step also taken on the card from the CPU's state before
+    it, the parameters after it within ``TRAIN_PARAM_ABS`` of the CPU's.
+    Then ``repro_torch.launch.train --smoke`` on the card for each."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import LMStream
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import build_model
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    seen = []
+
+    @dataclasses.dataclass(frozen=True)
+    class GradSpy(AdamW):                   # keeps each step's gradients
+        def update(self, grads, state, params):
+            seen.append({n: g.detach().float().cpu() for n, g in grads.items()})
+            return super().update(grads, state, params)
+
+    def param_gap(a, b) -> float:
+        return max(max_abs(x.detach().cpu(), y.detach().cpu()) for (_, x), (_, y) in
+                   zip(a["params"].named_parameters(), b["params"].named_parameters()))
+
+    for arch, *_ in FAMILY_TRAIN:
+        cfg = get_smoke_config(arch).replace(dtype=torch.float32)
+        api, opt = build_model(cfg), GradSpy(learning_rate=1e-3)
+        stream = LMStream(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4, seed=0)
+        on_cpu = init_train_state(api, opt, 0, device="cpu")
+        states = {"cpu": copy.deepcopy(on_cpu), "card": state_on(dev, on_cpu)}
+        step = make_train_step(api, opt)
+        worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+        for i in range(3):
+            batch, before = stream.batch(i), copy.deepcopy(states["cpu"])
+            seen.clear()
+            losses = {}
+            for where in ("cpu", "card"):
+                states[where], m = step(states[where], batch)
+                losses[where] = float(m["loss"])
+            worst["loss"] = max(worst["loss"], abs(losses["card"] - losses["cpu"]) / losses["cpu"])
+            worst["grad"] = max(worst["grad"], max(rel_err(seen[1][n], g)
+                                                   for n, g in seen[0].items()))
+            alone, _ = step(state_on(dev, before), batch)
+            worst["param"] = max(worst["param"], param_gap(alone, states["cpu"]))
+        print(f"lm family train (c): {arch} smoke f32, 3 steps at {cfg.train_microbatches} "
+              f"microbatches: largest relative loss difference {worst['loss']:.3e} (bound "
+              f"{TRAIN_LOSS_REL}), leaf gradient relative error {worst['grad']:.3e} (bound "
+              f"{TRAIN_GRAD_REL}); a step from the CPU's state: largest |parameter difference| "
+              f"{worst['param']:.3e} (bound {TRAIN_PARAM_ABS}); side by side after 3 steps "
+              f"{param_gap(states['card'], states['cpu']):.3e} (information: AdamW moves an "
+              f"element by about lr times the sign of its first gradients, so one within "
+              f"float32 noise of zero may move either way)", flush=True)
+        check(worst["loss"] <= TRAIN_LOSS_REL and worst["grad"] <= TRAIN_GRAD_REL
+              and worst["param"] <= TRAIN_PARAM_ABS, f"lm family train (c) {arch}: card "
+              f"against cpu {worst}")
+        check(int(states["card"]["opt"].step) == 3, f"lm family train (c) {arch}: optimizer step")
+        t0 = time.perf_counter()
+        out = train_launcher.main(["--arch", arch, "--smoke", "--steps", "4"])
+        print(f"lm family train (c): launcher --arch {arch} --smoke on the card: {out} in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        check(np.isfinite(out["loss"]) and out["step"] == 4, f"lm family train (c) {arch}: "
+              "launcher")
+    torch.cuda.empty_cache()
+
+
+def family_train_phase(dev, gen) -> tuple[dict[str, int], dict]:
+    """Phase 22: (b) row 9's logsumexp at D = 256 with a window, (a) the four
+    families' training at full width, (c) card against CPU and the launcher.
+    Returns (a)'s launches and (b)'s times."""
+    walls = {}
+    t0 = time.perf_counter()
+    times = lse_d256_part(dev, gen)
+    walls["(b)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = family_train_full_part(dev)
+    walls["(a)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    family_train_card_vs_cpu_part(dev)
+    walls["(c)"] = time.perf_counter() - t0
+    print(f"lm family train: launches over (a) {counts}; wall "
+          f"{ {k: round(v, 2) for k, v in walls.items()} }", flush=True)
+    return counts, times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3822,6 +4069,7 @@ def main() -> int:
     fam_counts, fam_times = phase("20 LM families", family_phase, dev, gen)
     p21_counts, p21_times = phase("21 RG-LRU hybrid and Whisper", hybrid_whisper_phase, dev,
                                   gen)
+    p22_counts, p22_times = phase("22 LM family training", family_train_phase, dev, gen)
 
     for r in rows:
         r["launches"] = counts[r["name"]]
@@ -3841,6 +4089,9 @@ def main() -> int:
         r["family_ms"] = fam_times[r["name"]]            # phase 20 (c), by shape
         r["rglru_whisper_launches"] = p21_counts[r["name"]]     # phase 21 (a), (b)
         r["rglru_whisper_ms"] = p21_times[r["name"]]            # phase 21 (c), by shape
+        r["family_train_launches"] = p22_counts[r["name"]]      # phase 22 (a), 3 steps each
+        if r["name"] == "flash_attention":
+            r.update(p22_times)                   # phase 22 (b), (1, 16, 1, 4096, 256)
     rows += lm_rows
     for r in shard_rows:
         r["launches"] = (shard_counts if r["name"] == "gossip_mix_block" else ref_counts)[r["name"]]
@@ -3864,6 +4115,11 @@ def main() -> int:
             # rows 9–11 on the RG-LRU hybrid / Whisper serve path and at their shapes
             # (phase 21)
             "rglru_whisper_launches", "rglru_whisper_ms",
+            # rows 9 and 11 on the families' training path (phase 22 (a)); row 9's
+            # forward with and without its logsumexp at recurrentgemma's training
+            # shape, its bound and SDPA's time there (22 (b))
+            "family_train_launches", "train_d256_ms", "train_d256_nolse_ms",
+            "train_d256_bound_ms", "train_d256_library_ms",
             # row 11: the host's µs a call at (8, 4096), not the row's shape, and
             # F.rms_norm's there (phase 10)
             "host_us_8x4096", "library_host_us_8x4096")

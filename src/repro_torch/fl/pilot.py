@@ -1,9 +1,11 @@
 """Pilot phase (paper §4.2): estimate task work ``p`` before scheduling
-(numpy copy of ``repro.fl.pilot``; the LM's analytic ``lm_task_work``
-belongs to the LM slice).
+(a copy of ``repro.fl.pilot``).
 
 Each user trains on a small pilot slice of its data on a reference
 machine; measured wall-clock × machine speed gives the work estimate.
+For LM replicas the analytic FLOPs module provides ``p`` directly
+(``repro_torch.models.flops``, through ``lm_task_work``) — both paths feed
+the same scheduler.
 """
 
 from __future__ import annotations
@@ -30,6 +32,14 @@ def measure_task_work(
             best = min(best, time.perf_counter() - t0)
         p[i] = best * reference_speed
     return p
+
+
+def lm_task_work(cfg, local_steps: int, tokens_per_step: int) -> float:
+    """Analytic work of one gossip round of LM training (FLOPs)."""
+    from repro_torch.models.flops import param_counts
+
+    counts = param_counts(cfg)
+    return 6.0 * counts.active * tokens_per_step * local_steps
 
 
 def stacked_task_work(

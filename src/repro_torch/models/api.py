@@ -13,6 +13,12 @@ mixture-of-experts, Mamba-2, VLM, RG-LRU hybrid) and for Whisper:
                                             mixture-of-experts auxiliary loss), a float32
                                             scalar with gradients (``params`` an ``LM``
                                             or a ``transformer.bind`` stand-in)
+  - ``input_specs(spec)``                   the batch of a ``ShapeSpec``: ``repro``'s keys,
+                                            shapes and dtypes, as meta-device tensors
+                                            (nothing allocated; ``jax.ShapeDtypeStruct``
+                                            stand-ins in ``repro``)
+  - ``cache_specs(spec)``                   ``init_cache`` of the spec's batch and length
+                                            on the meta device
 
 A VLM (``family == "vlm"``, qwen2-vl) takes ``inputs_embeds`` in place of
 tokens: (B, S, D) for ``forward``, (B, 1, D) for ``decode_step``, and
@@ -24,7 +30,10 @@ Whisper (``family == "encdec"``) takes ``repro``'s batch keys:
 plus ``labels`` for ``loss_fn``, and ``tokens`` and ``pos`` for
 ``decode_step``; ``init_cache(batch, seq_len, enc_len=None, device=None)``
 holds ``enc_len`` (default max(seq_len // 4, 64)) cross-attention slots,
-zeros until ``whisper.fill_cross_cache`` writes an encoding's.
+zeros until ``whisper.fill_cross_cache`` writes an encoding's.  Its
+``input_specs`` give the encoder ``seq_len`` frames and the decoder
+max(seq_len // 4, 64) tokens (``_whisper_seqs``); its ``cache_specs`` hold
+a self cache of ``seq_len`` and max(seq_len // 16, 64) cross slots.
 
 ``device=None`` means the CUDA card (``RuntimeError`` without one);
 ``device="cpu"`` runs the kernels' plain versions.  ``forward`` and
@@ -43,6 +52,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models import whisper as wh
 from repro_torch.models.common import ModelConfig
+from repro_torch.shapes import ShapeSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +63,22 @@ class ModelAPI:
     forward: Callable            # (params, batch) -> logits
     init_cache: Callable         # (batch, seq_len, device=None) -> cache
     decode_step: Callable        # (params, cache, batch) -> (logits, cache)
+    input_specs: Callable        # (ShapeSpec) -> batch dict of meta tensors
+    cache_specs: Callable        # (ShapeSpec) -> cache dict of meta tensors
+
+
+META = torch.device("meta")      # shapes and dtypes only, nothing allocated
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    """A shape and dtype stand-in: a tensor on the meta device."""
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def _whisper_seqs(spec: ShapeSpec) -> tuple[int, int]:
+    """Encoder frames get the full seq_len; decoder gets seq_len // 4
+    (whisper's audio:text ratio is ≈3-4:1; see DESIGN.md)."""
+    return spec.seq_len, max(spec.seq_len // 4, 64)
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
@@ -68,6 +94,8 @@ def _on(params, batch: dict, key: str):
 
 
 def _build_lm(cfg: ModelConfig) -> ModelAPI:
+    uses_embeds = cfg.family == "vlm"
+
     def init_params(seed: int = 0, device=None) -> tf.LM:
         dev = resolve_device(device)
         return tf.init_lm_params(cfg, torch.Generator(device=dev).manual_seed(seed))
@@ -88,8 +116,32 @@ def _build_lm(cfg: ModelConfig) -> ModelAPI:
                                  _on(params, batch, "pos"), cfg,
                                  inputs_embeds=_on(params, batch, "inputs_embeds"))
 
+    def input_specs(spec: ShapeSpec) -> dict:
+        b, s = spec.global_batch, spec.seq_len
+        if spec.kind in ("train", "prefill"):
+            out = {}
+            if uses_embeds:
+                out["inputs_embeds"] = _sds((b, s, cfg.d_model), cfg.dtype)
+                out["positions"] = _sds((3, b, s), torch.int32)
+            else:
+                out["tokens"] = _sds((b, s), torch.int32)
+            if spec.kind == "train":
+                out["labels"] = _sds((b, s), torch.int32)
+            return out
+        # decode: one new token, cache of seq_len
+        out = {"pos": _sds((b,), torch.int32)}
+        if uses_embeds:
+            out["inputs_embeds"] = _sds((b, 1, cfg.d_model), cfg.dtype)
+        else:
+            out["tokens"] = _sds((b,), torch.int32)
+        return out
+
+    def cache_specs(spec: ShapeSpec) -> dict:
+        return tf.init_decode_cache(cfg, spec.global_batch, spec.seq_len, META)
+
     return ModelAPI(cfg=cfg, init_params=init_params, loss_fn=loss_fn, forward=forward,
-                    init_cache=init_cache, decode_step=decode_step)
+                    init_cache=init_cache, decode_step=decode_step, input_specs=input_specs,
+                    cache_specs=cache_specs)
 
 
 def _build_whisper(cfg: ModelConfig) -> ModelAPI:
@@ -112,5 +164,22 @@ def _build_whisper(cfg: ModelConfig) -> ModelAPI:
         return wh.whisper_decode_step(params, cache, _on(params, batch, "tokens"),
                                       _on(params, batch, "pos"), cfg)
 
+    def input_specs(spec: ShapeSpec) -> dict:
+        b = spec.global_batch
+        s_enc, s_dec = _whisper_seqs(spec)
+        if spec.kind in ("train", "prefill"):
+            out = {"enc_frames": _sds((b, s_enc, cfg.d_model), cfg.dtype),
+                   "dec_tokens": _sds((b, s_dec), torch.int32)}
+            if spec.kind == "train":
+                out["labels"] = _sds((b, s_dec), torch.int32)
+            return out
+        return {"tokens": _sds((b,), torch.int32), "pos": _sds((b,), torch.int32)}
+
+    def cache_specs(spec: ShapeSpec) -> dict:
+        # decode cache: self-attn cache of seq_len + cross KV of seq_len//16
+        enc_len = max(spec.seq_len // 16, 64)
+        return wh.init_whisper_cache(cfg, spec.global_batch, spec.seq_len, enc_len, META)
+
     return ModelAPI(cfg=cfg, init_params=init_params, loss_fn=loss_fn, forward=forward,
-                    init_cache=init_cache, decode_step=decode_step)
+                    init_cache=init_cache, decode_step=decode_step, input_specs=input_specs,
+                    cache_specs=cache_specs)

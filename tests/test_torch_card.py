@@ -1058,7 +1058,9 @@ LSE_TOL = 1e-5          # |Δ lse| ≤ LSE_TOL · (1 + |lse|), chip_smoke.py's p
     [(1, 4096, 32, 8, 128, True, 0, "bf16"), (1, 4096, 32, 8, 128, True, 0, "f32"),
      (1, 1000, 32, 8, 128, True, 300, "bf16"), (1, 1000, 32, 8, 128, True, 300, "f32"),
      (2, 77, 4, 1, 16, False, 0, "bf16"), (2, 300, 8, 2, 64, True, 128, "f32"),
-     (1, 129, 6, 2, 32, False, 50, "bf16")],
+     (1, 129, 6, 2, 32, False, 50, "bf16"),
+     # recurrentgemma's training shape: head dim 256 over one kv head, window 2,048
+     (1, 4096, 16, 1, 256, True, 2048, "bf16"), (1, 4096, 16, 1, 256, True, 2048, "f32")],
 )
 def test_flash_lse_on_card(cuda, b, s, h, hkv, d, causal, window, dt):
     """The output with the logsumexp requested is the output without it, bit for
@@ -1120,12 +1122,16 @@ def test_rms_norm_function_grads_on_card(cuda, r, d, dt):
         assert _rel(g, w) <= (1e-5 if dt == "f32" else 2.0 ** -8), _rel(g, w)
 
 
-@pytest.mark.parametrize("arch,mb", [("qwen3-8b", 1), ("granite-3-2b", 2)])
+@pytest.mark.parametrize("arch,mb", [("qwen3-8b", 1), ("granite-3-2b", 2),
+                                     # the families at their configs' microbatches
+                                     ("mixtral-8x7b", 4), ("olmoe-1b-7b", 1),
+                                     ("mamba2-1.3b", 1), ("recurrentgemma-9b", 2)])
 def test_lm_train_steps_on_card_match_cpu(cuda, arch, mb):
     """3 AdamW steps of a float32 smoke config (remat on) from the same state on
     the card and the CPU: losses to 1e-4 relative, parameters within 5e-4 at
-    lr 1e-3; a forward, and each block again under remat, in every step."""
+    lr 1e-3; in every microbatch a forward, and each block again under remat."""
     from repro_torch.data import LMStream
+    from repro_torch.models.transformer import ATTN_KINDS, layer_kinds
     from repro_torch.train.optim import AdamW
     from repro_torch.train.trainer import init_train_state, make_train_step
 
@@ -1147,11 +1153,11 @@ def test_lm_train_steps_on_card_match_cpu(cuda, arch, mb):
     for (n, a), (_, b) in zip(on_card["params"].named_parameters(),
                               on_cpu["params"].named_parameters()):
         assert _max_abs(a.cpu(), b) <= 5e-4, n
-    L = cfg.num_layers
-    norms = L * (4 if cfg.qk_norm else 2) + 1
+    kinds = layer_kinds(cfg)
+    block_norms = 2 * len(kinds) + 2 * kinds.count("attn") * cfg.qk_norm
     counts = tk.launch_counts()
-    assert counts["rmsnorm"] == 3 * mb * (2 * norms - 1)
-    assert counts["flash_attention"] == 3 * mb * 2 * L
+    assert counts["rmsnorm"] == 3 * mb * (2 * block_norms + 1)
+    assert counts["flash_attention"] == 3 * mb * 2 * sum(k in ATTN_KINDS for k in kinds)
     assert int(on_card["opt"].step) == 3
 
 

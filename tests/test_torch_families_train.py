@@ -11,7 +11,9 @@ mixtral-8x7b, olmoe-1b-7b, mamba2-1.3b and qwen2-vl-72b:
     embedding table without a gradient on either side;
   - one ``make_train_step`` step (AdamW) against ``repro``'s for mixtral
     (4 microbatches, its config's ``train_microbatches``), olmoe and
-    mamba2; ``launch/train.py`` refuses qwen2-vl, as ``repro``'s does.
+    mamba2; ``launch/train.py`` refuses qwen2-vl, as ``repro``'s does, and
+    trains mixtral, olmoe, mamba2 and recurrentgemma (``--smoke --device
+    cpu --steps 3``: a finite loss at step 3).
 
 Tolerances: the loss to 1e-5 relative and each gradient leaf to 1e-4
 relative Frobenius (the expert and scan sums run in other orders; the
@@ -96,6 +98,14 @@ def test_train_step_matches_repro(arch):
     want = jax.tree.map(np.asarray, rstate["params"])
     for name, p in port["params"].named_parameters():
         assert np.max(np.abs(p.detach().numpy() - _lm_leaf(want, name))) <= 5e-4, name
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "olmoe-1b-7b", "mamba2-1.3b",
+                                  "recurrentgemma-9b"])
+def test_train_launcher_trains_the_family_on_cpu(arch):
+    out = train_launcher.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "3"])
+    assert out["step"] == 3
+    assert np.isfinite(out["loss"]) and np.isfinite(out["grad_norm"]) and out["grad_norm"] > 0
 
 
 def test_train_launcher_refuses_a_vlm():
