@@ -225,6 +225,19 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      (losses and every leaf's gradient side by side, the parameters after a
      step from the CPU's state), and ``repro_torch.launch.train --smoke``
      on the card for each.
+ 23. the sharded LM's training path at a world of one: a nccl process group
+     of one rank and ``make_debug_mesh()`` (1 × 1), as ``repro_torch.launch.
+     train --mesh debug`` builds them: (a) qwen3-8b and olmoe-1b-7b (4
+     layers each, full width, 2 × 4096 tokens, seed 0; olmoe's MoE takes
+     ``moe_ffn_sharded`` at tp = 1) first 2 unsharded steps, then 3 steps
+     under ``make_rules(cfg, mesh)`` from the same state and batches (the
+     masters and moments DTensors): each step's loss, gradient norm, wall,
+     peak and ``mfu``; step 1's loss and gradient norm within
+     ``MESH_LOSS_REL`` / ``MESH_GNORM_REL`` of the unsharded step's, rows 9
+     and 11 launched as ``train_expect`` says, no leaf off the card; then
+     the launcher itself (``--smoke --mesh debug``) on the card; (b) the
+     parameter specs of every id at the production mesh (16, 16), as
+     counts of split leaves.
 
 Each phase prints its wall time.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object with every kernel's numbers, and
@@ -234,6 +247,7 @@ Each phase prints its wall time.  The last lines are the card's
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -3482,11 +3496,11 @@ class RouteLog:
 
         self._real = transformer.moe_ffn
 
-        def spy(p, x, cfg):
+        def spy(p, x, cfg, *rest):
             _, _, idx = moe.route(x, p.router, cfg.num_experts_per_tok)
             _, keep = moe.dispatch_slots(idx, cfg.num_experts, moe.capacity(cfg, x.shape[1]))
             self.calls.append((idx.cpu(), keep.cpu()))
-            return self._real(p, x, cfg)
+            return self._real(p, x, cfg, *rest)
 
         transformer.moe_ffn = spy
         return self
@@ -4019,6 +4033,144 @@ def family_train_phase(dev, gen) -> tuple[dict[str, int], dict]:
     return counts, times
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the sharded LM's training path at a mesh of 1 x 1
+# (arch, layers, batch): full width, depth cut as phase 22 cuts olmoe
+MESH_TRAIN = (("qwen3-8b", 4, 2), ("olmoe-1b-7b", 4, 2))
+MESH_TRAIN_STEPS = 3
+# (a): step 1 under the mesh against the unsharded step 1 from the same state
+# and batch, relative: at a mesh of 1 x 1 the local ops are the unsharded
+# ones, so anything past a few bfloat16 roundings in the loss's float32
+# sum is a fault
+MESH_LOSS_REL, MESH_GNORM_REL = 1e-5, 1e-4
+
+
+def mesh_train_part(dev, cfg, batch_size: int, rules) -> tuple[dict, dict]:
+    """(a) for one config: 2 unsharded steps, then ``MESH_TRAIN_STEPS``
+    under ``rules`` from the same seed-0 state and batches; returns (the
+    mesh run's launches, its numbers)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import kernels as tk
+    from repro_torch.data import LMStream
+    from repro_torch.models import build_model, model_flops
+    from repro_torch.shapes import ShapeSpec
+    from repro_torch.train.optim import AdamW, cosine_warmup_schedule
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    tag = f"lm mesh train (a) {cfg.name}"
+    api = build_model(cfg)
+    opt = AdamW(learning_rate=cosine_warmup_schedule(3e-4, 20, MESH_TRAIN_STEPS))
+    stream = LMStream(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=batch_size)
+    batches = [stream.batch(i) for i in range(MESH_TRAIN_STEPS)]
+    flops = model_flops(cfg, ShapeSpec("train", "train", TRAIN_SEQ, batch_size))["model_flops"]
+    runs = {}
+    for name, r, steps in (("unsharded", None, 2), ("mesh", rules, MESH_TRAIN_STEPS)):
+        state = init_train_state(api, opt, 0, device=dev, rules=r)
+        step = make_train_step(api, opt, r, microbatches=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tk.reset_launch_counts()
+        walls, metrics = [], []
+        for batch in batches[:steps]:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+        counts = tk.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        mfu = [flops / (w * BF16_FLOPS) for w in walls]
+        print(f"{tag} {name}: {steps} steps of {batch_size} x {TRAIN_SEQ}: losses "
+              f"{[m['loss'] for m in metrics]}, grad norms {[m['grad_norm'] for m in metrics]}, "
+              f"walls {[round(w, 4) for w in walls]} s, peak {peak:.2f} GB, mfu "
+              f"{[round(x, 4) for x in mfu]} of {BF16_FLOPS / 1e12:.0f} TFLOP/s bf16", flush=True)
+        if r is not None:
+            leaves = list(state["params"].parameters())
+            leaves += list(state["opt"].m.values()) + list(state["opt"].v.values())
+            off = [t for t in leaves if not isinstance(t, DTensor)
+                   or t.to_local().device.type != dev.type]
+            check(not off, f"{tag}: {len(off)} leaves not DTensors on {dev.type}")
+            expect = train_expect(cfg, steps)
+            print(f"{tag}: launches {counts}, expected {expect}", flush=True)
+            check(counts == expect, f"{tag}: launch counts")
+            check(int(state["opt"].step) == steps, f"{tag}: optimizer step")
+        runs[name] = {"metrics": metrics, "walls": walls, "peak_gb": peak, "mfu": mfu,
+                      "counts": counts}
+        del state, step
+        torch.cuda.empty_cache()
+    one, base = runs["mesh"]["metrics"][0], runs["unsharded"]["metrics"][0]
+    loss_rel = abs(one["loss"] - base["loss"]) / base["loss"]
+    gnorm_rel = abs(one["grad_norm"] - base["grad_norm"]) / base["grad_norm"]
+    wall_ratio = runs["mesh"]["walls"][1] / runs["unsharded"]["walls"][1]
+    print(f"{tag}: step 1 under the mesh against unsharded: loss {loss_rel:.3e} relative "
+          f"(bound {MESH_LOSS_REL}), grad norm {gnorm_rel:.3e} (bound {MESH_GNORM_REL}); "
+          f"step 2 wall {runs['mesh']['walls'][1]:.4f} s against {runs['unsharded']['walls'][1]:.4f}"
+          f" s ({wall_ratio:.4f}x), peak {runs['mesh']['peak_gb']:.2f} GB against "
+          f"{runs['unsharded']['peak_gb']:.2f} GB", flush=True)
+    check(all(math.isfinite(m["loss"]) and m["grad_norm"] > 0 for m in runs["mesh"]["metrics"]),
+          f"{tag}: losses and gradient norms")
+    check(loss_rel <= MESH_LOSS_REL and gnorm_rel <= MESH_GNORM_REL, f"{tag}: step 1 against "
+          f"unsharded: {loss_rel}, {gnorm_rel}")
+    return runs["mesh"]["counts"], {k: runs[k] for k in runs}
+
+
+def mesh_specs_part() -> None:
+    """(b) Every id's parameter specs at the production mesh, no devices."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch.sharding import AbstractMesh, make_rules, param_specs
+    from repro_torch.models import LM, Whisper
+
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    table = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        model = (Whisper if cfg.family == "encdec" else LM)(cfg, torch.device("meta"))
+        specs = param_specs(model, make_rules(cfg, mesh))
+        split = sum(any(e is not None for e in spec) for spec in specs.values())
+        table[arch] = f"{split} of {len(specs)}"
+        check(split > 0, f"lm mesh specs: {arch} has no split leaf")
+    print(f"lm mesh specs (b) at (data 16, model 16): split leaves {table}", flush=True)
+
+
+def mesh_train_phase(dev) -> dict[str, int]:
+    """Phase 23: (a) training under a 1 x 1 mesh against unsharded, the
+    launcher; (b) the production specs.  Returns (a)'s launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.launch.mesh import init_world, make_debug_mesh, mesh_summary
+    from repro_torch.launch.sharding import make_rules
+
+    walls, total = {}, {}
+    started = init_world(dev)
+    try:
+        mesh = make_debug_mesh(device=dev)
+        print(f"lm mesh train (a): world {dist.get_world_size()} ({dist.get_backend()}), mesh: "
+              f"{mesh_summary(mesh)}", flush=True)
+        t0 = time.perf_counter()
+        for arch, layers, batch in MESH_TRAIN:
+            cfg = get_config(arch).replace(num_layers=layers)
+            counts, _ = mesh_train_part(dev, cfg, batch, make_rules(cfg, mesh))
+            add_counts(total, counts)
+        out = train_launcher.main(["--arch", "olmoe-1b-7b", "--smoke", "--steps", "3",
+                                   "--mesh", "debug"])
+        print(f"lm mesh train (a): launcher --arch olmoe-1b-7b --smoke --mesh debug on the card: "
+              f"{out}", flush=True)
+        check(math.isfinite(out["loss"]) and out["step"] == 3, "lm mesh train (a): launcher")
+        walls["(a)"] = time.perf_counter() - t0
+    finally:
+        if started:
+            dist.destroy_process_group()
+    t0 = time.perf_counter()
+    mesh_specs_part()
+    walls["(b)"] = time.perf_counter() - t0
+    print(f"lm mesh train: launches over (a) {total}; wall "
+          f"{ {k: round(v, 2) for k, v in walls.items()} }", flush=True)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4070,6 +4222,7 @@ def main() -> int:
     p21_counts, p21_times = phase("21 RG-LRU hybrid and Whisper", hybrid_whisper_phase, dev,
                                   gen)
     p22_counts, p22_times = phase("22 LM family training", family_train_phase, dev, gen)
+    p23_counts = phase("23 sharded LM training", mesh_train_phase, dev)
 
     for r in rows:
         r["launches"] = counts[r["name"]]
@@ -4092,6 +4245,7 @@ def main() -> int:
         r["family_train_launches"] = p22_counts[r["name"]]      # phase 22 (a), 3 steps each
         if r["name"] == "flash_attention":
             r.update(p22_times)                   # phase 22 (b), (1, 16, 1, 4096, 256)
+        r["mesh_train_launches"] = p23_counts[r["name"]]     # phase 23 (a), 3 steps each
     rows += lm_rows
     for r in shard_rows:
         r["launches"] = (shard_counts if r["name"] == "gossip_mix_block" else ref_counts)[r["name"]]
@@ -4120,6 +4274,8 @@ def main() -> int:
             # shape, its bound and SDPA's time there (22 (b))
             "family_train_launches", "train_d256_ms", "train_d256_nolse_ms",
             "train_d256_bound_ms", "train_d256_library_ms",
+            # rows 9 and 11 on the sharded training path at a mesh of 1 x 1 (phase 23 (a))
+            "mesh_train_launches",
             # row 11: the host's µs a call at (8, 4096), not the row's shape, and
             # F.rms_norm's there (phase 10)
             "host_us_8x4096", "library_host_us_8x4096")

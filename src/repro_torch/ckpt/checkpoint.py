@@ -15,6 +15,13 @@ has no bfloat16, so a bfloat16 tensor is stored as float32 (exact) and
 cast back on load.  ``load`` copies into the tensors of a template state
 in place: a leaf missing from the file raises ``KeyError``, a shape that
 differs raises ``ValueError``.
+
+Both go leaf by leaf, so neither holds more than one whole leaf.  Under a
+mesh (DTensor leaves) ``save`` gathers each full tensor on every rank (a
+collective: every rank calls it) and rank 0 alone writes it, so the files
+are those of an unsharded save of the same state; ``load`` reads each full
+array on every rank and each keeps its blocks, laid out as the template's
+leaves.
 """
 
 from __future__ import annotations
@@ -24,11 +31,14 @@ import json
 import os
 import tempfile
 import time
+import zipfile
 from typing import Any, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _leaves(tree: Any, prefix: str = "") -> Iterator[tuple[str, torch.Tensor]]:
@@ -49,11 +59,13 @@ def _leaves(tree: Any, prefix: str = "") -> Iterator[tuple[str, torch.Tensor]]:
         raise TypeError(f"cannot checkpoint a {type(tree).__name__} at {prefix or 'the root'}")
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.cpu().numpy()
+def _stored_shape(npz, name: str) -> tuple:
+    """The shape of array ``name`` of an open npz, from its header alone."""
+    with npz.zip.open(name + ".npy") as f:
+        version = np.lib.format.read_magic(f)
+        read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                else np.lib.format.read_array_header_2_0)
+        return tuple(read(f)[0])
 
 
 def config_hash(obj: Any) -> str:
@@ -70,19 +82,44 @@ class CheckpointManager:
         return os.path.join(self.directory, f"step_{step:010d}_{name}")
 
     def save(self, step: int, state: Any, metadata: dict | None = None) -> str:
-        arrays = {name: _to_numpy(t) for name, t in _leaves(state)}
-        tmp_fd, tmp_path = tempfile.mkstemp(dir=self.directory, suffix=".tmp")
-        os.close(tmp_fd)
-        with open(tmp_path, "wb") as f:      # a file object: np.savez adds no suffix
-            np.savez(f, **arrays)
+        """Write ``state`` as step ``step``, one leaf at a time: a DTensor is
+        gathered whole (a collective: every rank calls ``save``) and only rank
+        0 keeps it, writes it and drops it, so no rank holds more than one
+        whole leaf."""
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        writer = world == 1 or dist.get_rank() == 0
         data_path = self._path(step, "state.npz")
-        os.replace(tmp_path, data_path)
+        names, nbytes = [], 0
+        if writer:
+            tmp_fd, tmp_path = tempfile.mkstemp(dir=self.directory, suffix=".tmp")
+            os.close(tmp_fd)
+            npz = zipfile.ZipFile(tmp_path, "w", zipfile.ZIP_STORED, allowZip64=True)
+        for name, t in _leaves(state):
+            t = t.detach()
+            if isinstance(t, DTensor):
+                t = t.full_tensor()
+            if not writer:
+                continue
+            a = t.float().cpu().numpy() if t.dtype == torch.bfloat16 else t.cpu().numpy()
+            with npz.open(name + ".npy", "w", force_zip64=True) as f:   # np.savez's layout
+                np.lib.format.write_array(f, a)
+            names.append(name)
+            nbytes += a.nbytes
+        if writer:
+            npz.close()
+            os.replace(tmp_path, data_path)
+            self._write_manifest(step, names, nbytes, metadata)
+        if world > 1:
+            dist.barrier()
+        return data_path
 
+    def _write_manifest(self, step: int, names: list, nbytes: int,
+                        metadata: dict | None) -> None:
         manifest = {
             "step": step,
             "time": time.time(),
-            "arrays": sorted(arrays),
-            "bytes": int(sum(a.nbytes for a in arrays.values())),
+            "arrays": sorted(names),
+            "bytes": int(nbytes),
             **(metadata or {}),
         }
         mpath = self._path(step, "manifest.json")
@@ -91,7 +128,6 @@ class CheckpointManager:
             json.dump(manifest, f, indent=1)
         os.replace(tmp, mpath)
         self._gc()
-        return data_path
 
     def latest_step(self) -> int | None:
         steps = self.all_steps()
@@ -113,17 +149,21 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         with open(self._path(step, "manifest.json")) as f:
             manifest = json.load(f)
-        with np.load(self._path(step, "state.npz")) as z:
-            arrays = {k: z[k] for k in z.files}
         leaves = list(_leaves(template))
-        for name, t in leaves:
-            if name not in arrays:
-                raise KeyError(f"checkpoint missing leaf {name}")
-            if tuple(arrays[name].shape) != tuple(t.shape):
-                raise ValueError(f"shape mismatch for {name}: ckpt {arrays[name].shape} vs "
-                                 f"model {tuple(t.shape)}")
-        for name, t in leaves:
-            t.copy_(torch.from_numpy(arrays[name]))
+        with np.load(self._path(step, "state.npz")) as z:
+            for name, t in leaves:          # every name and shape before any copy
+                if name not in z.files:
+                    raise KeyError(f"checkpoint missing leaf {name}")
+                shape = _stored_shape(z, name)
+                if shape != tuple(t.shape):
+                    raise ValueError(f"shape mismatch for {name}: ckpt {shape} vs "
+                                     f"model {tuple(t.shape)}")
+            for name, t in leaves:          # one whole leaf at a time
+                full = torch.from_numpy(z[name])
+                if isinstance(t, DTensor):
+                    full = distribute_tensor(full.to(t.device), t.device_mesh, t.placements,
+                                             src_data_rank=None)
+                t.copy_(full)
         return template, manifest
 
     def _gc(self):

@@ -51,7 +51,11 @@ leaves flattened to the block module's attributes):
     ``{"params", "opt": AdamWState(step, m, v)}`` as numpy arrays (m and v
     are trees shaped like the parameters) -> the port's ``{"params": LM,
     "opt": AdamWState}``, the moments float32 and keyed by the ``LM``'s
-    parameter names.
+    parameter names;
+  - ``lm_params_on_mesh(params, cfg, device, rules)``: ``lm_params_from_numpy``
+    with each parameter then a DTensor laid out by its spec under ``rules``
+    (``launch.sharding.MeshRules.place_params``; every rank passes the same
+    arrays and keeps its blocks).
 """
 
 from __future__ import annotations
@@ -183,6 +187,12 @@ def _from_numpy(model, params: dict):
 def lm_params_from_numpy(params: dict, cfg, device) -> LM:
     """``repro``'s LM parameter tree (numpy arrays) -> an ``LM``."""
     return _from_numpy(LM(cfg, torch.device(device)), params)
+
+
+def lm_params_on_mesh(params: dict, cfg, device, rules) -> LM:
+    """``repro``'s LM parameter tree (numpy arrays) -> an ``LM`` of DTensors
+    laid out under ``rules``."""
+    return rules.place_params(lm_params_from_numpy(params, cfg, device))
 
 
 def whisper_params_from_numpy(params: dict, cfg, device) -> Whisper:

@@ -1,5 +1,7 @@
-"""Launchers of the port: ``python -m repro_torch.launch.serve``, and the
-gossip-FL user mesh (``UserMesh``, ``FLSharding``, ``pad_edge_lists``)."""
+"""Launchers of the port: ``python -m repro_torch.launch.serve`` and
+``.train``, the gossip-FL user mesh (``UserMesh``, ``FLSharding``,
+``pad_edge_lists``) and the LM's meshes (``launch.mesh``) and rules
+(``launch.sharding.MeshRules``)."""
 
 from repro_torch.launch.sharding import FLSharding, UserMesh, pad_edge_lists
 

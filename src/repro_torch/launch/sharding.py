@@ -1,5 +1,5 @@
-"""The gossip-FL user mesh (counterpart of the ``UserMesh`` / ``FLSharding``
-half of ``repro.launch.sharding``).
+"""The gossip-FL user mesh and the LM's mesh rules (counterpart of
+``repro.launch.sharding``).
 
 The sharded engine (``repro_torch.fl.gossip``, ``backend="sharded"``)
 splits the population into contiguous user blocks, one per shard, padded
@@ -18,16 +18,39 @@ of ``torch.device``s, one per shard.  A device may appear more than once:
 user-leading arrays into per-shard blocks, each on its shard's device (the
 counterpart of ``device_put`` with ``P("users")``), and ``shard_blocks``
 does the same for per-shard constants whose leading axis is the shard.
-``repro``'s ``MeshRules`` (the LM's mesh) is not ported yet.
+
+The LM's mesh (the other half of ``repro.launch.sharding``):
+``MeshRules`` and the spec helpers ``param_spec`` / ``param_specs``,
+``batch_specs`` and ``make_rules``.  A spec is ``repro``'s
+``PartitionSpec`` as a tuple, one entry a tensor dim: ``None``, an axis
+name, or a tuple of axis names (the data axes, ``("pod", "data")`` on the
+multi-pod mesh).  ``placements(spec, names)`` turns it into DTensor
+placements, one a mesh dim: ``Shard(d)`` where the spec names that mesh dim
+at tensor dim d, else ``Replicate()``.  ``MeshRules`` reads the mesh's dim
+names and sizes only (``AbstractMesh`` stands in for a ``DeviceMesh`` where
+no process group runs); ``constrain`` (``repro``'s
+``with_sharding_constraint``: ``DTensor.redistribute``) and the ``place_*``
+helpers alone touch the ``DeviceMesh``.  The LM leaves are the port's
+(``LM.named_parameters()``: ``blocks.3.wq``), one a layer; each gets the
+spec ``repro`` gives the leaf that ``convert._lm_leaf`` maps it to, less
+the leading stacked dim.  The placements come from these specs, not from
+FSDP or ``parallelize_module`` plans (``repro`` places ``wo`` as (tp,
+fsdp), FSDP2 would shard its dim 0 over the data axes).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+import re
+from typing import Any, ClassVar, Sequence
 
 import numpy as np
 import torch
+from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+from repro_torch.launch.mesh import TP_AXIS
+from repro_torch.models.common import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,3 +211,245 @@ def pad_edge_lists(rows: Sequence[np.ndarray], fill: int = 0) -> tuple[np.ndarra
     for s, r in enumerate(rows):
         out[s, : len(r)] = r
     return out, lengths
+
+
+# ---------------------------------------------------------------------------
+# LM mesh rules (FSDP × TP × SP layouts)
+# ---------------------------------------------------------------------------
+
+
+def _divisible(dim: int, size: int) -> bool:
+    return dim % size == 0 and dim >= size
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's dim sizes and names without devices (``DeviceMesh``'s
+    ``shape`` and ``mesh_dim_names``): enough for every spec."""
+
+    shape: tuple[int, ...]
+    mesh_dim_names: tuple[str, ...]
+
+
+def placements(spec: tuple, names: Sequence[str]) -> list:
+    """DTensor placements of ``spec`` on a mesh with dims ``names``."""
+    out = []
+    for name in names:
+        pl = Replicate()
+        for d, entry in enumerate(spec):
+            if name == entry or (isinstance(entry, tuple) and name in entry):
+                pl = Shard(d)
+        out.append(pl)
+    return out
+
+
+@dataclasses.dataclass
+class MeshRules:
+    """Activation layouts of the LM on a mesh (``repro``'s ``MeshRules`` at
+    its defaults: FSDP over ``data``, tensor parallelism over ``model``,
+    sequence parallelism and the sequence-split cache on)."""
+
+    mesh: Any                     # a DeviceMesh, or an AbstractMesh for specs alone
+    cfg: ModelConfig
+    fsdp_axis: ClassVar[str] = "data"
+    tp_axis: ClassVar[str] = TP_AXIS
+
+    @property
+    def names(self) -> tuple[str, ...]:
+        return tuple(self.mesh.mesh_dim_names)
+
+    def size(self, axis: str) -> int:
+        return int(dict(zip(self.names, self.mesh.shape))[axis])
+
+    @property
+    def dp(self) -> tuple[str, ...]:
+        return tuple(a for a in self.names if a != self.tp_axis)
+
+    @property
+    def tp_size(self) -> int:
+        return self.size(self.tp_axis)
+
+    @property
+    def dp_size(self) -> int:
+        out = 1
+        for a in self.dp:
+            out *= self.size(a)
+        return out
+
+    @property
+    def shard_heads(self) -> bool:
+        return _divisible(self.cfg.num_heads, self.tp_size)
+
+    def constrain(self, x, kind: str):
+        """``x`` redistributed to the layout of ``kind`` (a DTensor; any
+        other ``x``, or a kind without a layout, passes as it is).  A dim
+        that its axes do not divide stays whole: GSPMD pads such a dim,
+        DTensor would split it unevenly (the same numbers either way)."""
+        spec = self.spec_for(kind, tuple(x.shape))
+        if spec is None or not isinstance(x, DTensor):
+            return x
+        even = tuple(e if x.shape[d] % self._axes_size(e) == 0 else None
+                     for d, e in enumerate(spec))
+        return x.redistribute(self.mesh, self.placements(even))
+
+    def placements(self, spec: tuple) -> list:
+        """``placements(spec, names)``, with ``Replicate()`` on a mesh dim of
+        size 1 (where a split is no split, and DTensor refuses some views of
+        a dim "split" over it)."""
+        return [Replicate() if n == 1 else p
+                for n, p in zip(self.mesh.shape, placements(spec, self.names))]
+
+    def _axes_size(self, entry) -> int:
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
+        out = 1
+        for a in axes:
+            out *= self.size(a)
+        return out
+
+    def spec_for(self, kind: str, shape: tuple[int, ...]) -> tuple | None:
+        dp, tp = self.dp, self.tp_axis
+        if kind == "hidden":                      # (B, S, D)
+            if _divisible(shape[1], self.tp_size):
+                return (dp, tp, None)
+            return (dp, None, None)
+        if kind == "hidden_decode":               # (B, 1, D)
+            return (dp, None, None)
+        if kind in ("heads", "kv_heads"):         # (B, S, H or Hkv, hd)
+            if self.shard_heads and _divisible(shape[2], self.tp_size):
+                return (dp, None, tp, None)
+            return (dp, None, None, None)
+        if kind == "ffn":                         # (B, S, F)
+            if _divisible(shape[2], self.tp_size):
+                return (dp, None, tp)
+            return (dp, None, None)
+        if kind == "logits":                      # (B, S, V)
+            return (dp, None, tp)
+        if kind == "logits_decode":               # (B, V)
+            return (dp, tp)
+        if kind == "cache":                       # (B, S, Hkv, hd) seq-sharded
+            b_spec = dp if _divisible(shape[0], self.dp_size) else None
+            if _divisible(shape[1], self.tp_size):
+                return (b_spec, tp, None, None)
+            return (b_spec, None, None, None)
+        if kind == "moe_tokens":                  # (B, E, C, D)
+            e_spec = tp if _divisible(shape[1], self.tp_size) else None
+            return (dp if _divisible(shape[0], self.dp_size) else None, e_spec, None, None)
+        if kind == "moe_hidden":                  # (B, E, C, F)
+            b_spec = dp if _divisible(shape[0], self.dp_size) else None
+            if _divisible(shape[1], self.tp_size):
+                return (b_spec, tp, None, None)
+            if _divisible(shape[3], self.tp_size):
+                return (b_spec, None, None, tp)
+            return (b_spec, None, None, None)
+        return None
+
+    # -- placing host tensors on the mesh ---------------------------------
+    def place(self, t: torch.Tensor, spec: tuple) -> DTensor:
+        """``t`` (the same full tensor on every rank) as a DTensor laid out
+        by ``spec``: each rank keeps its own chunk, nothing is sent."""
+        return distribute_tensor(t, self.mesh, self.placements(spec), src_data_rank=None)
+
+    @torch.no_grad()
+    def place_param(self, module: nn.Module, name: str, whole: torch.Tensor) -> None:
+        """Set ``module``'s parameter ``name`` to ``whole`` laid out by
+        ``param_spec``."""
+        owner, _, leaf = name.rpartition(".")
+        dt = self.place(whole, param_spec(name, tuple(whole.shape), self))
+        setattr(module.get_submodule(owner), leaf, nn.Parameter(dt, requires_grad=False))
+
+    def place_params(self, module: nn.Module) -> nn.Module:
+        """Swap every parameter of ``module`` for a DTensor laid out by
+        ``param_spec``, in place; returns ``module``."""
+        for name, p in list(module.named_parameters()):
+            self.place_param(module, name, p.detach())
+        return module
+
+    def place_batch(self, batch: dict, device) -> dict:
+        """A batch of full arrays as DTensors laid out by ``batch_specs``."""
+        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        specs = batch_specs(batch, self)
+        return {k: self.place(v, specs[k]) for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# Parameter and batch specs
+# ---------------------------------------------------------------------------
+
+
+def param_spec(name: str, shape: tuple[int, ...], rules: MeshRules) -> tuple:
+    """The spec of one parameter, by its name in ``LM.named_parameters()``
+    (or ``Whisper``'s) and its shape: ``repro``'s ``_param_spec`` of the
+    leaf it maps to, less the stacked dim."""
+    cfg, tp, fsdp = rules.cfg, rules.tp_axis, rules.fsdp_axis
+    tps, fs = rules.tp_size, rules.size(fsdp)
+
+    def build(spec_core: tuple) -> tuple:
+        return tuple(spec_core) + (None,) * (len(shape) - len(spec_core))
+
+    def ok(axis_len, size):
+        return _divisible(axis_len, size)
+
+    heads_shardable = rules.shard_heads
+    kv_shardable = heads_shardable and _divisible(cfg.num_kv_heads, tps)
+    if re.search(r"\bembed\b", name):
+        return build((tp if ok(shape[0], tps) else None, fsdp if ok(shape[1], fs) else None))
+    if "lm_head" in name:
+        return build((fsdp if ok(shape[0], fs) else None, tp if ok(shape[1], tps) else None))
+    if re.search(r"w[qk]|wv", name) and len(shape) == 2:
+        out_ok = ok(shape[1], tps) and (kv_shardable if re.search(r"w[kv]", name)
+                                       else heads_shardable)
+        return build((fsdp if ok(shape[0], fs) else None, tp if out_ok else None))
+    if "wo" in name:
+        return build((tp if (heads_shardable and ok(shape[0], tps)) else None,
+                      fsdp if ok(shape[1], fs) else None))
+    if re.search(r"w_gate|w_up", name) and len(shape) == 3:      # MoE (E, D, F)
+        if ok(shape[0], tps):
+            return build((tp, fsdp if ok(shape[1], fs) else None, None))
+        return build((None, fsdp if ok(shape[1], fs) else None, tp if ok(shape[2], tps) else None))
+    if "w_down" in name and len(shape) == 3:                     # MoE (E, F, D)
+        if ok(shape[0], tps):
+            return build((tp, None, fsdp if ok(shape[2], fs) else None))
+        return build((None, tp if ok(shape[1], tps) else None, fsdp if ok(shape[2], fs) else None))
+    if re.search(r"w_gate|w_up", name):
+        return build((fsdp if ok(shape[0], fs) else None, tp if ok(shape[1], tps) else None))
+    if "w_down" in name:
+        return build((tp if ok(shape[0], tps) else None, fsdp if ok(shape[1], fs) else None))
+    if "router" in name:
+        return build((fsdp if ok(shape[0], fs) else None, None))
+    # SSM: the fused in_proj stays whole on its out dim (mixed segments);
+    # out_proj shards d_inner over tp
+    if "in_proj" in name and len(shape) == 2:
+        return build((fsdp if ok(shape[0], fs) else None,
+                      tp if ("in_proj_" in name and ok(shape[1], tps)) else None))
+    if "out_proj" in name:
+        return build((tp if ok(shape[0], tps) else None, fsdp if ok(shape[1], fs) else None))
+    if re.search(r"gate_[ax]_w", name):
+        return build((fsdp if ok(shape[0], fs) else None, tp if ok(shape[1], tps) else None))
+    return build(())                             # 1-D scales, biases, conv kernels
+
+
+def param_specs(params: nn.Module, rules: MeshRules) -> dict[str, tuple]:
+    """``{name: spec}`` of every parameter of an ``LM`` or a ``Whisper``."""
+    return {n: param_spec(n, tuple(p.shape), rules) for n, p in params.named_parameters()}
+
+
+def batch_specs(batch: dict, rules: MeshRules) -> dict[str, tuple]:
+    """Every batch input sharded over the data axes on its batch dim (dim 1
+    of M-RoPE's (3, B, S) positions); a batch the data axes do not divide
+    stays whole (``repro``'s ``batch_shardings``)."""
+    dp = rules.dp
+
+    def spec(shape) -> tuple:
+        if len(shape) == 0:
+            return ()
+        if len(shape) >= 2 and shape[0] == 3:           # (3, B, S) positions
+            b_ok = _divisible(shape[1], rules.dp_size)
+            return (None, dp if b_ok else None) + (None,) * (len(shape) - 2)
+        b_ok = _divisible(shape[0], rules.dp_size)
+        return (dp if b_ok else None,) + (None,) * (len(shape) - 1)
+
+    return {k: spec(tuple(v.shape)) for k, v in batch.items()}
+
+
+def make_rules(cfg: ModelConfig, mesh) -> MeshRules:
+    return MeshRules(mesh=mesh, cfg=cfg)

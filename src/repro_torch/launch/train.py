@@ -9,9 +9,21 @@ versions).  Parameters are drawn from seed 0, the optimizer is
 ``AdamW(cosine_warmup_schedule(--lr, 20, --steps))`` and batch i is
 ``LMStream(vocab, --seq, --batch).batch(i)``.  With ``--ckpt-dir`` a
 checkpoint is written every ``--ckpt-every`` steps and ``--resume`` starts
-from the latest one.  ``--mesh`` other than ``none`` raises: the sharded LM
-is not ported yet.  A VLM or encoder-decoder config exits as ``repro``'s
+from the latest one.  A VLM or encoder-decoder config exits as ``repro``'s
 launcher does (``SystemExit``): it needs a frontend stub batch.
+
+``--mesh debug|pod|multipod`` trains under ``make_rules(cfg, mesh)`` on
+``make_debug_mesh()`` (all ranks, model axis 2; one rank is a mesh of 1 ×
+1) or the production mesh (256 or 512 ranks; fewer raise ``ValueError``):
+the state and each batch are DTensors laid out by the specs, and the
+launcher prints ``mesh: …``.  Without ``torchrun`` (``RANK`` /
+``WORLD_SIZE``) it starts a world of one; ``--device cpu`` runs gloo, the
+card nccl, each rank of ``torchrun --nproc-per-node N`` on card
+``LOCAL_RANK``.  Every rank prints.  Mamba-2 and the RG-LRU hybrid under a
+mesh raise ``NotImplementedError``.
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch qwen3-8b \
+        --smoke --mesh debug
 """
 
 from __future__ import annotations
@@ -19,11 +31,17 @@ from __future__ import annotations
 import argparse
 import time
 
+import torch.distributed as dist
+
 from repro_torch.ckpt.checkpoint import CheckpointManager, config_hash
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.data.synthetic import LMStream
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (init_world, make_debug_mesh, make_production_mesh,
+                                     mesh_summary)
+from repro_torch.launch.sharding import make_rules
 from repro_torch.models import build_model
+from repro_torch.models.transformer import ATTN_KINDS
 from repro_torch.train.optim import AdamW, cosine_warmup_schedule
 from repro_torch.train.trainer import init_train_state, make_train_step
 
@@ -46,20 +64,33 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the sharded LM is not ported yet (ROADMAP.md Queue 1 "
-            "item 2, 'Sharded LM')")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.family in ("vlm", "encdec"):
         raise SystemExit(
             f"{args.arch} needs a frontend stub batch; use dryrun/smoke tests"
         )
+    if args.mesh != "none" and set(cfg.block_pattern) - set(ATTN_KINDS):
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: {args.arch}'s Mamba-2 / RG-LRU blocks under a mesh are not "
+            "ported yet (ROADMAP.md Queue 1 item 2, 'Sharded LM')")
     dev = resolve_device(args.device)
-    api = build_model(cfg)
+    if args.mesh == "none":
+        return _train(args, cfg, dev, None)
+    started = init_world(dev)
+    try:
+        mesh = (make_debug_mesh(device=dev) if args.mesh == "debug"
+                else make_production_mesh(multi_pod=args.mesh == "multipod", device=dev))
+        print(f"mesh: {mesh_summary(mesh)}")
+        return _train(args, cfg, dev, make_rules(cfg, mesh))
+    finally:
+        if started:
+            dist.destroy_process_group()
 
+
+def _train(args, cfg, dev, rules) -> dict:
+    api = build_model(cfg)
     opt = AdamW(learning_rate=cosine_warmup_schedule(args.lr, 20, args.steps))
-    state = init_train_state(api, opt, 0, device=dev)
+    state = init_train_state(api, opt, 0, device=dev, rules=rules)
     n_params = sum(p.numel() for p in state["params"].parameters())
     print(f"{args.arch}{' (smoke)' if args.smoke else ''}: "
           f"{n_params/1e6:.1f}M params, {args.steps} steps on {dev}")
@@ -73,7 +104,7 @@ def main(argv=None) -> dict:
             start = manifest["step"]
             print(f"resumed at step {start}")
 
-    step_fn = make_train_step(api, opt)
+    step_fn = make_train_step(api, opt, rules)
     stream = LMStream(
         vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch
     )

@@ -3,16 +3,20 @@
 ``build_model(cfg)`` returns a ``ModelAPI`` for the decoder LMs (dense,
 mixture-of-experts, Mamba-2, VLM, RG-LRU hybrid) and for Whisper:
 
-  - ``init_params(seed=0, device=None)``   an ``LM`` drawn on the device
-  - ``forward(params, batch)``              prefill: (B, S) ``tokens`` -> (B, S, V) logits
+  - ``init_params(seed=0, device=None, rules=None)``   an ``LM`` drawn on the device;
+                                            under ``rules`` its leaves DTensors laid out
+                                            by their specs
+  - ``forward(params, batch, rules=None)``  prefill: (B, S) ``tokens`` -> (B, S, V) logits
   - ``init_cache(batch, seq_len, device=None)``   the decode state
   - ``decode_step(params, cache, batch)``   one serve step: (B,) ``tokens`` at (B,) ``pos``
                                             -> ((B, V) logits, the cache, updated in place)
-  - ``loss_fn(params, batch)``              training: mean next-token cross-entropy of
+  - ``loss_fn(params, batch, rules=None)``  training: mean next-token cross-entropy of
                                             (B, S) tokens against (B, S) labels (plus the
                                             mixture-of-experts auxiliary loss), a float32
                                             scalar with gradients (``params`` an ``LM``
-                                            or a ``transformer.bind`` stand-in)
+                                            or a ``transformer.bind`` stand-in); under
+                                            ``rules`` (``launch.sharding.MeshRules``) the
+                                            parameters, batch and loss are DTensors
   - ``input_specs(spec)``                   the batch of a ``ShapeSpec``: ``repro``'s keys,
                                             shapes and dtypes, as meta-device tensors
                                             (nothing allocated; ``jax.ShapeDtypeStruct``
@@ -47,6 +51,7 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
@@ -58,9 +63,9 @@ from repro_torch.shapes import ShapeSpec
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: ModelConfig
-    init_params: Callable        # (seed=0, device=None) -> LM or Whisper
-    loss_fn: Callable            # (params, batch) -> scalar
-    forward: Callable            # (params, batch) -> logits
+    init_params: Callable        # (seed=0, device=None, rules=None) -> LM or Whisper
+    loss_fn: Callable            # (params, batch, rules=None) -> scalar
+    forward: Callable            # (params, batch, rules=None) -> logits
     init_cache: Callable         # (batch, seq_len, device=None) -> cache
     decode_step: Callable        # (params, cache, batch) -> (logits, cache)
     input_specs: Callable        # (ShapeSpec) -> batch dict of meta tensors
@@ -90,21 +95,21 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
 
 def _on(params, batch: dict, key: str):
     v = batch.get(key)
-    return None if v is None else torch.as_tensor(v, device=params.device)
+    return v if v is None or isinstance(v, DTensor) else torch.as_tensor(v, device=params.device)
 
 
 def _build_lm(cfg: ModelConfig) -> ModelAPI:
     uses_embeds = cfg.family == "vlm"
 
-    def init_params(seed: int = 0, device=None) -> tf.LM:
+    def init_params(seed: int = 0, device=None, rules=None) -> tf.LM:
         dev = resolve_device(device)
-        return tf.init_lm_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+        return tf.init_lm_params(cfg, torch.Generator(device=dev).manual_seed(seed), rules)
 
-    def loss_fn(params, batch: dict) -> torch.Tensor:
-        return tf.lm_loss(params, batch, cfg)
+    def loss_fn(params, batch: dict, rules=None) -> torch.Tensor:
+        return tf.lm_loss(params, batch, cfg, rules)
 
-    def forward(params: tf.LM, batch: dict) -> torch.Tensor:
-        return tf.lm_forward(params, _on(params, batch, "tokens"), cfg,
+    def forward(params: tf.LM, batch: dict, rules=None) -> torch.Tensor:
+        return tf.lm_forward(params, _on(params, batch, "tokens"), cfg, rules,
                              positions=_on(params, batch, "positions"),
                              inputs_embeds=_on(params, batch, "inputs_embeds"))
 
@@ -144,15 +149,23 @@ def _build_lm(cfg: ModelConfig) -> ModelAPI:
                     cache_specs=cache_specs)
 
 
+def _no_mesh(rules) -> None:
+    if getattr(rules, "mesh", None) is not None:
+        raise NotImplementedError("Whisper under a mesh is not ported")
+
+
 def _build_whisper(cfg: ModelConfig) -> ModelAPI:
-    def init_params(seed: int = 0, device=None) -> wh.Whisper:
+    def init_params(seed: int = 0, device=None, rules=None) -> wh.Whisper:
+        _no_mesh(rules)
         dev = resolve_device(device)
         return wh.init_whisper_params(cfg, torch.Generator(device=dev).manual_seed(seed))
 
-    def loss_fn(params, batch: dict) -> torch.Tensor:
+    def loss_fn(params, batch: dict, rules=None) -> torch.Tensor:
+        _no_mesh(rules)
         return wh.whisper_loss(params, batch, cfg)
 
-    def forward(params: wh.Whisper, batch: dict) -> torch.Tensor:
+    def forward(params: wh.Whisper, batch: dict, rules=None) -> torch.Tensor:
+        _no_mesh(rules)
         return wh.whisper_forward(params, _on(params, batch, "enc_frames"),
                                   _on(params, batch, "dec_tokens"), cfg)
 

@@ -22,6 +22,16 @@ the port.  Under ``torch.no_grad`` (serving) the kernel runs without the
 logsumexp output, as before.  A ragged last block (S not a multiple of the
 chunk) is cut short; ``repro``'s chunked path asserts that S divides.
 
+Under a mesh (DTensor q, k, v; ``repro`` lets GSPMD partition its
+attention) the kernel runs on each rank's own batch rows and query heads:
+DTensor has no sharding rule for it, so ``attention`` takes the local
+blocks (``to_local``), calls itself on them and wraps the output in q's
+layout.  Where the heads of q are split over a mesh dim and those of k/v
+are not (``MeshRules.shard_heads`` holds and the kv heads do not divide,
+e.g. 4 query and 2 kv heads at tp = 4), each rank takes the kv heads of
+its own query heads (query head i reads kv head i // g) and its k/v
+gradients are partial sums over that dim.
+
 The sequence-sharded decode (meshes) is not ported yet.
 """
 
@@ -30,8 +40,10 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.common import wrap_local
 
 
 def _blocks(n: int, size: int, first: int, stop: int):
@@ -119,8 +131,45 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     """Attention of (B, S_q, H, D) queries over (B, S_k, Hkv, D) keys -> (B, S_q, H, D).
 
     ``block`` is the backward's query block and kv chunk (``cfg.attn_chunk``)."""
+    if isinstance(q, DTensor):
+        return _attention_on_mesh(q, k, v, causal=causal, window=window, block=block)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, causal, window, block)
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                           causal=causal, window=window)
     return out.transpose(1, 2)
+
+
+def _attention_on_mesh(q: DTensor, k: DTensor, v: DTensor, **kw) -> DTensor:
+    """``attention`` on each rank's rows and heads (see the module docstring)."""
+    mesh = q.device_mesh
+    q_pl = [p if p.is_shard() and p.dim in (0, 2) else Replicate() for p in q.placements]
+    kv_pl = [Shard(0) if qp == Shard(0) else
+             Shard(2) if qp == Shard(2) and kp == Shard(2) else Replicate()
+             for qp, kp in zip(q_pl, k.placements)]
+    q = q.redistribute(mesh, q_pl)
+    # the kv heads are split wherever they can follow q's, or nowhere
+    kv_split = Shard(2) in kv_pl
+    heads_split = [i for i, p in enumerate(q_pl) if p == Shard(2)]
+    if kv_split and any(kv_pl[i] != Shard(2) for i in heads_split):
+        kv_pl = [Replicate() if p == Shard(2) else p for p in kv_pl]
+        kv_split = False
+    grads = [Partial() if qp == Shard(2) and kp == Replicate() else kp
+             for qp, kp in zip(q_pl, kv_pl)]
+    kl = k.redistribute(mesh, kv_pl).to_local(grad_placements=grads)
+    vl = v.redistribute(mesh, kv_pl).to_local(grad_placements=grads)
+    ql = q.to_local()
+    if heads_split and not kv_split:
+        hl, g = ql.shape[2], q.shape[2] // k.shape[2]
+        idx = 0
+        for i in heads_split:
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+        lo = idx * hl
+        if lo % g == 0 and hl % g == 0:            # whole groups: their kv heads
+            kl, vl = kl[:, :, lo // g:(lo + hl) // g], vl[:, :, lo // g:(lo + hl) // g]
+        elif lo // g == (lo + hl - 1) // g:        # part of one group: its kv head
+            kl, vl = kl[:, :, lo // g:lo // g + 1], vl[:, :, lo // g:lo // g + 1]
+        else:                                     # parts of several: one kv head each
+            heads = torch.arange(lo, lo + hl, device=kl.device) // g
+            kl, vl = kl[:, :, heads], vl[:, :, heads]
+    return wrap_local(attention(ql, kl, vl, **kw), mesh, q_pl, q.shape)

@@ -12,6 +12,12 @@ three-axis form M-RoPE (qwen2-vl: ``mrope_angles``) and
 PyTorch, as ``repro`` differentiates its jnp norm (there is no backward
 kernel on the TPU either).  Under ``torch.no_grad`` (serving) the kernel
 is called directly.
+
+Under a mesh (``launch.sharding.MeshRules``) the activations are DTensors.
+``on_local`` runs a function of rows on each rank's own rows: DTensor has
+no sharding rule for a hand-written kernel, so ``rms_norm`` of a DTensor
+runs the kernel on the local block of rows (its reduction is over the last
+dim, which no layout shards) and wraps the result back.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.kernels.rmsnorm import rmsnorm
 
@@ -163,8 +170,34 @@ class RMSNormFunction(torch.autograd.Function):
         return dx, ds, None
 
 
+def wrap_local(local: torch.Tensor, mesh, placements, shape) -> DTensor:
+    """A DTensor of global ``shape`` whose block on this rank is ``local``
+    (made contiguous), laid out by ``placements``."""
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local.contiguous(), mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def on_local(fn, x: DTensor, *weights: DTensor) -> DTensor:
+    """``fn(x_local, *weights_local)`` on each rank, for a ``fn`` that maps
+    rows of x (its last dim whole) to rows of an output of x's shape: x keeps
+    its row layout (a Partial or last-dim placement is made whole first),
+    the weights are made whole, and each weight's gradient is Partial over
+    the mesh dims that split x's rows (each rank saw only its rows)."""
+    mesh = x.device_mesh
+    rows = [Replicate() if p.is_partial() or (p.is_shard() and p.dim == x.ndim - 1) else p
+            for p in x.placements]
+    x = x.redistribute(mesh, rows)
+    grads = [Partial() if p.is_shard() else Replicate() for p in rows]
+    local = [w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=grads)
+             for w in weights]
+    return wrap_local(fn(x.to_local(), *local), mesh, rows, x.shape)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x · rsqrt(mean(x²) + eps) · (1 + scale) over the last axis, in float32."""
+    if isinstance(x, DTensor):
+        return on_local(lambda xl, sl: rms_norm(xl, sl, eps), x, scale)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return RMSNormFunction.apply(x, scale, eps)
     return rmsnorm(x, scale, eps)
@@ -231,7 +264,47 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           ignore_id: int = -1) -> torch.Tensor:
     """Mean next-token cross-entropy over positions whose label is not
-    ``ignore_id``, in float32.  logits (..., V), labels (...) integers."""
+    ``ignore_id``, in float32.  logits (..., V), labels (...) integers.  Of
+    DTensors: on each rank's block of rows and of the vocabulary, as the
+    logits lie; each row's log-sum-exp of the block and its gold logit are
+    combined over the mesh dims that split the vocabulary (a max, then two
+    sums), the two sums over the rows over the mesh dims that split the
+    rows; a replicated scalar.  With the vocabulary whole, the numbers of
+    the plain version."""
+    if isinstance(logits, DTensor):
+        mesh, last = logits.device_mesh, logits.ndim - 1
+        logits = logits.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                            for p in logits.placements])
+        vocab = [p.is_shard(last) for p in logits.placements]
+        rows = [Replicate() if v else p for v, p in zip(vocab, logits.placements)]
+        local = logits.to_local().float()
+        labels = labels.redistribute(mesh, rows).to_local().long()
+        lo, n = 0, logits.shape[-1]             # this rank's first id and block width
+        for d in (d for d, v in enumerate(vocab) if v):
+            n //= mesh.size(d)
+            lo += mesh.get_local_rank(d) * n
+        assert local.shape[-1] == n, (local.shape, n)
+
+        def over_vocab(t, op):
+            return DTensor.from_local(t, mesh, [Partial(op) if v else p for v, p in
+                                                zip(vocab, rows)], run_check=False).redistribute(
+                mesh, rows).to_local()
+
+        idx = labels - lo
+        own = (idx >= 0) & (idx < n)
+        gold = torch.gather(local, -1, torch.where(own, idx, 0)[..., None])[..., 0]
+        gold = over_vocab(torch.where(own, gold, 0.0), "sum")
+        # after the gather, so that its backward runs first and frees the
+        # float32 logits it saved before the gather's gradient is made
+        lse = torch.logsumexp(local, dim=-1)        # of this rank's block of the vocabulary
+        top = over_vocab(lse.detach(), "max")
+        logz = top + torch.log(over_vocab(torch.exp(lse - top), "sum"))   # lse where whole
+        mask = (labels != ignore_id).float()
+        sums = torch.stack([torch.sum((logz - gold) * mask), torch.sum(mask)])
+        sums = DTensor.from_local(sums, mesh, [Partial() if p.is_shard() else Replicate()
+                                               for p in rows], run_check=False)
+        sums = sums.redistribute(mesh, [Replicate()] * mesh.ndim)
+        return sums[0] / torch.clamp(sums[1], min=1.0)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, torch.clamp(labels, min=0).long()[..., None])[..., 0]

@@ -33,6 +33,17 @@ blocks).  With ``cfg.remat`` each block runs under
 each scanned group: the backward runs the block's forward again, kernels
 included.  ``lm_forward`` and ``lm_decode_step`` (serving) stay under
 ``torch.no_grad``.
+
+Under a mesh: ``lm_forward`` / ``lm_loss`` take ``rules``
+(``launch.sharding.MeshRules``; ``None`` or ``NullRules`` leave every
+number as without), the parameters and the batch are DTensors laid out by
+its specs, and ``_shard`` redistributes the activations at each place where
+``repro`` constrains them (the MLP's hidden and output, q / k / v and the
+attention output, the residual adds, the embedded input, the logits).  The
+kernels run on local blocks (``common.on_local``, ``attention``), the
+mixture-of-experts FFN as ``moe.moe_ffn_sharded``; the rotary angles are
+computed from each rank's own positions.  Mamba-2 and the RG-LRU blocks
+under a mesh are not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import decode_attention
@@ -80,6 +92,22 @@ def layer_kinds(cfg: ModelConfig) -> tuple[str, ...]:
     scanned groups, then the remainder)."""
     pat = cfg.block_pattern
     return tuple(pat[i % len(pat)] for i in range(cfg.num_layers))
+
+
+# ---------------------------------------------------------------------------
+# Sharding hooks (no-ops unless launch/sharding.py provides rules)
+# ---------------------------------------------------------------------------
+
+
+class NullRules:
+    """Default: no layouts (one device)."""
+
+    def constrain(self, x, kind: str):
+        return x
+
+
+def _shard(rules, x, kind):
+    return rules.constrain(x, kind) if rules is not None else x
 
 
 # ---------------------------------------------------------------------------
@@ -223,14 +251,22 @@ def bind(params: nn.Module, tensors: dict[str, torch.Tensor]) -> SimpleNamespace
 
 
 @torch.no_grad()
-def init_lm_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
+def init_lm_params(cfg: ModelConfig, generator: torch.Generator, rules=None) -> LM:
     """An ``LM`` on the generator's device, drawn as ``repro`` draws: fan-in
     truncated normals for the matrices (the expert weights' fan-in is their
     D or F axis, the conv's its width), 0.02 normals for the embedding,
     zeros for the norm scales, biases and the conv bias, the Mamba-2
     mixer's fixed A_log = log(linspace(1, 16, H)), D = 1 and dt_bias =
-    log(expm1(linspace(1e-3, 0.1, H))), and the RG-LRU's Λ = 0.65."""
-    params = LM(cfg, generator.device)
+    log(expm1(linspace(1e-3, 0.1, H))), and the RG-LRU's Λ = 0.65.  Under
+    ``rules`` the ``LM`` is built on the meta device and each leaf is drawn
+    whole, in the same order, and laid out by its spec before the next is
+    drawn: the same numbers, with one whole leaf at a time on the device."""
+    dev = generator.device
+    params = LM(cfg, dev if rules is None else "meta")
+    if rules is not None:
+        params.rope_freqs = torch.as_tensor(
+            rope_frequencies(cfg.resolved_head_dim, cfg.rope_theta), dtype=torch.float32,
+            device=dev)
     pd = cfg.param_dtype
     h = cfg.ssm_heads
     fixed = {
@@ -239,18 +275,27 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
         "dt_bias": lambda: torch.as_tensor(np.log(np.expm1(np.linspace(1e-3, 1e-1, h)))),
         "lambda_p": lambda: torch.tensor(LAMBDA_INIT),
     }
-    params.embed.copy_(embed_init(generator, params.embed.shape, dtype=pd))
-    for blk in params.blocks:
+
+    def put(name: str, value: torch.Tensor) -> None:      # cast and broadcast as copy_ does
+        leaf = params.get_parameter(name)
+        if rules is None:
+            leaf.copy_(value)
+        else:
+            whole = torch.empty(leaf.shape, dtype=leaf.dtype, device=dev).copy_(value)
+            rules.place_param(params, name, whole)
+
+    zero = torch.zeros(())
+    put("embed", embed_init(generator, params.embed.shape, dtype=pd))
+    for i, blk in enumerate(params.blocks):
         for name, w in blk.named_parameters():
             if w.dim() >= 2:
-                w.copy_(dense_init(generator, w.shape, in_axis=w.dim() - 2, dtype=pd))
-            elif name in fixed:
-                w.copy_(fixed[name]())
+                value = dense_init(generator, w.shape, in_axis=w.dim() - 2, dtype=pd)
             else:
-                w.zero_()
-    params.final_norm.zero_()
+                value = fixed[name]() if name in fixed else zero
+            put(f"blocks.{i}.{name}", value)
+    put("final_norm", zero)
     if not cfg.tied_embeddings:
-        params.lm_head.copy_(dense_init(generator, params.lm_head.shape, dtype=pd))
+        put("lm_head", dense_init(generator, params.lm_head.shape, dtype=pd))
     return params
 
 
@@ -259,30 +304,45 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator) -> LM:
 # ---------------------------------------------------------------------------
 
 
-def mlp_apply(p: Block, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p: Block, x: torch.Tensor, rules=None) -> torch.Tensor:
     h = swiglu(x @ p.w_gate.to(x.dtype), x @ p.w_up.to(x.dtype))
-    return h @ p.w_down.to(h.dtype)
+    h = _shard(rules, h, "ffn")
+    # partial sums over the split F dim land in the sequence-split layout
+    return _shard(rules, h @ p.w_down.to(h.dtype), "hidden")
 
 
-def _qkv(p: Block, x: torch.Tensor, cfg: ModelConfig, rope):
-    b, s, _ = x.shape
+def _split_heads(t: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    """(B, S, heads·hd) -> (B, S, heads, hd).  A DTensor split over its last
+    dim by a mesh dim that does not divide ``heads`` is made whole there
+    first (DTensor cannot view such a split into heads)."""
+    if isinstance(t, DTensor):
+        mesh = t.device_mesh
+        t = t.redistribute(mesh, [Replicate() if p.is_shard(2) and heads % mesh.size(i) else p
+                                  for i, p in enumerate(t.placements)])
+    return t.reshape(*t.shape[:2], heads, hd)
+
+
+def _qkv(p: Block, x: torch.Tensor, cfg: ModelConfig, rope, rules=None):
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = (x @ p.wq.to(x.dtype)).reshape(b, s, h, hd)
-    k = (x @ p.wk.to(x.dtype)).reshape(b, s, hkv, hd)
-    v = (x @ p.wv.to(x.dtype)).reshape(b, s, hkv, hd)
+    q = _split_heads(x @ p.wq.to(x.dtype), h, hd)
+    k = _split_heads(x @ p.wk.to(x.dtype), hkv, hd)
+    v = _split_heads(x @ p.wv.to(x.dtype), hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm)
         k = rms_norm(k, p.k_norm)
-    return rotate(q, *rope), rotate(k, *rope), v
+    q, k = rotate(q, *rope), rotate(k, *rope)
+    return _shard(rules, q, "heads"), _shard(rules, k, "kv_heads"), _shard(rules, v, "kv_heads")
 
 
-def attn_apply_train(p: Block, x, cfg: ModelConfig, *, window: int, rope, causal: bool = True):
+def attn_apply_train(p: Block, x, cfg: ModelConfig, *, window: int, rope, causal: bool = True,
+                     rules=None):
     """Prefill self-attention (no cache interaction)."""
-    q, k, v = _qkv(p, x, cfg, rope)
+    q, k, v = _qkv(p, x, cfg, rope, rules)
     out = attention(q, k, v, causal=causal, window=window, block=cfg.attn_chunk)
+    out = _shard(rules, out, "heads")
     b, s = out.shape[:2]
     out = out.reshape(b, s, cfg.num_heads * cfg.resolved_head_dim)
-    return out @ p.wo.to(out.dtype)
+    return _shard(rules, out @ p.wo.to(out.dtype), "hidden")
 
 
 def attn_apply_decode(p: Block, x, cfg: ModelConfig, *, cache_k, cache_v, slot, valid_len,
@@ -301,7 +361,7 @@ def attn_apply_decode(p: Block, x, cfg: ModelConfig, *, cache_k, cache_v, slot, 
 
 
 def block_apply(kind: str, p, x, cfg: ModelConfig, *, rope=None, cache=None,
-                decode: bool = False):
+                decode: bool = False, rules=None):
     """One block with pre-norm residual wiring -> (x, the block's
     mixture-of-experts auxiliary loss or None).  ``cache`` (decode only) is
     ``(cache_k, cache_v, slot, valid_len)`` for "attn" and "local_attn",
@@ -316,22 +376,22 @@ def block_apply(kind: str, p, x, cfg: ModelConfig, *, rope=None, cache=None,
             conv_state.copy_(new_conv)
             state.copy_(new_state)
         if kind == "ssm":
-            return x + y, None
-        x = x + y
-        return x + mlp_apply(p, rms_norm(x, p.ln2)), None
+            return _shard(rules, x + y, "hidden"), None
+        x = _shard(rules, x + y, "hidden")
+        return _shard(rules, x + mlp_apply(p, rms_norm(x, p.ln2), rules), "hidden"), None
     if decode:
         cache_k, cache_v, slot, valid_len = cache
         a = attn_apply_decode(p, h, cfg, cache_k=cache_k, cache_v=cache_v, slot=slot,
                               valid_len=valid_len, rope=rope)
     else:
         window = cfg.local_window if kind == "local_attn" else cfg.window
-        a = attn_apply_train(p, h, cfg, window=window, rope=rope)
-    x = x + a
+        a = attn_apply_train(p, h, cfg, window=window, rope=rope, rules=rules)
+    x = _shard(rules, x + a, "hidden")
     h2 = rms_norm(x, p.ln2)
     if cfg.num_experts:
-        f, aux = moe_ffn(p, h2, cfg)
-        return x + f, aux
-    return x + mlp_apply(p, h2), None
+        f, aux = moe_ffn(p, h2, cfg, rules)
+        return _shard(rules, x + f, "hidden"), aux
+    return _shard(rules, x + mlp_apply(p, h2, rules), "hidden"), None
 
 
 # ---------------------------------------------------------------------------
@@ -352,60 +412,81 @@ def _embed(params: LM, tokens, cfg: ModelConfig, inputs_embeds=None):
 
 
 def _rope(params: LM, positions, cfg: ModelConfig):
-    """(cos, sin) of the positions: (B, S) for RoPE, (3, B, S) for M-RoPE."""
-    return (mrope_angles if cfg.mrope else rope_angles)(positions, params.rope_freqs)
+    """(cos, sin) of the positions: (B, S) for RoPE, (3, B, S) for M-RoPE.
+    Of DTensor positions: each rank's angles of its own rows, laid out as
+    the positions' batch dim."""
+    angles = mrope_angles if cfg.mrope else rope_angles
+    if not isinstance(positions, DTensor):
+        return angles(positions, params.rope_freqs)
+    rows = positions.placements
+    if cfg.mrope:                        # (3, B, S) -> (B, S, 1, hd/2): dim 1 -> 0
+        rows = [type(p)(0) if p.is_shard() else p for p in rows]
+    local = angles(positions.to_local(), params.rope_freqs)
+    return tuple(DTensor.from_local(t, positions.device_mesh, rows, run_check=False)
+                 for t in local)
 
 
-def _logits(params, tokens, cfg: ModelConfig, positions, remat: bool, inputs_embeds=None):
+def _logits(params, tokens, cfg: ModelConfig, positions, remat: bool, inputs_embeds=None,
+            rules=None):
     """(logits, the auxiliary losses summed over the blocks, float32)."""
+    kinds = layer_kinds(cfg)
+    if getattr(rules, "mesh", None) is not None and set(kinds) - set(ATTN_KINDS):
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba-2 and RG-LRU blocks under a mesh are not ported yet "
+            "(ROADMAP.md Queue 1 item 2)")
     x = _embed(params, tokens, cfg, inputs_embeds)
     b, s, _ = x.shape
-    kinds = layer_kinds(cfg)
     rope = None
     if set(kinds) & set(ATTN_KINDS):
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
             if cfg.mrope:
                 positions = positions[None].expand(3, b, s)
+            if isinstance(x, DTensor):
+                positions = rules.place_batch({"positions": positions}, x.device)["positions"]
         rope = _rope(params, positions, cfg)
+    x = _shard(rules, x, "hidden")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, blk in zip(kinds, params.blocks):
         if remat:
-            x, a = checkpoint(block_apply, kind, blk, x, cfg, rope=rope, use_reentrant=False,
-                              preserve_rng_state=False)
+            x, a = checkpoint(block_apply, kind, blk, x, cfg, rope=rope, rules=rules,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            x, a = block_apply(kind, blk, x, cfg, rope=rope)
+            x, a = block_apply(kind, blk, x, cfg, rope=rope, rules=rules)
         if a is not None:
-            aux = aux + a
+            aux = a + aux
     x = rms_norm(x, params.final_norm)
-    return _lm_head(params, x, cfg), aux
+    return _shard(rules, _lm_head(params, x, cfg), "logits"), aux
 
 
 @torch.no_grad()
-def lm_forward(params: LM, tokens: torch.Tensor | None, cfg: ModelConfig, *,
+def lm_forward(params: LM, tokens: torch.Tensor | None, cfg: ModelConfig, rules=None, *,
                positions: torch.Tensor | None = None,
                inputs_embeds: torch.Tensor | None = None) -> torch.Tensor:
     """Prefill forward: (B, S) tokens, or (B, S, D) ``inputs_embeds``, -> (B,
     S, V) logits in ``cfg.dtype``.  ``positions``: (B, S), or (3, B, S)
-    with M-RoPE; default 0 … S − 1 on every axis."""
-    return _logits(params, tokens, cfg, positions, remat=False, inputs_embeds=inputs_embeds)[0]
+    with M-RoPE; default 0 … S − 1 on every axis.  Under ``rules`` the
+    inputs and the logits are DTensors."""
+    return _logits(params, tokens, cfg, positions, remat=False, inputs_embeds=inputs_embeds,
+                   rules=rules)[0]
 
 
-def lm_loss(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def lm_loss(params, batch: dict, cfg: ModelConfig, rules=None) -> torch.Tensor:
     """Mean next-token cross-entropy of ``batch["tokens"]`` (or
     ``batch["inputs_embeds"]``) against ``batch["labels"]`` (float32 scalar),
     plus ``AUX_LOSS_COEF`` times the summed auxiliary loss for a
     mixture-of-experts config; on the device of ``params`` (an ``LM`` or a
     ``bind`` stand-in); gradients enabled, each block under a checkpoint when
-    ``cfg.remat``."""
+    ``cfg.remat``.  Under ``rules`` the parameters and the batch are DTensors
+    (``MeshRules.place_params`` / ``place_batch``) and so is the loss."""
     dev = params.embed.device
 
     def get(key):
         v = batch.get(key)
-        return None if v is None else torch.as_tensor(v, device=dev)
+        return v if v is None or isinstance(v, DTensor) else torch.as_tensor(v, device=dev)
 
     logits, aux = _logits(params, get("tokens"), cfg, get("positions"), remat=cfg.remat,
-                          inputs_embeds=get("inputs_embeds"))
+                          inputs_embeds=get("inputs_embeds"), rules=rules)
     ce = softmax_cross_entropy(logits, get("labels"))
     return ce + AUX_LOSS_COEF * aux if cfg.num_experts else ce
 

@@ -13,6 +13,10 @@ Its ``update`` works in place on dicts of tensors keyed by parameter name:
 ``repro`` returns new trees, and at qwen3-8b's width a second copy of the
 float32 masters and both moments would not fit beside the first.
 ``cosine_warmup_schedule`` is ``repro``'s, evaluated at the new step.
+Under a mesh the parameters, gradients and moments are DTensors of one
+layout each (the moments take their parameter's), and the same arithmetic
+runs on each rank's blocks; the global norm is the full gradient's (each
+leaf's sum of squares reduced over the mesh), a replicated DTensor.
 """
 
 from __future__ import annotations
@@ -71,8 +75,7 @@ class AdamW:
 
     def init(self, params: dict) -> AdamWState:
         """Zero moments for a ``{name: tensor}`` dict of parameters."""
-        m = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for n, p in params.items()}
+        m = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}
         dev = next(iter(params.values())).device
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev), m=m,
                           v={n: torch.zeros_like(z) for n, z in m.items()})

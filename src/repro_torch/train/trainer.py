@@ -10,6 +10,12 @@ microbatch gradients in float32 and divides them by the microbatch count,
 then runs ``AdamW.update``.  ``repro``'s step is pure (``jit`` with the
 state donated); here the state's tensors are updated in place and the same
 dict is returned with the new optimizer state.
+
+Under a mesh (``rules``, a ``launch.sharding.MeshRules``) the masters and
+moments are DTensors laid out by ``param_specs``, each (micro)batch is
+placed by ``batch_specs``, the loss is taken under ``rules``, and each
+gradient is brought to its master's layout before the update.  ``loss``
+and ``grad_norm`` come back as plain float32 scalars, full, on every rank.
 """
 
 from __future__ import annotations
@@ -17,17 +23,25 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.transformer import LM, bind
 from repro_torch.train.optim import AdamW
 
 
-def init_train_state(api: ModelAPI, optimizer: AdamW, seed: int = 0, device=None) -> dict:
+def init_train_state(api: ModelAPI, optimizer: AdamW, seed: int = 0, device=None,
+                     rules=None) -> dict:
     """Parameters drawn from ``seed`` on ``device`` (None: the card, or
-    ``RuntimeError`` without one) and zero moments."""
-    params = api.init_params(seed, device=device)
+    ``RuntimeError`` without one) and zero moments; under ``rules`` each a
+    DTensor laid out by its parameter's spec (every rank draws the same
+    parameters, one whole leaf at a time, and keeps its blocks)."""
+    params = api.init_params(seed, device=device, rules=rules)
     return {"params": params, "opt": optimizer.init(dict(params.named_parameters()))}
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def compute_copies(params: LM, cfg) -> dict[str, torch.Tensor]:
@@ -43,14 +57,20 @@ def compute_copies(params: LM, cfg) -> dict[str, torch.Tensor]:
     return out
 
 
-def make_train_step(api: ModelAPI, optimizer: AdamW,
+def make_train_step(api: ModelAPI, optimizer: AdamW, rules=None,
                     microbatches: int | None = None) -> Callable:
     """(state, batch) -> (state, metrics).  ``batch`` holds (B, S) ``tokens``
-    and ``labels`` (numpy or tensors); ``microbatches`` > 1 splits B and
-    accumulates the gradients in float32.  ``metrics`` are device tensors:
-    ``loss`` and ``grad_norm`` (float32) and ``step`` (int32)."""
+    and ``labels`` (numpy or tensors, the full batch on every rank);
+    ``microbatches`` > 1 splits B and accumulates the gradients in float32.
+    ``metrics`` are device tensors: ``loss`` and ``grad_norm`` (float32) and
+    ``step`` (int32)."""
     cfg = api.cfg
     mb = microbatches if microbatches is not None else cfg.train_microbatches
+
+    def loss_of(params, batch):
+        if rules is None:
+            return api.loss_fn(params, batch)
+        return api.loss_fn(params, rules.place_batch(batch, params.embed.device), rules)
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
@@ -59,30 +79,35 @@ def make_train_step(api: ModelAPI, optimizer: AdamW,
         copies = compute_copies(params, cfg)
         stand_in = bind(params, copies)
         leaves = list(copies.values())
+        masters = dict(params.named_parameters())
+
+        def laid_out(name, g):           # a gradient in its master's layout
+            p = masters[name]
+            return g.redistribute(p.device_mesh, p.placements) if isinstance(g, DTensor) else g
+
         if mb <= 1:
-            loss = api.loss_fn(stand_in, batch)
-            grads = dict(zip(copies, torch.autograd.grad(loss, leaves)))
-            loss = loss.detach()
+            loss = loss_of(stand_in, batch)
+            grads = {n: laid_out(n, g) for n, g in zip(copies, torch.autograd.grad(loss, leaves))}
+            loss = _full(loss.detach())
         else:
             if any(v.shape[0] % mb for v in batch.values()):
                 raise ValueError(f"a batch of {batch['tokens'].shape[0]} does not split into "
                                  f"{mb} microbatches")
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=dev)
-                     for n, p in params.named_parameters()}
+            grads = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in masters.items()}
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             parts = {k: v.reshape((mb, v.shape[0] // mb) + v.shape[1:]) for k, v in batch.items()}
             for i in range(mb):
-                part = api.loss_fn(stand_in, {k: v[i] for k, v in parts.items()})
-                for acc, g in zip(grads.values(), torch.autograd.grad(part, leaves)):
-                    acc.add_(g.float())
-                loss += part.detach().float()
+                part = loss_of(stand_in, {k: v[i] for k, v in parts.items()})
+                for (n, acc), g in zip(grads.items(), torch.autograd.grad(part, leaves)):
+                    acc.add_(laid_out(n, g).float())
+                loss += _full(part.detach()).float()
             for g in grads.values():
                 g.div_(mb)
             loss = loss / mb
         del copies, stand_in, leaves
-        _, opt, gnorm = optimizer.update(grads, state["opt"], dict(params.named_parameters()))
+        _, opt, gnorm = optimizer.update(grads, state["opt"], masters)
         state["opt"] = opt
-        return state, {"loss": loss.float(), "grad_norm": gnorm.float(), "step": opt.step}
+        return state, {"loss": loss.float(), "grad_norm": _full(gnorm).float(), "step": opt.step}
 
     return train_step
 

@@ -1161,6 +1161,58 @@ def test_lm_train_steps_on_card_match_cpu(cuda, arch, mb):
     assert int(on_card["opt"].step) == 3
 
 
+@pytest.mark.parametrize("arch,mb", [("granite-3-2b", 2), ("mixtral-8x7b", 4),
+                                     ("olmoe-1b-7b", 1)])
+def test_mesh_train_steps_on_card_match_unsharded(cuda, arch, mb):
+    """3 AdamW steps of a float32 smoke config (remat on) under a mesh of 1 x 1
+    (a nccl world of one, as ``launch.train --mesh debug`` builds it) and
+    unsharded, from the same seed on the card: the same kernels on the same
+    blocks, so step 1 is bit-equal, later losses and gradient norms within
+    1e-6 relative (a reduction over a differently laid-out gradient may round
+    its last bit otherwise: olmoe's third loss parts by 1 ulp on the CPU) and
+    the parameters within 5e-4 at lr 1e-3 (the microbatch bound above), and
+    rows 9 and 11 launch as often; every master and moment a DTensor on the
+    card."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.data import LMStream
+    from repro_torch.launch.mesh import init_world, make_debug_mesh
+    from repro_torch.launch.sharding import make_rules
+    from repro_torch.train.optim import AdamW
+    from repro_torch.train.trainer import init_train_state, make_train_step
+
+    cfg = get_smoke_config(arch).replace(dtype=torch.float32, remat=True, attn_chunk=32)
+    api, opt = build_model(cfg), AdamW(learning_rate=1e-3)
+    stream = LMStream(vocab_size=cfg.vocab_size, seq_len=128, global_batch=4, seed=0)
+    started = init_world(cuda)
+    try:
+        runs = []
+        for rules in (None, make_rules(cfg, make_debug_mesh(device=cuda))):
+            state = init_train_state(api, opt, 0, device=cuda, rules=rules)
+            step = make_train_step(api, opt, rules, microbatches=mb)
+            tk.reset_launch_counts()
+            metrics = []
+            for i in range(3):
+                state, m = step(state, stream.batch(i))
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            params = {n: (p.full_tensor() if isinstance(p, DTensor) else p).detach().clone()
+                      for n, p in state["params"].named_parameters()}
+            runs.append((metrics, params, tk.launch_counts(), state))
+    finally:
+        if started:
+            dist.destroy_process_group()
+    (m0, p0, c0, _), (m1, p1, c1, meshed) = runs
+    assert m1[0] == m0[0]
+    for got, want in zip(m1, m0):
+        assert all(abs(g - w) <= 1e-6 * w for g, w in zip(got, want)), (got, want)
+    for n in p0:
+        assert _max_abs(p1[n], p0[n]) <= 5e-4, n
+    assert c1 == c0 and c1["flash_attention"] > 0 and c1["rmsnorm"] > 0
+    leaves = list(meshed["params"].parameters()) + list(meshed["opt"].m.values())
+    assert all(isinstance(t, DTensor) and t.to_local().is_cuda for t in leaves)
+
+
 # ---------------------------------------------------------------------------
 # the mixture-of-experts, Mamba-2 and VLM families
 # ---------------------------------------------------------------------------

@@ -161,11 +161,11 @@ def test_forward_bf16_matches_repro(arch, monkeypatch):
     rapi, rparams, _, api, params = _params(rcfg, pcfg, seed=2)
     margins = []
 
-    def spy(p, x, cfg):
+    def spy(p, x, cfg, *rest):
         k = cfg.num_experts_per_tok
         top = torch.sort(x.float() @ p.router.float(), dim=-1, descending=True).values
         margins.append(top[..., k - 1] - top[..., k])
-        return moe_ffn(p, x, cfg)
+        return moe_ffn(p, x, cfg, *rest)
 
     monkeypatch.setattr(tf, "moe_ffn", spy)
     batch = _batch(rcfg, 2, 64, 5)

@@ -67,6 +67,7 @@ def test_import_loads_no_jax_and_no_repro():
         "import repro_torch.ckpt, repro_torch.ckpt.checkpoint, repro_torch.models.attention\n"
         "import repro_torch.data.synthetic, repro_torch.models.moe, repro_torch.models.ssm\n"
         "import repro_torch.models.rglru, repro_torch.models.whisper\n"
+        "import repro_torch.launch.mesh\n"
         "repro_torch.scenarios.list_scenarios()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'repro'"
         " or m.split('.')[0].startswith('jax'))\n"
@@ -101,7 +102,7 @@ def test_sources_import_no_jax_and_no_repro():
                  "models/moe.py", "models/ssm.py", "configs/mixtral_8x7b.py",
                  "configs/olmoe_1b_7b.py", "configs/mamba2_1_3b.py", "configs/qwen2_vl_72b.py",
                  "models/rglru.py", "models/whisper.py", "configs/recurrentgemma_9b.py",
-                 "configs/whisper_small.py"):
+                 "configs/whisper_small.py", "launch/mesh.py", "launch/sharding.py"):
         assert PORT / name in files
     for path in files:
         bad = [n for n in _imports(path) if _forbidden(n)]
@@ -175,6 +176,9 @@ ENTRY_POINTS = {
     "build_model(whisper).init_cache": lambda tg, cg: build_model(
         get_smoke_config("whisper-small")).init_cache(1, 8),
     "train.main": lambda tg, cg: train_launcher.main(["--smoke", "--steps", "1", "--seq", "8"]),
+    "train.main(--mesh debug)": lambda tg, cg: train_launcher.main(["--smoke", "--steps", "1",
+                                                                   "--seq", "8", "--mesh",
+                                                                   "debug"]),
     "init_train_state": lambda tg, cg: init_train_state(_lm(), AdamW()),
     "ElasticScheduler": lambda tg, cg: ElasticScheduler(tg, cg, method="heft"),
     "run_scenario": lambda tg, cg: SC.run_scenario(SC.get_scenario("ring_uniform"), quick=True),
