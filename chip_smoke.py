@@ -238,6 +238,21 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      the launcher itself (``--smoke --mesh debug``) on the card; (b) the
      parameter specs of every id at the production mesh (16, 16), as
      counts of split leaves.
+ 24. the sharded LM's serve path at the same world of one and 1 × 1 mesh:
+     (a) qwen3-8b at full width and depth in bfloat16, 8 × 32 greedy steps
+     at 256 cache slots first unsharded, then fed the same tokens through
+     ``make_decode_step(api, rules)`` from the same parameters (placed by
+     ``rules.place_params``) and a cache placed by ``cache_specs`` (row 10 in
+     its partials mode, merged over the tensor axis): ms a step, a profiled
+     step's device-busy ms and idle share, peak, exact launches, the largest
+     logit difference from the unsharded step (within ``MESH_LOGIT_REL``);
+     then a prefill of 8 × 256 through ``make_prefill_step(api, rules)``
+     beside unsharded; (b) mamba2-1.3b (8 layers) and recurrentgemma-9b (3
+     layers, its 256-slot ring wrapping from position 240) at full width
+     served the same way, then trained 3 AdamW steps of 1 × 4096 under the
+     mesh beside 2 unsharded steps (phase 23's ``mesh_train_part``).  Phase
+     10 also checks row 10's partials mode (out and lse, both dtypes,
+     valid_len 0, 1 and S) and times it beside the default mode.
 
 Each phase prints its wall time.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object with every kernel's numbers, and
@@ -1231,9 +1246,9 @@ def lm_kernel_phase(dev, gen) -> list[dict]:
 
     Bd, S = 8, 32768
     lens = torch.linspace(1, S, Bd, device=dev).round().to(torch.int32)
+    short = torch.tensor([0, 1, 999, 1000, 513, 7, 512, 2000], dtype=torch.int32, device=dev)
     for dt, S_, lens_ in ((torch.bfloat16, S, lens), (torch.float32, S, lens),
-                          (torch.float32, 1000, torch.tensor([0, 1, 999, 1000, 513, 7, 512, 2000],
-                                                              dtype=torch.int32, device=dev))):
+                          (torch.float32, 1000, short), (torch.bfloat16, 1000, short)):
         q = randn(Bd, H, D, dt=dt)
         kc, vc = randn(Bd, S_, 8, D, dt=dt), randn(Bd, S_, 8, D, dt=dt)
         got, want = decode_attention(q, kc, vc, lens_), decode_attention_plain(q, kc, vc, lens_)
@@ -1244,6 +1259,7 @@ def lm_kernel_phase(dev, gen) -> list[dict]:
               f"decode_attention S={S_} {dt}: a second call differs")
         print(f"kernel check decode_attention B=8 S={S_} valid_len {lens_.tolist()} {dt}: ok, "
               f"{share:.3f} of the bound; bit-equal on a second call", flush=True)
+        partials_check(q, kc, vc, lens_, got)
         del q, kc, vc, got, want
     torch.cuda.empty_cache()
 
@@ -1356,16 +1372,55 @@ def lm_kernel_phase(dev, gen) -> list[dict]:
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:71", max_abs_err=err,
         ms=device_ms(decode_attention, sets, 50),
+        partials_ms=device_ms(lambda *a: decode_attention(*a, return_lse=True), sets, 50),
         plain_ms=device_ms(decode_attention_plain, sets, 5), bound_ms=b, bound_by=by,
         library_ms=library_ms(lambda q_, k_, v_, l_: F.scaled_dot_product_attention(
             q_[:, :, None], k_.transpose(1, 2), v_.transpose(1, 2), attn_mask=mask,
             enable_gqa=True), sets, 5),
     )
     print_row(row, f" B=8 S={S} valid {lens.tolist()} bf16")
+    print(f"kernel decode_attention partials (float32 out and lse) B=8 S={S} bf16: "
+          f"{row['partials_ms'] * 1e3:.2f} us, the default mode {row['ms'] * 1e3:.2f} us", flush=True)
     rows.append(row)
     del sets, q, kc, vc, got, want, mask
     torch.cuda.empty_cache()
     return rows
+
+
+# row 10's partials mode against its plain version: out (float32) by attn_share's
+# float32 bound for float32 inputs and, for bfloat16 inputs, 2^-12 of the row's
+# largest |value| (the kernel keeps p to ~16 bits in two bfloat16 halves); lse by
+# LSE_TOL · (1 + |lse|), and −1e30 exactly where valid_len ≤ 0
+PARTIALS_BF16_REL = 2.0 ** -12
+
+
+def partials_check(q, kc, vc, lens, default) -> None:
+    """Row 10's ``return_lse`` mode on phase 10's inputs: out and lse against
+    the plain version's, bit-equal on a second call, and out in q's dtype
+    equal to the default mode's ``default``."""
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+
+    out, lse = decode_attention(q, kc, vc, lens, return_lse=True)
+    want, want_lse = decode_attention_plain(q, kc, vc, lens, return_lse=True)
+    diff = (out - want).abs()
+    if q.dtype == torch.bfloat16:
+        share = float((diff / (want.abs().amax(-1, keepdim=True) * PARTIALS_BF16_REL)).max())
+    else:
+        share = float(diff.max()) / 2e-5
+    lse_share = float(((lse - want_lse).abs() / (LSE_TOL * (1 + want_lse.abs()))).max())
+    tag = f"decode_attention partials B={q.shape[0]} S={kc.shape[1]} {q.dtype}"
+    empty = lens <= 0
+    check(out.dtype == lse.dtype == torch.float32 and share <= 1 and lse_share <= 1,
+          f"{tag}: out {share:.3f}, lse {lse_share:.3f} of their bounds")
+    check(bool(torch.all(lse[empty] == -1e30)) and bool(torch.all(lse[~empty] > -1e3)),
+          f"{tag}: lse of the rows without a valid slot")
+    again = decode_attention(q, kc, vc, lens, return_lse=True)
+    check(torch.equal(again[0], out) and torch.equal(again[1], lse), f"{tag}: a second call")
+    check(torch.equal(out.to(q.dtype), default), f"{tag}: out against the default mode")
+    print(f"kernel check {tag}: out {share:.3f}, lse {lse_share:.3f} of their bounds (largest "
+          f"|lse difference| {float((lse - want_lse).abs().max()):.3g}); lse −1e30 on the "
+          f"{int(empty.sum())} rows of valid_len 0; bit-equal on a second call; out in "
+          f"{q.dtype} equal to the default mode's", flush=True)
 
 
 def profiled(fn) -> tuple[float, float]:
@@ -4171,6 +4226,210 @@ def mesh_train_phase(dev) -> dict[str, int]:
     return total
 
 
+
+# ---------------------------------------------------------------------------
+# phase 24: serving under a mesh of 1 x 1, and the recurrent families' training there
+# (a), (b): phase 11 (a)'s shape: 8 sequences, 32 greedy tokens, 256 cache slots
+MESH_SERVE_B, MESH_SERVE_STEPS, MESH_SERVE_CACHE = 8, 32, 256
+MESH_PREFILL = 256                  # (a): a prefill of 8 x 256 tokens
+# (b): (arch, layers): full width, depth cut to fit the phase's time; each serves
+# from position MESH_RING_POS0 (the hybrid's ring of 256 slots wraps) and trains
+# MESH_TRAIN_STEPS AdamW steps of 1 x TRAIN_SEQ
+MESH_FAMILY = (("mamba2-1.3b", 8), ("recurrentgemma-9b", 3))
+MESH_RING_POS0 = 240
+# the mesh run's logits against the unsharded run's, fed the same tokens from the
+# same state, relative to the largest |logit|: a wrong slot, block or merge moves
+# them by far more; at 1 x 1 the prediction is bit-equal (PERF.md, PR 30)
+MESH_LOGIT_REL = 1e-2
+
+
+def mesh_serve_expect(cfg, steps: int, decode: bool) -> dict:
+    """Exact launches of ``steps`` decode steps (or one prefill): RMSNorm twice
+    a block, twice more with q/k norms, and the final norm; one attention an
+    "attn" or "local_attn" block."""
+    from repro_torch.models.transformer import ATTN_KINDS, layer_kinds
+
+    kinds = layer_kinds(cfg)
+    n_attn = sum(k in ATTN_KINDS for k in kinds)
+    norms = 2 * len(kinds) + 2 * kinds.count("attn") * cfg.qk_norm + 1
+    return launch_table(steps, norms, 0 if decode else n_attn, n_attn if decode else 0)
+
+
+def gathered(t):
+    """A DTensor's full value (a tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def mesh_serve_part(dev, cfg, tag: str, rules, pos0: int, prefill: bool) -> tuple[dict, dict]:
+    """``MESH_SERVE_STEPS`` greedy steps of ``MESH_SERVE_B`` sequences
+    unsharded (``make_decode_step(api)``), then the same tokens at the same
+    positions through ``make_decode_step(api, rules)`` from the same seed-0
+    parameters (placed by ``rules.place_params``) and a cache from
+    ``api.init_cache(..., rules=rules)``; each after 2 warm-up steps on another
+    cache, then a profiled step.  With ``prefill`` also ``make_prefill_step``
+    of ``MESH_SERVE_B`` x ``MESH_PREFILL`` tokens both ways.  Returns (the mesh
+    runs' launches, numbers)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import kernels as tk
+    from repro_torch.models import attention, build_model
+    from repro_torch.models.transformer import ATTN_KINDS, layer_kinds
+    from repro_torch.train.trainer import make_decode_step, make_prefill_step
+
+    api = build_model(cfg)
+    B, steps = MESH_SERVE_B, MESH_SERVE_STEPS
+    n_attn = sum(k in ATTN_KINDS for k in layer_kinds(cfg))
+    pos = torch.full((B,), pos0, dtype=torch.int32, device=dev)
+    params = api.init_params(0, device=dev)
+    fed = [torch.zeros((B,), dtype=torch.int32, device=dev)]
+    merges = [0]
+    real = attention.decode_attention_seq_sharded
+
+    def spy(*args):
+        merges[0] += 1
+        return real(*args)
+
+    runs, total = {}, {}
+    for name in ("unsharded", "mesh"):
+        r = rules if name == "mesh" else None
+        if r is not None:
+            r.place_params(params)
+        step = make_decode_step(api, r)
+        warm = api.init_cache(B, MESH_SERVE_CACHE, device=dev, rules=r)
+        for i in range(2):
+            step(params, warm, {"tokens": fed[0], "pos": pos + i})
+        del warm
+        cache = api.init_cache(B, MESH_SERVE_CACHE, device=dev, rules=r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tk.reset_launch_counts()
+        merges[0] = 0
+        attention.decode_attention_seq_sharded = spy
+        try:
+            logits = []
+            t0 = time.perf_counter()
+            for i in range(steps):
+                out, cache = step(params, cache, {"tokens": fed[i], "pos": pos + i})
+                logits.append(gathered(out))
+                if r is None:
+                    fed.append(torch.argmax(logits[-1], dim=-1).to(torch.int32))
+            finite = bool(torch.isfinite(torch.stack(logits)).all())
+            wall = time.perf_counter() - t0
+        finally:
+            attention.decode_attention_seq_sharded = real
+        counts, peak, seen = tk.launch_counts(), torch.cuda.max_memory_allocated() / 1e9, merges[0]
+        wall1, busy, split = profiled_split(
+            lambda: step(params, cache, {"tokens": fed[-1], "pos": pos + steps}))
+        idle = "not measured" if busy <= 0 else f"{1 - busy / wall1:.3f}"
+        print(f"{tag} {name}: {B} seqs x {steps} tokens, cache {MESH_SERVE_CACHE}, positions from "
+              f"{pos0}: {wall:.3f} s, {wall / steps * 1e3:.2f} ms/step, {B * steps / wall:.1f} "
+              f"tokens/s, peak device memory {peak:.2f} GB; logits finite {finite}; profiled step "
+              f"{wall1 * 1e3:.2f} ms wall, device busy {busy * 1e3:.2f} ms, idle share {idle}; "
+              f"device ms by kind {split}", flush=True)
+        check(finite and logits[-1].shape == (B, cfg.padded_vocab), f"{tag} {name}: logits")
+        runs[name] = {"logits": logits, "ms_step": wall / steps * 1e3, "busy_ms": busy * 1e3,
+                      "wall1_ms": wall1 * 1e3, "peak_gb": peak}
+        if r is not None:
+            expect = mesh_serve_expect(cfg, steps, decode=True)
+            print(f"{tag} mesh: launches {counts}, expected {expect}; row 10 in its partials mode "
+                  f"(merged over the tensor axis) {seen} of its {counts['decode_attention']} "
+                  f"launches", flush=True)
+            check(counts == expect and seen == steps * n_attn, f"{tag} mesh: launch counts")
+            check(all(isinstance(t, DTensor) for t in cache.values()), f"{tag}: cache layout")
+            add_counts(total, counts)
+        del cache, step
+    worst = max(float((a.float() - b.float()).abs().max()) for a, b in
+                zip(runs["mesh"]["logits"], runs["unsharded"]["logits"]))
+    top = max(float(b.float().abs().max()) for b in runs["unsharded"]["logits"])
+    equal = all(torch.equal(a, b) for a, b in zip(runs["mesh"]["logits"],
+                                                 runs["unsharded"]["logits"]))
+    ratio = runs["mesh"]["ms_step"] / runs["unsharded"]["ms_step"]
+    print(f"{tag}: mesh against unsharded over {steps} steps fed the same tokens: largest "
+          f"|logit difference| {worst:.4g} (largest |logit| {top:.4g}; bit-equal {equal}); "
+          f"{runs['mesh']['ms_step']:.2f} against {runs['unsharded']['ms_step']:.2f} ms/step "
+          f"({ratio:.3f}x)", flush=True)
+    check(worst <= MESH_LOGIT_REL * top, f"{tag}: mesh against unsharded {worst}")
+    numbers = {"ms_step": {k: v["ms_step"] for k, v in runs.items()}, "bit_equal": equal,
+               "max_logit_diff": worst}
+    for v in runs.values():
+        del v["logits"]
+    if prefill:
+        g = torch.Generator(device=dev).manual_seed(2)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, MESH_PREFILL), generator=g,
+                                         device=dev, dtype=torch.int32)}
+        outs = {}
+        for name, r in (("mesh", rules), ("unsharded", None)):
+            if r is None:      # the same leaves, whole again
+                params = api.init_params(0, device=dev)
+            pre = make_prefill_step(api, r)
+            pre(params, batch)
+            torch.cuda.synchronize()
+            tk.reset_launch_counts()
+            t0 = time.perf_counter()
+            outs[name] = gathered(pre(params, batch))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = tk.launch_counts()
+            print(f"{tag} prefill {name}: {B} x {MESH_PREFILL} tokens in {wall * 1e3:.2f} ms; "
+                  f"launches {counts}", flush=True)
+            if r is not None:
+                check(counts == mesh_serve_expect(cfg, 1, decode=False),
+                      f"{tag} prefill mesh: launch counts")
+                add_counts(total, counts)
+        worst = float((outs["mesh"].float() - outs["unsharded"].float()).abs().max())
+        top = float(outs["unsharded"].float().abs().max())
+        print(f"{tag} prefill: mesh against unsharded: largest |logit difference| {worst:.4g} "
+              f"(largest |logit| {top:.4g}; bit-equal {torch.equal(outs['mesh'], outs['unsharded'])})",
+              flush=True)
+        check(worst <= MESH_LOGIT_REL * top, f"{tag} prefill: mesh against unsharded {worst}")
+        del outs, batch
+    del params
+    torch.cuda.empty_cache()
+    return total, numbers
+
+
+def mesh_serve_phase(dev) -> dict[str, int]:
+    """Phase 24: (a) qwen3-8b at full width and depth served under a 1 x 1 mesh
+    beside unsharded, and its prefill; (b) mamba2-1.3b and recurrentgemma-9b
+    at full width, depth cut, served and trained (``mesh_train_part``) under
+    the mesh beside unsharded.  Returns the mesh runs' launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_world, make_debug_mesh, mesh_summary
+    from repro_torch.launch.sharding import make_rules
+
+    walls, total = {}, {}
+    started = init_world(dev)
+    try:
+        mesh = make_debug_mesh(device=dev)
+        print(f"lm mesh serve: world {dist.get_world_size()} ({dist.get_backend()}), mesh: "
+              f"{mesh_summary(mesh)}", flush=True)
+        t0 = time.perf_counter()
+        cfg = get_config("qwen3-8b").replace(param_dtype=torch.bfloat16)
+        counts, _ = mesh_serve_part(dev, cfg, "lm mesh serve (a) qwen3-8b",
+                                    make_rules(cfg, mesh), 0, prefill=True)
+        add_counts(total, counts)
+        walls["(a)"] = time.perf_counter() - t0
+        for arch, layers in MESH_FAMILY:
+            t0 = time.perf_counter()
+            cfg = get_config(arch).replace(num_layers=layers, param_dtype=torch.bfloat16)
+            counts, _ = mesh_serve_part(dev, cfg, f"lm mesh serve (b) {arch} {layers} layers",
+                                        make_rules(cfg, mesh), MESH_RING_POS0, prefill=False)
+            add_counts(total, counts)
+            cfg = get_config(arch).replace(num_layers=layers)
+            counts, _ = mesh_train_part(dev, cfg, 1, make_rules(cfg, mesh))
+            add_counts(total, counts)
+            walls[f"(b) {arch}"] = time.perf_counter() - t0
+    finally:
+        if started:
+            dist.destroy_process_group()
+    print(f"lm mesh serve: launches over the mesh runs {total}; wall "
+          f"{ {k: round(v, 2) for k, v in walls.items()} }", flush=True)
+    return total
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4223,6 +4482,7 @@ def main() -> int:
                                   gen)
     p22_counts, p22_times = phase("22 LM family training", family_train_phase, dev, gen)
     p23_counts = phase("23 sharded LM training", mesh_train_phase, dev)
+    p24_counts = phase("24 sharded LM serving", mesh_serve_phase, dev)
 
     for r in rows:
         r["launches"] = counts[r["name"]]
@@ -4246,6 +4506,7 @@ def main() -> int:
         if r["name"] == "flash_attention":
             r.update(p22_times)                   # phase 22 (b), (1, 16, 1, 4096, 256)
         r["mesh_train_launches"] = p23_counts[r["name"]]     # phase 23 (a), 3 steps each
+        r["mesh_serve_launches"] = p24_counts[r["name"]]     # phase 24, the mesh runs
     rows += lm_rows
     for r in shard_rows:
         r["launches"] = (shard_counts if r["name"] == "gossip_mix_block" else ref_counts)[r["name"]]
@@ -4276,6 +4537,9 @@ def main() -> int:
             "train_d256_bound_ms", "train_d256_library_ms",
             # rows 9 and 11 on the sharded training path at a mesh of 1 x 1 (phase 23 (a))
             "mesh_train_launches",
+            # rows 9–11 on the sharded serve and recurrent training paths at 1 x 1
+            # (phase 24); row 10's partials mode at its phase 10 shape
+            "mesh_serve_launches", "partials_ms",
             # row 11: the host's µs a call at (8, 4096), not the row's shape, and
             # F.rms_norm's there (phase 10)
             "host_us_8x4096", "library_host_us_8x4096")

@@ -102,7 +102,7 @@ def runner(lib, dev):
         pa = torch.empty((B, H, plan.splits, D), dtype=torch.float32, device=dev)
         pm = torch.empty((B, H, plan.splits, 2), dtype=torch.float32, device=dev)
         build.check(lib.decode_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(), None,
             pa.data_ptr(), pm.data_ptr(), tickets.data_ptr(), B, H, Hkv, S, D, plan.chunk,
             1.0 / math.sqrt(D), 1, torch.cuda.current_stream().cuda_stream), "variant")
         return out

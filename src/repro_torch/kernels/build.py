@@ -64,9 +64,10 @@ SIGNATURES.update({
     # stream
     "flash_attention": ([_P, _P, _P, _P, _P, ctypes.POINTER(_LL), _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _I, _P], _I),
-    # q, k, v, valid_len, out, pacc, pml, tickets, B, H, Hkv, S, D, chunk, scale, bf16, stream
-    "decode_attention": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
-                         _I),
+    # q, k, v, valid_len, out, lse (or null), pacc, pml, tickets, B, H, Hkv, S, D, chunk, scale,
+    # bf16, stream
+    "decode_attention": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                          _P], _I),
 })
 for _name in ("topk_mask", "int8_roundtrip"):
     for _tag in ("f32", "bf16"):

@@ -10,6 +10,15 @@
 // is −1e30 in the reference, whose softmax is then uniform over all S slots:
 // the kernel returns that mean of v too.
 //
+// Partials mode (a non-null `lse`, for the sequence-sharded decode that
+// merges the results of several ranks' blocks of the cache): out is float32
+// (B, H, D), already normalized, and lse (B, H) float32 holds each row's
+// natural log-sum-exp of its scaled logits, so a block's weight in a merge
+// is exp(lse − max lse).  The epilogue writes both from the float32 (max,
+// sum) it already holds; no other pass.  A row with valid_len ≤ 0 gets lse
+// = −1e30 exactly (weight exp(−1e30 − m) = 0 beside any block with a valid
+// slot) and out the uniform mean of the default mode.
+//
 // Bound on an H100: bytes.  A step streams the valid part of the cache once,
 // 2 · valid · Hkv · D elements a sequence, for 4 · g · D operations a slot
 // (g = H / Hkv query heads share a kv head): at B = 8, S = 32,768, Hkv = 8,
@@ -82,6 +91,7 @@ constexpr int kMaxRows = 16;           // query heads a block holds
 constexpr int kMaxMerge = 4096;        // splits × rows the finishing block weighs
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 using lm::ex2;
 
@@ -90,7 +100,8 @@ struct Args {
   const void* k;
   const void* v;
   const int* valid_len;
-  void* out;
+  void* out;                  // (B, H, D): q's dtype, or float32 where lse is set
+  float* lse;                 // (B, H) float32, or null (the default mode)
   float* pacc;                // (B, H, splits, D) partial sums
   float* pml;                 // (B, H, splits, 2) partial (max, sum), log2 units
   unsigned* tickets;          // (B, Hkv, groups), zero between calls
@@ -212,6 +223,27 @@ __device__ __forceinline__ void store4(T* out, float4 v, float inv) {
   lm::store_f32<T, 4>(out, f);
 }
 
+// Element `i` of the output: in T, or float32 in partials mode.
+template <typename T>
+__device__ __forceinline__ void store1(const Args& a, long long i, float v) {
+  if (a.lse) static_cast<float*>(a.out)[i] = v;
+  else if constexpr (sizeof(T) == 4) static_cast<T*>(a.out)[i] = v;
+  else static_cast<T*>(a.out)[i] = __float2bfloat16(v);
+}
+
+// Elements i … i + 3 of the output, scaled by `inv` (i a multiple of 4).
+template <typename T>
+__device__ __forceinline__ void store4_at(const Args& a, long long i, float4 v, float inv) {
+  if (a.lse) store4(static_cast<float*>(a.out) + i, v, inv);
+  else store4(static_cast<T*>(a.out) + i, v, inv);
+}
+
+// A row's natural log-sum-exp from its max (log2 units) and sum; −1e30 for a
+// sequence with no valid slot.
+__device__ __forceinline__ float row_lse(float m, float l, bool empty) {
+  return empty ? kNegInf : (m + log2f(l)) * kLn2;
+}
+
 __device__ __forceinline__ void fma4(float4& acc, float w, float4 v) {
   acc.x += w * v.x;
   acc.y += w * v.y;
@@ -232,7 +264,7 @@ __device__ __forceinline__ void finish(const Args& a, float* ws, int wstride, in
                                        int rows, int split, int ns) {
   __shared__ int last;
   __syncthreads();
-  T* out = static_cast<T*>(a.out);
+  const bool empty = a.valid_len[b] <= 0;
   for (int i = threadIdx.x; i < rows * D; i += kThreads) {
     const int h = i / D, d = i % D;
     float M = -INFINITY;
@@ -248,8 +280,8 @@ __device__ __forceinline__ void finish(const Args& a, float* ws, int wstride, in
     }
     const long long row = (long long)b * a.H + h0 + h;
     if (ns == 1) {
-      if constexpr (sizeof(T) == 4) out[row * D + d] = acc / fmaxf(L, 1e-30f);
-      else out[row * D + d] = __float2bfloat16(acc / fmaxf(L, 1e-30f));
+      store1<T>(a, row * D + d, acc / fmaxf(L, 1e-30f));
+      if (a.lse && d == 0) a.lse[row] = row_lse(M, L, empty);
     } else {
       const long long slot = row * a.splits + split;
       a.pacc[slot * D + d] = acc;
@@ -315,7 +347,10 @@ __device__ __forceinline__ void finish(const Args& a, float* ws, int wstride, in
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) L += __shfl_xor_sync(0xffffffffu, L, o);
-    if (lane == 0) sinv[h] = 1.0f / fmaxf(L, 1e-30f);
+    if (lane == 0) {
+      sinv[h] = 1.0f / fmaxf(L, 1e-30f);
+      if (a.lse) a.lse[row0 + h] = row_lse(M, L, empty);
+    }
   }
   __syncthreads();
 
@@ -349,13 +384,13 @@ __device__ __forceinline__ void finish(const Args& a, float* ws, int wstride, in
         t.w += u.w;
       }
       const int h = threadIdx.x / V;
-      store4(out + (row0 + h) * D + (threadIdx.x % V) * 4, t, sinv[h]);
+      store4_at<T>(a, (row0 + h) * D + (threadIdx.x % V) * 4, t, sinv[h]);
     }
   } else {
 #pragma unroll
     for (int k = 0; k < E; ++k) {
       const int e = e0 + k * kThreads;
-      if (e < ne) store4(out + (row0 + e / V) * D + (e % V) * 4, part[k], sinv[e / V]);
+      if (e < ne) store4_at<T>(a, (row0 + e / V) * D + (e % V) * 4, part[k], sinv[e / V]);
     }
   }
   if (threadIdx.x == 0) *ticket = 0u;         // ready for the next call on this stream
@@ -775,18 +810,21 @@ int dispatch(const Args& a, int B, int D, bool bf16, cudaStream_t stream) {
 
 extern "C" {
 
-// chunk: slots a split, a positive multiple of 64 (the wrapper's decode_plan);
+// out (B, H, D) in q's dtype, or float32 with lse (B, H) float32 (partials mode;
+// null: the default mode); chunk: slots a split, a positive multiple of 64 (the
+// wrapper's decode_plan);
 // pacc (B, H, ceil(S / chunk), D) and pml (B, H, ceil(S / chunk), 2) float32
 // scratch; tickets (B, Hkv, ceil(g / 16)) unsigned, zero on entry and on exit.
 int decode_attention(const void* q, const void* k, const void* v, const void* valid_len,
-                     void* out, void* pacc, void* pml, void* tickets, int B, int H, int Hkv, int S,
-                     int D, int chunk, float scale, int bf16, void* stream) {
+                     void* out, void* lse, void* pacc, void* pml, void* tickets, int B, int H,
+                     int Hkv, int S, int D, int chunk, float scale, int bf16, void* stream) {
   if (chunk <= 0 || chunk % kUnit || Hkv <= 0 || H % Hkv) return (int)cudaErrorInvalidValue;
   const int g = H / Hkv;
   // the finishing block keeps a weight a (row, split) in shared memory
   if ((long long)((S + chunk - 1) / chunk) * (g < kMaxRows ? g : kMaxRows) > kMaxMerge)
     return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, static_cast<const int*>(valid_len), out, static_cast<float*>(pacc),
+  Args a{q, k, v, static_cast<const int*>(valid_len), out, static_cast<float*>(lse),
+         static_cast<float*>(pacc),
          static_cast<float*>(pml), static_cast<unsigned*>(tickets), H, Hkv, S, chunk,
          (S + chunk - 1) / chunk, (g + kMaxRows - 1) / kMaxRows, scale * kLog2e};
   return dispatch(a, B, D, bf16 != 0, static_cast<cudaStream_t>(stream));

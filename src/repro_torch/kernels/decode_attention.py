@@ -8,6 +8,14 @@ float32 and the result ``(B, H, D)`` in q's dtype.  With ``valid_len[b] ≤
 0`` every logit is −1e30 and the softmax is uniform: both versions return
 the mean of v over all S slots, as ``repro``'s reference and TPU kernel do.
 
+``return_lse=True`` (the partials of a sequence-sharded decode, which
+merges several blocks of the cache) returns ``(out, lse)``: out float32
+(B, H, D), already normalized, and lse float32 (B, H), each row's natural
+log-sum-exp of its scaled logits over its valid slots.  A row with
+``valid_len ≤ 0`` gets lse = −1e30 exactly, so its weight exp(lse − m) in a
+merge beside any block with a valid slot is 0, and out the uniform mean.
+The kernel writes both from the float32 max and sum its epilogue holds.
+
 ``decode_attention`` chooses by the tensor's device: on a CUDA tensor it
 launches the hand-written kernel (``csrc/decode_attention.cu``: one launch, a
 block per (split, kv head, sequence) over all query heads of its kv head,
@@ -101,7 +109,7 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                           valid_len: torch.Tensor) -> torch.Tensor:
+                           valid_len: torch.Tensor, return_lse: bool = False):
     """Plain version: logits over every slot, masked, softmax, in float32."""
     b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
@@ -110,13 +118,17 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     mask = torch.arange(s, device=q.device)[None] < valid_len.reshape(-1, 1)
     logits = torch.where(mask[:, None, None], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
-    return out.reshape(b, h, d).to(q.dtype)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float()).reshape(b, h, d)
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = torch.logsumexp(logits, dim=-1).reshape(b, h)
+    return out, torch.where(valid_len.reshape(-1, 1) > 0, lse, NEG_INF)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     valid_len: torch.Tensor) -> torch.Tensor:
-    """q (B, H, D), caches (B, S, Hkv, D), valid_len (B,) -> (B, H, D)."""
+                     valid_len: torch.Tensor, return_lse: bool = False):
+    """q (B, H, D), caches (B, S, Hkv, D), valid_len (B,) -> (B, H, D) in q's
+    dtype, or with ``return_lse`` (float32 (B, H, D), float32 (B, H))."""
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise KernelInputError(f"decode_attention: need q (B, H, D) and caches (B, S, Hkv, D), got "
                                f"{tuple(q.shape)}, {tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
@@ -132,7 +144,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         raise KernelInputError("decode_attention: q, the caches and valid_len must be on one "
                                "device")
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_cache, v_cache, valid_len)
+        return decode_attention_plain(q, k_cache, v_cache, valid_len, return_lse)
     if q.device.type != "cuda":
         raise RuntimeError(f"decode_attention: no kernel for device {q.device}")
     if q.dtype not in _DTYPES or not (q.dtype == k_cache.dtype == v_cache.dtype):
@@ -144,18 +156,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         raise KernelInputError("decode_attention: q, the caches and valid_len must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
         raise KernelInputError("decode_attention: q and the caches must be 16-byte aligned")
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if return_lse else q.dtype)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     if B * H and S:
         launch(q, k_cache, v_cache, valid_len, out,
-               decode_plan(B, H, Hkv, S, D, sm_count(q.device.index)))
+               decode_plan(B, H, Hkv, S, D, sm_count(q.device.index)), lse)
         decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-           valid_len: torch.Tensor, out: torch.Tensor, plan: DecodePlan) -> None:
+           valid_len: torch.Tensor, out: torch.Tensor, plan: DecodePlan,
+           lse: torch.Tensor | None = None) -> None:
     """One launch of the kernel under ``plan`` on checked CUDA inputs (the
-    wrapper's body; ``scripts/decode_plan_sweep.py`` times other plans)."""
+    wrapper's body; ``scripts/decode_plan_sweep.py`` times other plans);
+    ``lse`` set: the partials mode, ``out`` float32."""
     B, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     lib = build.library()
@@ -166,8 +181,9 @@ def launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         tickets = _tickets(q.device, stream, B * Hkv * plan.head_groups)
         err = lib.decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid_len.data_ptr(),
-            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), B, H,
-            Hkv, S, D, plan.chunk, 1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16), stream,
+            out.data_ptr(), None if lse is None else lse.data_ptr(), part_acc.data_ptr(),
+            part_ml.data_ptr(), tickets.data_ptr(), B, H, Hkv, S, D, plan.chunk,
+            1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16), stream,
         )
     build.check(err, "decode_attention")
 

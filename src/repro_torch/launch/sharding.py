@@ -36,6 +36,16 @@ spec ``repro`` gives the leaf that ``convert._lm_leaf`` maps it to, less
 the leading stacked dim.  The placements come from these specs, not from
 FSDP or ``parallelize_module`` plans (``repro`` places ``wo`` as (tp,
 fsdp), FSDP2 would shard its dim 0 over the data axes).
+
+The decode cache: ``cache_specs(cache, rules)`` (``repro``'s
+``cache_shardings``) lays each of the port's kind-stacked entries out as
+``repro`` lays out one layer's, behind a whole leading layer dim: the batch
+over the data axes where they divide it, the slots of the attention caches
+(``k``, ``v``, ``local_k``, ``local_v``; Whisper's ``enc_k``, ``enc_v``)
+over the tensor axis where it divides them, the Mamba-2 and RG-LRU states
+by batch alone.  ``MeshRules.place_cache`` places a cache so, and
+``MeshRules.sharded_decode_attention`` is the decode attention over it
+(``models.attention.sharded_decode_attention``).
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.launch.mesh import TP_AXIS
+from repro_torch.models.attention import sharded_decode_attention
 from repro_torch.models.common import ModelConfig
 
 
@@ -365,10 +376,26 @@ class MeshRules:
         return module
 
     def place_batch(self, batch: dict, device) -> dict:
-        """A batch of full arrays as DTensors laid out by ``batch_specs``."""
-        batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        """A batch of full arrays as DTensors laid out by ``batch_specs``
+        (DTensors pass as they are)."""
+        batch = {k: v if isinstance(v, DTensor) else torch.as_tensor(v, device=device)
+                 for k, v in batch.items()}
         specs = batch_specs(batch, self)
-        return {k: self.place(v, specs[k]) for k, v in batch.items()}
+        return {k: v if isinstance(v, DTensor) else self.place(v, specs[k])
+                for k, v in batch.items()}
+
+    def place_cache(self, cache: dict) -> dict:
+        """A decode cache of full tensors as DTensors laid out by
+        ``cache_specs``."""
+        specs = cache_specs(cache, self)
+        return {k: self.place(v, specs[k]) for k, v in cache.items()}
+
+    def sharded_decode_attention(self, q, k_cache, v_cache, valid_len):
+        """q (B, H, hd), the caches laid out by ``cache_specs``, valid_len (B,)
+        -> (B, H, hd): row 10's partials over each rank's slots merged over the
+        tensor axis, or, where it does not divide the slots, the kernel over
+        the whole cache on each rank's rows."""
+        return sharded_decode_attention(q, k_cache, v_cache, valid_len, self)
 
 
 # ---------------------------------------------------------------------------
@@ -449,6 +476,25 @@ def batch_specs(batch: dict, rules: MeshRules) -> dict[str, tuple]:
         return (dp if b_ok else None,) + (None,) * (len(shape) - 1)
 
     return {k: spec(tuple(v.shape)) for k, v in batch.items()}
+
+
+# the cache entries whose dim 2 (after the layer and the batch) is the slots
+KV_CACHE_KEYS = ("k", "v", "local_k", "local_v", "enc_k", "enc_v")
+
+
+def cache_specs(cache: dict, rules: MeshRules) -> dict[str, tuple]:
+    """The spec of each entry of a kind-stacked decode cache (``init_cache``'s
+    (L, B, …) tensors, or ``cache_specs``' meta ones): ``repro``'s
+    ``cache_shardings`` of one layer behind the whole layer dim."""
+    out = {}
+    for key, t in cache.items():
+        spec = [None] * t.dim()
+        if _divisible(t.shape[1], rules.dp_size):
+            spec[1] = rules.dp
+        if key in KV_CACHE_KEYS and _divisible(t.shape[2], rules.tp_size):
+            spec[2] = rules.tp_axis
+        out[key] = tuple(spec)
+    return out
 
 
 def make_rules(cfg: ModelConfig, mesh) -> MeshRules:

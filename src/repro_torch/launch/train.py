@@ -19,8 +19,9 @@ the state and each batch are DTensors laid out by the specs, and the
 launcher prints ``mesh: …``.  Without ``torchrun`` (``RANK`` /
 ``WORLD_SIZE``) it starts a world of one; ``--device cpu`` runs gloo, the
 card nccl, each rank of ``torchrun --nproc-per-node N`` on card
-``LOCAL_RANK``.  Every rank prints.  Mamba-2 and the RG-LRU hybrid under a
-mesh raise ``NotImplementedError``.
+``LOCAL_RANK``.  Every rank prints.  Every decoder family trains under a
+mesh (Mamba-2 and the RG-LRU hybrid with their mixers whole on each rank's
+batch rows).
 
     torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch qwen3-8b \
         --smoke --mesh debug
@@ -41,7 +42,6 @@ from repro_torch.launch.mesh import (init_world, make_debug_mesh, make_productio
                                      mesh_summary)
 from repro_torch.launch.sharding import make_rules
 from repro_torch.models import build_model
-from repro_torch.models.transformer import ATTN_KINDS
 from repro_torch.train.optim import AdamW, cosine_warmup_schedule
 from repro_torch.train.trainer import init_train_state, make_train_step
 
@@ -69,10 +69,6 @@ def main(argv=None) -> dict:
         raise SystemExit(
             f"{args.arch} needs a frontend stub batch; use dryrun/smoke tests"
         )
-    if args.mesh != "none" and set(cfg.block_pattern) - set(ATTN_KINDS):
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: {args.arch}'s Mamba-2 / RG-LRU blocks under a mesh are not "
-            "ported yet (ROADMAP.md Queue 1 item 2, 'Sharded LM')")
     dev = resolve_device(args.device)
     if args.mesh == "none":
         return _train(args, cfg, dev, None)

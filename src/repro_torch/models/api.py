@@ -6,10 +6,16 @@ mixture-of-experts, Mamba-2, VLM, RG-LRU hybrid) and for Whisper:
   - ``init_params(seed=0, device=None, rules=None)``   an ``LM`` drawn on the device;
                                             under ``rules`` its leaves DTensors laid out
                                             by their specs
-  - ``forward(params, batch, rules=None)``  prefill: (B, S) ``tokens`` -> (B, S, V) logits
-  - ``init_cache(batch, seq_len, device=None)``   the decode state
-  - ``decode_step(params, cache, batch)``   one serve step: (B,) ``tokens`` at (B,) ``pos``
-                                            -> ((B, V) logits, the cache, updated in place)
+  - ``forward(params, batch, rules=None)``  prefill: (B, S) ``tokens`` -> (B, S, V) logits;
+                                            under ``rules`` the batch is placed by
+                                            ``batch_specs`` and the logits are a DTensor
+  - ``init_cache(batch, seq_len, device=None, rules=None)``   the decode state; under
+                                            ``rules`` laid out by ``cache_specs``
+  - ``decode_step(params, cache, batch, rules=None)``   one serve step: (B,) ``tokens``
+                                            at (B,) ``pos`` -> ((B, V) logits, the cache,
+                                            updated in place); under ``rules`` the
+                                            batch is placed by ``batch_specs`` and the
+                                            logits are a DTensor
   - ``loss_fn(params, batch, rules=None)``  training: mean next-token cross-entropy of
                                             (B, S) tokens against (B, S) labels (plus the
                                             mixture-of-experts auxiliary loss), a float32
@@ -66,8 +72,8 @@ class ModelAPI:
     init_params: Callable        # (seed=0, device=None, rules=None) -> LM or Whisper
     loss_fn: Callable            # (params, batch, rules=None) -> scalar
     forward: Callable            # (params, batch, rules=None) -> logits
-    init_cache: Callable         # (batch, seq_len, device=None) -> cache
-    decode_step: Callable        # (params, cache, batch) -> (logits, cache)
+    init_cache: Callable         # (batch, seq_len, device=None, rules=None) -> cache
+    decode_step: Callable        # (params, cache, batch, rules=None) -> (logits, cache)
     input_specs: Callable        # (ShapeSpec) -> batch dict of meta tensors
     cache_specs: Callable        # (ShapeSpec) -> cache dict of meta tensors
 
@@ -98,6 +104,12 @@ def _on(params, batch: dict, key: str):
     return v if v is None or isinstance(v, DTensor) else torch.as_tensor(v, device=params.device)
 
 
+def _placed(params, batch: dict, rules) -> dict:
+    """``batch`` laid out by ``batch_specs`` under a mesh, else as it is."""
+    return batch if getattr(rules, "mesh", None) is None else rules.place_batch(batch,
+                                                                              params.device)
+
+
 def _build_lm(cfg: ModelConfig) -> ModelAPI:
     uses_embeds = cfg.family == "vlm"
 
@@ -109,17 +121,21 @@ def _build_lm(cfg: ModelConfig) -> ModelAPI:
         return tf.lm_loss(params, batch, cfg, rules)
 
     def forward(params: tf.LM, batch: dict, rules=None) -> torch.Tensor:
+        batch = _placed(params, batch, rules)
         return tf.lm_forward(params, _on(params, batch, "tokens"), cfg, rules,
                              positions=_on(params, batch, "positions"),
                              inputs_embeds=_on(params, batch, "inputs_embeds"))
 
-    def init_cache(batch: int, seq_len: int, device=None) -> dict:
-        return tf.init_decode_cache(cfg, batch, seq_len, resolve_device(device))
+    def init_cache(batch: int, seq_len: int, device=None, rules=None) -> dict:
+        cache = tf.init_decode_cache(cfg, batch, seq_len, resolve_device(device))
+        return cache if getattr(rules, "mesh", None) is None else rules.place_cache(cache)
 
-    def decode_step(params: tf.LM, cache: dict, batch: dict):
+    def decode_step(params: tf.LM, cache: dict, batch: dict, rules=None):
+        batch = _placed(params, batch, rules)
         return tf.lm_decode_step(params, cache, _on(params, batch, "tokens"),
                                  _on(params, batch, "pos"), cfg,
-                                 inputs_embeds=_on(params, batch, "inputs_embeds"))
+                                 inputs_embeds=_on(params, batch, "inputs_embeds"),
+                                 rules=rules)
 
     def input_specs(spec: ShapeSpec) -> dict:
         b, s = spec.global_batch, spec.seq_len
@@ -169,11 +185,14 @@ def _build_whisper(cfg: ModelConfig) -> ModelAPI:
         return wh.whisper_forward(params, _on(params, batch, "enc_frames"),
                                   _on(params, batch, "dec_tokens"), cfg)
 
-    def init_cache(batch: int, seq_len: int, enc_len: int | None = None, device=None) -> dict:
+    def init_cache(batch: int, seq_len: int, enc_len: int | None = None, device=None,
+                   rules=None) -> dict:
+        _no_mesh(rules)
         return wh.init_whisper_cache(cfg, batch, seq_len, enc_len or max(seq_len // 4, 64),
                                      resolve_device(device))
 
-    def decode_step(params: wh.Whisper, cache: dict, batch: dict):
+    def decode_step(params: wh.Whisper, cache: dict, batch: dict, rules=None):
+        _no_mesh(rules)
         return wh.whisper_decode_step(params, cache, _on(params, batch, "tokens"),
                                       _on(params, batch, "pos"), cfg)
 

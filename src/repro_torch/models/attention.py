@@ -32,7 +32,22 @@ e.g. 4 query and 2 kv heads at tp = 4), each rank takes the kv heads of
 its own query heads (query head i reads kv head i // g) and its k/v
 gradients are partial sums over that dim.
 
-The sequence-sharded decode (meshes) is not ported yet.
+Decode under a mesh (``MeshRules.sharded_decode_attention``, ``repro``'s
+``decode_attention_seq_sharded`` inside a ``shard_map``): where the tensor
+axis divides the cache's slots, each rank holds a block of them (the cache
+laid out by ``launch.sharding.cache_specs``) and takes row 10's partials
+over its block for every query head of its batch rows (the kernel's
+``return_lse`` mode: float32 out and log-sum-exp).  The block's valid
+length is the global prefix ``valid_len`` less the block's first slot,
+clamped to [0, S_local]: the valid slots are a prefix in both the ring and
+the clamped layout.  ``decode_attention_seq_sharded`` merges the ranks'
+partials in float32 over the tensor axis's process group: an all-reduce of
+the max of the lse, then one of the weights exp(lse_r − max) and the
+weighted outputs, whose ratio is cast to q's dtype once.  A rank whose
+block holds no valid slot has lse −1e30 and weight 0.  Where the tensor
+axis does not divide the slots, the cache's sequence is whole on every
+rank and the kernel runs in its default mode on each rank's batch rows and
+query heads (the kv heads as in training).
 """
 
 from __future__ import annotations
@@ -40,8 +55,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import wrap_local
 
@@ -160,16 +177,67 @@ def _attention_on_mesh(q: DTensor, k: DTensor, v: DTensor, **kw) -> DTensor:
     vl = v.redistribute(mesh, kv_pl).to_local(grad_placements=grads)
     ql = q.to_local()
     if heads_split and not kv_split:
-        hl, g = ql.shape[2], q.shape[2] // k.shape[2]
-        idx = 0
-        for i in heads_split:
-            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
-        lo = idx * hl
-        if lo % g == 0 and hl % g == 0:            # whole groups: their kv heads
-            kl, vl = kl[:, :, lo // g:(lo + hl) // g], vl[:, :, lo // g:(lo + hl) // g]
-        elif lo // g == (lo + hl - 1) // g:        # part of one group: its kv head
-            kl, vl = kl[:, :, lo // g:lo // g + 1], vl[:, :, lo // g:lo // g + 1]
-        else:                                     # parts of several: one kv head each
-            heads = torch.arange(lo, lo + hl, device=kl.device) // g
-            kl, vl = kl[:, :, heads], vl[:, :, heads]
+        kl, vl = _own_kv_heads(kl, vl, mesh, heads_split, ql.shape[2], q.shape[2] // k.shape[2])
     return wrap_local(attention(ql, kl, vl, **kw), mesh, q_pl, q.shape)
+
+
+def _own_kv_heads(kl, vl, mesh, heads_split: list[int], hl: int, g: int):
+    """Of k/v (B, S, Hkv, D) with every kv head, those of this rank's ``hl``
+    query heads, which the mesh dims ``heads_split`` split (query head i
+    reads kv head i // g)."""
+    idx = 0
+    for i in heads_split:
+        idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    lo = idx * hl
+    if lo % g == 0 and hl % g == 0:            # whole groups: their kv heads
+        return kl[:, :, lo // g:(lo + hl) // g], vl[:, :, lo // g:(lo + hl) // g]
+    if lo // g == (lo + hl - 1) // g:          # part of one group: its kv head
+        return kl[:, :, lo // g:lo // g + 1], vl[:, :, lo // g:lo // g + 1]
+    heads = torch.arange(lo, lo + hl, device=kl.device) // g     # parts of several
+    return kl[:, :, heads], vl[:, :, heads]
+
+
+def decode_attention_seq_sharded(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                                 valid_len: torch.Tensor, group) -> torch.Tensor:
+    """One rank's share of a sequence-sharded decode, on local tensors: q (B,
+    H, D) the rank's rows with every head, the caches (B, S_local, Hkv, D) its
+    block of slots, valid_len (B,) int32 the block's own valid length.  Row
+    10's partials over the block, merged over ``group`` -> (B, H, D) in q's
+    dtype, the same on every rank of the group."""
+    out, lse = decode_attention(q, k_cache, v_cache, valid_len, return_lse=True)
+    top = lse.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(lse - top)                              # 0 for a block with no valid slot
+    b, h, d = out.shape
+    both = torch.cat([(w[..., None] * out).reshape(b, h * d), w], dim=1)
+    dist.all_reduce(both, group=group)
+    return (both[:, :h * d].reshape(b, h, d) / both[:, h * d:, None]).to(q.dtype)
+
+
+def sharded_decode_attention(q: DTensor, k_cache: DTensor, v_cache: DTensor, valid_len: DTensor,
+                             rules) -> DTensor:
+    """q (B, H, D), the caches (B, S, Hkv, D) laid out by ``cache_specs``,
+    valid_len (B,) int32 -> (B, H, D) (see the module docstring)."""
+    mesh = q.device_mesh
+    t = rules.names.index(rules.tp_axis)
+    cache_pl = k_cache.placements
+    if cache_pl[t].is_shard(1) or rules.tp_size == 1:       # repro: tp divides S
+        rows = [p if p.is_shard(0) else Replicate() for p in cache_pl]
+        s_local = k_cache.to_local().shape[1]
+        start = mesh.get_local_rank(t) * s_local if cache_pl[t].is_shard(1) else 0
+        own = torch.clamp(valid_len.redistribute(mesh, rows).to_local() - start, 0, s_local)
+        out = decode_attention_seq_sharded(q.redistribute(mesh, rows).to_local(),
+                                           k_cache.to_local(), v_cache.to_local(),
+                                           own.to(torch.int32), mesh.get_group(t))
+        return wrap_local(out, mesh, rows, q.shape)
+    # the sequence whole on every rank: each rank's rows and query heads
+    q_pl = [c if c.is_shard(0) else Shard(1) if p.is_shard(1) else Replicate()
+            for c, p in zip(cache_pl, q.placements)]
+    ql = q.redistribute(mesh, q_pl).to_local()
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    heads_split = [i for i, p in enumerate(q_pl) if p.is_shard(1)]
+    if heads_split:
+        kl, vl = _own_kv_heads(kl, vl, mesh, heads_split, ql.shape[1], q.shape[1] // kl.shape[2])
+    rows = [c if c.is_shard(0) else Replicate() for c in cache_pl]
+    out = decode_attention(ql, kl, vl, valid_len.redistribute(mesh, rows).to_local())
+    return wrap_local(out, mesh, q_pl, q.shape)

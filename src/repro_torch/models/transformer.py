@@ -42,8 +42,25 @@ its specs, and ``_shard`` redistributes the activations at each place where
 attention output, the residual adds, the embedded input, the logits).  The
 kernels run on local blocks (``common.on_local``, ``attention``), the
 mixture-of-experts FFN as ``moe.moe_ffn_sharded``; the rotary angles are
-computed from each rank's own positions.  Mamba-2 and the RG-LRU blocks
-under a mesh are not ported yet.
+computed from each rank's own positions.  The Mamba-2 and RG-LRU mixers
+(``_mixer``) run whole on each rank's batch rows: DTensor has no sharding
+rule that helps the SSD chunk products or the associative scan, so the
+mixer's input is redistributed to the batch split with the sequence whole,
+its leaves (laid out by their specs) are made whole, the plain mixer runs
+on the local tensors (``common.on_local``: each leaf's gradient Partial
+over the data axes) and its output re-enters DTensor in that layout.
+
+Serving under a mesh: ``lm_decode_step(..., rules=rules)`` takes a cache
+laid out by ``launch.sharding.cache_specs`` (``MeshRules.place_cache``),
+which keeps that layout, ``repro``'s "cache" constraint, as it is written
+in place, and constrains the embedded token ("hidden_decode"), q / k / v,
+the residual adds and the logits ("logits_decode") as ``repro`` does.
+Each rank writes the new k / v into its own block of slots, in place on
+the local tensor (``DTensor.to_local`` shares its storage): the rank whose
+block holds the slot writes it at ``slot − block start``, the others write
+back what they hold (a clamped index and a masked value: nothing is read
+back to the host).  The attention is ``MeshRules.sharded_decode_attention``;
+the mixers' states are split by batch and updated in place the same way.
 """
 
 from __future__ import annotations
@@ -63,6 +80,7 @@ from repro_torch.models.common import (
     dense_init,
     embed_init,
     mrope_angles,
+    on_local,
     rms_norm,
     rope_angles,
     rope_frequencies,
@@ -345,19 +363,75 @@ def attn_apply_train(p: Block, x, cfg: ModelConfig, *, window: int, rope, causal
     return _shard(rules, out @ p.wo.to(out.dtype), "hidden")
 
 
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> None:
+    """cache[b, slot[b]] = new[b, 0] for every row b, in place: cache (B, S,
+    Hkv, hd), new (B, 1, Hkv, hd), slot (B,).  Of a DTensor cache each rank
+    writes its own rows and block of slots on its local tensor; where another
+    rank's block holds the slot, it writes back the slot it clamps to."""
+    if not isinstance(cache, DTensor):
+        cache[torch.arange(cache.shape[0], device=cache.device), slot] = new[:, 0]
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+    rows = [p if p.is_shard(0) else Replicate() for p in pl]
+    local = cache.to_local()
+    s_local = local.shape[1]
+    block = 0
+    for i, p in enumerate(pl):
+        if p.is_shard(1):
+            block = block * mesh.size(i) + mesh.get_local_rank(i)
+    at = slot.redistribute(mesh, rows).to_local() - block * s_local
+    mine = (at >= 0) & (at < s_local)
+    at = torch.clamp(at, 0, s_local - 1)
+    r = torch.arange(local.shape[0], device=local.device)
+    new = new.redistribute(mesh, rows).to_local()[:, 0]
+    local[r, at] = torch.where(mine[:, None, None], new, local[r, at])
+
+
 def attn_apply_decode(p: Block, x, cfg: ModelConfig, *, cache_k, cache_v, slot, valid_len,
-                      rope):
+                      rope, rules=None):
     """Single-token decode: writes this token's k/v into ``slot`` of the
     (B, S_cache, Hkv, hd) caches in place, then attends over the first
-    ``valid_len`` slots."""
+    ``valid_len`` slots (under a mesh see the module docstring)."""
     b = x.shape[0]
-    q, k, v = _qkv(p, x, cfg, rope)
-    rows = torch.arange(b, device=x.device)
-    cache_k[rows, slot] = k[:, 0]
-    cache_v[rows, slot] = v[:, 0]
-    out = decode_attention(q[:, 0], cache_k, cache_v, valid_len)
+    q, k, v = _qkv(p, x, cfg, rope, rules)
+    _write_slot(cache_k, k, slot)
+    _write_slot(cache_v, v, slot)
+    if isinstance(cache_k, DTensor):
+        out = rules.sharded_decode_attention(q[:, 0], cache_k, cache_v, valid_len)
+    else:
+        out = decode_attention(q[:, 0], cache_k, cache_v, valid_len)
     out = out.reshape(b, 1, cfg.num_heads * cfg.resolved_head_dim)
     return out @ p.wo.to(out.dtype)
+
+
+# the leaves each mixer reads
+MIXER_LEAVES = {
+    "ssm": ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias", "norm_scale", "out_proj"),
+    "rglru": ("in_proj_x", "in_proj_gate", "conv_w", "conv_b", "gate_a_w", "gate_a_b",
+              "gate_x_w", "gate_x_b", "lambda_p", "out_proj"),
+}
+
+
+def _mixer(kind: str, p, h, cfg: ModelConfig, conv_state, state, decode: bool, rules=None):
+    """The Mamba-2 or RG-LRU mixer of (B, S, D) ``h``, its states (decode)
+    updated in place; of a DTensor see the module docstring."""
+    mixer = mamba2_block if kind == "ssm" else rglru_block
+
+    def run(p_, x, conv, st):
+        y, (new_conv, new_state) = mixer(p_, x, cfg, conv, st, decode=decode)
+        if decode:
+            conv.copy_(new_conv)
+            st.copy_(new_state)
+        return y
+
+    if not isinstance(h, DTensor):
+        return run(p, h, conv_state, state)
+    split = h.shape[0] % rules.dp_size == 0
+    h = h.redistribute(h.device_mesh, rules.placements((rules.dp if split else None,)))
+    names = MIXER_LEAVES[kind]
+    conv, st = (conv_state.to_local(), state.to_local()) if decode else (None, None)
+    return on_local(lambda x, *ws: run(SimpleNamespace(**dict(zip(names, ws))), x, conv, st), h,
+                    *(getattr(p, n) for n in names))
 
 
 def block_apply(kind: str, p, x, cfg: ModelConfig, *, rope=None, cache=None,
@@ -370,11 +444,7 @@ def block_apply(kind: str, p, x, cfg: ModelConfig, *, rope=None, cache=None,
     h = rms_norm(x, p.ln1)
     if kind in ("ssm", "rglru"):
         conv_state, state = cache if decode else (None, None)
-        mixer = mamba2_block if kind == "ssm" else rglru_block
-        y, (new_conv, new_state) = mixer(p, h, cfg, conv_state, state, decode=decode)
-        if decode:
-            conv_state.copy_(new_conv)
-            state.copy_(new_state)
+        y = _mixer(kind, p, h, cfg, conv_state, state, decode, rules)
         if kind == "ssm":
             return _shard(rules, x + y, "hidden"), None
         x = _shard(rules, x + y, "hidden")
@@ -382,7 +452,7 @@ def block_apply(kind: str, p, x, cfg: ModelConfig, *, rope=None, cache=None,
     if decode:
         cache_k, cache_v, slot, valid_len = cache
         a = attn_apply_decode(p, h, cfg, cache_k=cache_k, cache_v=cache_v, slot=slot,
-                              valid_len=valid_len, rope=rope)
+                              valid_len=valid_len, rope=rope, rules=rules)
     else:
         window = cfg.local_window if kind == "local_attn" else cfg.window
         a = attn_apply_train(p, h, cfg, window=window, rope=rope, rules=rules)
@@ -430,10 +500,6 @@ def _logits(params, tokens, cfg: ModelConfig, positions, remat: bool, inputs_emb
             rules=None):
     """(logits, the auxiliary losses summed over the blocks, float32)."""
     kinds = layer_kinds(cfg)
-    if getattr(rules, "mesh", None) is not None and set(kinds) - set(ATTN_KINDS):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba-2 and RG-LRU blocks under a mesh are not ported yet "
-            "(ROADMAP.md Queue 1 item 2)")
     x = _embed(params, tokens, cfg, inputs_embeds)
     b, s, _ = x.shape
     rope = None
@@ -534,14 +600,16 @@ def _state_shapes(cfg: ModelConfig, kind: str, seq_len: int):
 
 @torch.no_grad()
 def lm_decode_step(params: LM, cache: dict, tokens: torch.Tensor | None, pos: torch.Tensor,
-                   cfg: ModelConfig, inputs_embeds: torch.Tensor | None = None):
+                   cfg: ModelConfig, inputs_embeds: torch.Tensor | None = None, rules=None):
     """One decode step: the newest (B,) tokens, or (B, 1, D) ``inputs_embeds``,
     at (B,) absolute positions -> ((B, V) logits, the cache, updated in
     place).  With M-RoPE the position drives all three axes.  An attention
     kind with a window writes its ring at ``pos % slots``, one without at
     ``min(pos, slots − 1)``; either attends over the first min(pos + 1,
-    slots) slots."""
+    slots) slots.  Under ``rules`` the parameters, the inputs, the cache
+    (``MeshRules.place_cache``) and the logits are DTensors."""
     x = _embed(params, None if tokens is None else tokens[:, None], cfg, inputs_embeds)
+    x = _shard(rules, x, "hidden_decode")
     pos = pos.to(torch.int64)
     spans = {}
     for kind, window in (("attn", cfg.window), ("local_attn", cfg.local_window)):
@@ -561,6 +629,6 @@ def lm_decode_step(params: LM, cache: dict, tokens: torch.Tensor | None, pos: to
         seen[kind] += 1
         first, second = CACHE_KEYS[kind]
         c = (cache[first][i], cache[second][i], *spans.get(kind, ()))
-        x, _ = block_apply(kind, blk, x, cfg, rope=rope, cache=c, decode=True)
+        x, _ = block_apply(kind, blk, x, cfg, rope=rope, cache=c, decode=True, rules=rules)
     x = rms_norm(x, params.final_norm)
-    return _lm_head(params, x, cfg)[:, 0], cache
+    return _shard(rules, _lm_head(params, x, cfg)[:, 0], "logits_decode"), cache

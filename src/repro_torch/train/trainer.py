@@ -11,11 +11,14 @@ then runs ``AdamW.update``.  ``repro``'s step is pure (``jit`` with the
 state donated); here the state's tensors are updated in place and the same
 dict is returned with the new optimizer state.
 
-Under a mesh (``rules``, a ``launch.sharding.MeshRules``) the masters and
-moments are DTensors laid out by ``param_specs``, each (micro)batch is
-placed by ``batch_specs``, the loss is taken under ``rules``, and each
-gradient is brought to its master's layout before the update.  ``loss``
-and ``grad_norm`` come back as plain float32 scalars, full, on every rank.
+Under a mesh (``rules``, a ``launch.sharding.MeshRules``) the serve steps
+pass ``rules`` on (``api.forward`` and ``api.decode_step`` place each batch
+by ``batch_specs``); in training the
+masters and moments are DTensors laid out by ``param_specs``, each
+(micro)batch is placed by ``batch_specs``, the loss is taken under
+``rules``, and each gradient is brought to its master's layout before the
+update.  ``loss`` and ``grad_norm`` come back as plain float32 scalars,
+full, on every rank.
 """
 
 from __future__ import annotations
@@ -112,17 +115,19 @@ def make_train_step(api: ModelAPI, optimizer: AdamW, rules=None,
     return train_step
 
 
-def make_prefill_step(api: ModelAPI) -> Callable:
+def make_prefill_step(api: ModelAPI, rules=None) -> Callable:
     def prefill_step(params, batch):
-        return api.forward(params, batch)
+        return api.forward(params, batch, rules)
 
     return prefill_step
 
 
-def make_decode_step(api: ModelAPI) -> Callable:
-    """(params, cache, batch) -> (logits, cache); the cache is updated in place."""
+def make_decode_step(api: ModelAPI, rules=None) -> Callable:
+    """(params, cache, batch) -> (logits, cache); the cache is updated in
+    place (under ``rules`` a cache laid out by ``cache_specs``, e.g.
+    ``api.init_cache(..., rules=rules)``)."""
 
     def decode_step(params, cache, batch):
-        return api.decode_step(params, cache, batch)
+        return api.decode_step(params, cache, batch, rules)
 
     return decode_step

@@ -42,7 +42,7 @@ from repro_torch.kernels.compress import (
     topk_mask,
     topk_mask_plain,
 )
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.kernels.decode_attention import (
     _TICKETS,
     decode_attention,
@@ -724,6 +724,54 @@ def test_decode_kernel_on_card(cuda, b, s, h, hkv, d, dt, lens):
     assert got.dtype == q.dtype and got.shape == q.shape
     assert _attn_close(got, want), _max_abs(got, want)
     assert tk.launch_counts()["decode_attention"] == before + 1
+
+
+# row 10's partials mode (the sequence-sharded decode): the (H, Hkv, D) of every
+# id of the registry with attention at two cache lengths, and the shapes of
+# scripts/kernel_ab.py's DECODE_SHAPES (B, H, Hkv, S, D), in both dtypes
+PARTIALS_SHAPES = sorted(
+    {(4, c.num_heads, c.num_kv_heads, s, c.resolved_head_dim)
+     for c in (get_config(a) for a in ARCH_IDS)
+     if c.family == "encdec" or set(c.block_pattern) & {"attn", "local_attn"}
+     for s in (256, 4096)}
+    | {(8, 16, 1, 2048, 256), (8, 64, 8, 256, 128), (8, 64, 8, 4096, 128), (8, 12, 12, 448, 64),
+       (8, 16, 16, 256, 128), (8, 12, 12, 1500, 64), (8, 16, 16, 4096, 128),
+       (8, 32, 8, 32768, 128)})
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hkv,s,d", PARTIALS_SHAPES)
+def test_decode_kernel_partials_on_card(cuda, b, h, hkv, s, d, dt):
+    """``return_lse=True``: float32 out and lse against the plain version's,
+    rows of valid_len 0, 1 and S (and between); one launch, bit-equal on a
+    second call, and out in the default mode equal to the partial out in q's
+    dtype.  out: float32 inputs 2e-5 absolute; bfloat16 inputs 2^-12 of the
+    row's largest |value| (the kernel keeps p to ~16 bits, two bfloat16
+    halves, where the plain version keeps float32).  lse: 1e-5 · (1 + |lse|),
+    and −1e30 exactly where valid_len is 0."""
+    lens = ([0, 1, s, s // 2 + 3] + list(np.linspace(1, s, b).astype(int)))[:b]
+    q = _randn((b, h, d), dt, cuda, 50)
+    kc, vc = _randn((b, s, hkv, d), dt, cuda, 51), _randn((b, s, hkv, d), dt, cuda, 52)
+    vl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = tk.launch_counts()["decode_attention"]
+    out, lse = decode_attention(q, kc, vc, vl, return_lse=True)
+    again = decode_attention(q, kc, vc, vl, return_lse=True)
+    want, want_lse = decode_attention_plain(q, kc, vc, vl, return_lse=True)
+    default = decode_attention(q, kc, vc, vl)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["decode_attention"] == before + 3
+    assert out.dtype == lse.dtype == torch.float32
+    assert out.shape == (b, h, d) and lse.shape == (b, h)
+    diff = (out - want).abs()
+    if dt == "bf16":
+        assert bool(torch.all(diff <= want.abs().amax(-1, keepdim=True) * 2.0 ** -12)), (
+            float(diff.max()))
+    else:
+        assert float(diff.max()) <= 2e-5
+    assert bool(torch.all((lse - want_lse).abs() <= 1e-5 * (1 + want_lse.abs())))
+    assert bool(torch.all(lse[vl == 0] == -1e30)) and bool(torch.all(lse[vl > 0] > -1e3))
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert torch.equal(default, out.to(q.dtype))
 
 
 def test_lm_wrappers_check_cuda_inputs(cuda):

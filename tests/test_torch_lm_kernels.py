@@ -226,6 +226,37 @@ def test_decode_attention_plain_matches_ref_and_pallas(b, s, h, hkv, d, dt, lens
         np.testing.assert_allclose(_np(got)[0], mean[0], atol=atol)
 
 
+@pytest.mark.parametrize("blocks", [1, 2, 4, 8])
+def test_decode_partials_merged_over_blocks_match_repro(blocks):
+    """The partials mode (``return_lse``) over a cache cut into ``blocks``
+    blocks of slots, each with its own valid length, merged by hand as the
+    sequence-sharded decode merges them (max of the lse, then the weights
+    exp(lse − max)), against ``repro``'s ``decode_attention_local`` on the
+    whole cache: float32, within 1e-6 relative.  A block with no valid slot
+    has lse −1e30 exactly and weight 0."""
+    from repro.models.attention import decode_attention_local
+
+    b, s, h, hkv, d = 4, 64, 8, 2, 32
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(_randn(70 + i, *shape), "f32") for i, shape in
+                                    enumerate([(b, h, d), (b, s, hkv, d), (b, s, hkv, d)]))
+    lens = np.array([1, 5, 40, 64], dtype=np.int32)
+    want = _np(decode_attention_local(qj, kj, vj, jnp.asarray(lens)))
+    size = s // blocks
+    outs, lses = [], []
+    for i in range(blocks):
+        own = torch.from_numpy(np.clip(lens - i * size, 0, size).astype(np.int32))
+        out, lse = decode_attention(qt, kt[:, i * size:(i + 1) * size],
+                                    vt[:, i * size:(i + 1) * size], own, return_lse=True)
+        assert out.dtype == lse.dtype == torch.float32 and lse.shape == (b, h)
+        assert torch.all(lse[own == 0] == -1e30) and torch.all(lse[own > 0] > -1e3)
+        outs.append(out)
+        lses.append(lse)
+    lse = torch.stack(lses)
+    w = torch.exp(lse - lse.max(dim=0).values)
+    got = _np((w[..., None] * torch.stack(outs)).sum(0) / w.sum(0)[..., None])
+    assert np.max(np.abs(got - want)) <= 1e-6 * np.max(np.abs(want))
+
+
 def _check_plan(B, H, Hkv, S, D, sms):
     """decode_plan's invariants: whole units of 64 slots, every slot in one
     split and no split empty, every query head in one block with its kv head,

@@ -14,6 +14,10 @@ For every architecture id at the meshes (data 16, model 16), (pod 2, data
   - ``batch_specs`` equals ``batch_shardings`` on the batch of every
     ``SHAPES`` entry the id runs (``input_specs``), M-RoPE's (3, B, S)
     positions included;
+  - ``cache_specs`` of the port's kind-stacked cache (``api.cache_specs``)
+    equals ``cache_shardings`` of ``repro``'s at every decode ``SHAPES``
+    entry the id runs (``long_500k``'s batch of 1 included), layer by layer
+    after dropping the port's leading layer dim;
   - ``placements`` turns a spec into ``Shard`` / ``Replicate`` per mesh dim.
 
 Specs are compared with each entry normalized to a tuple of axis names
@@ -41,6 +45,7 @@ from repro_torch.convert import _lm_leaf
 from repro_torch.launch import sharding
 from repro_torch.launch.mesh import dp_axes, mesh_summary
 from repro_torch.models import LM, Whisper, build_model
+from repro_torch.models.transformer import CACHE_KEYS, layer_kinds
 
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model")),
@@ -152,6 +157,51 @@ def test_batch_specs_match_repro(arch, mesh):
         for key, leaf in batch.items():
             assert _norm(got[key], leaf.dim()) == _norm(want[key].spec, leaf.dim()), (
                 spec.name, key)
+
+
+# repro's per-layer cache keys of each block kind, in CACHE_KEYS' order
+REPRO_CACHE_KEYS = {"attn": ("k", "v"), "local_attn": ("k", "v"), "ssm": ("conv", "ssm"),
+                    "rglru": ("conv", "lru")}
+
+
+def _repro_layer_specs(tree, cfg) -> dict[str, list]:
+    """``repro``'s cache specs, one a layer, under the port's keys in the port's
+    layer order: a scanned group's leaf less its group dim, a remainder leaf
+    as it is, a Whisper stack's leaf less its layer dim."""
+    if cfg.family == "encdec":
+        return {k: [tuple(ns.spec)[1:]] * cfg.num_layers for k, ns in tree.items()}
+    pat = cfg.block_pattern
+    grouped = (cfg.num_layers // len(pat)) * len(pat)
+    out = {}
+    for layer, kind in enumerate(layer_kinds(cfg)):
+        if layer < grouped:
+            leaf = {k: tuple(ns.spec)[1:] for k, ns in tree["groups"][layer % len(pat)].items()}
+        else:
+            leaf = {k: tuple(ns.spec) for k, ns in tree["remainder"][layer - grouped].items()}
+        for key, rkey in zip(CACHE_KEYS[kind], REPRO_CACHE_KEYS[kind]):
+            out.setdefault(key, []).append(leaf[rkey])
+    return out
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_cache_specs_match_repro(arch, mesh):
+    rrules, rules = _rules(arch, mesh)
+    rapi, api = repro_build_model(repro_get_config(arch)), build_model(get_config(arch))
+    names = [n for n in repro_shapes.SHAPES if repro_shapes.shape_applicable(arch, n)
+             and repro_shapes.SHAPES[n].kind == "decode"]
+    assert names
+    for name in names:
+        cache = api.cache_specs(shapes.SHAPES[name])
+        got = sharding.cache_specs(cache, rules)
+        want = _repro_layer_specs(repro_sharding.cache_shardings(
+            rapi.cache_specs(repro_shapes.SHAPES[name]), rrules), get_config(arch))
+        assert sorted(got) == sorted(want), name
+        for key, t in cache.items():
+            assert got[key][0] is None and len(want[key]) == t.shape[0], (name, key)
+            for layer in want[key]:
+                assert _norm(got[key][1:], t.dim() - 1) == _norm(layer, t.dim() - 1), (
+                    name, key, got[key], layer)
 
 
 def test_placements():

@@ -25,7 +25,10 @@ tokens drawn with numpy from a seed (rows differ).  The cases:
     unsharded loss, as ``repro``'s dense dispatch under GSPMD gives the
     whole batch's auxiliary loss);
   - mixtral-8x7b (4 experts, d_ff 128: F-TP) at (1, 8), B = 4, its config's
-    4 microbatches a train step.
+    4 microbatches a train step;
+  - mamba2-1.3b at (2, 4) and recurrentgemma-9b (two RG-LRU blocks and a
+    ``local_attn`` block) at (4, 2): the mixers whole on each rank's batch
+    rows, their leaves laid out by their specs.
 
 Each compares the loss and every parameter's gradient with ``repro``'s
 ``jax.value_and_grad`` of ``loss_fn(params, batch, rules)``, and the
@@ -40,15 +43,16 @@ the 2 steps, once sharded and once unsharded, and loads the first back.
 Each case also draws its state with ``init_train_state(..., rules)`` and
 holds it to the unsharded init.
 
-Tolerances (measured in brackets): the loss 1e-5 relative [≤ 1.5e-7]; each
-gradient leaf 1e-4 relative Frobenius [≤ 1.4e-6]; after 2 steps the
-losses and gradient norms 1e-5 relative [≤ 4.5e-7] and every parameter
+Tolerances (measured in brackets; mamba2 / recurrentgemma apart): the loss
+1e-5 relative [≤ 1.5e-7; 7.6e-8 / 7.3e-8]; each gradient leaf 1e-4
+relative Frobenius [≤ 1.4e-6; 2.1e-6 / 1.7e-6]; after 2 steps the losses
+and gradient norms 1e-5 relative [≤ 4.5e-7; 3.1e-7 / 2.5e-7] and every parameter
 within 5e-4 absolute at lr 1e-3 (``tests/test_trainer.py``'s bound: Adam's
 first steps move a weight by about ±lr where its gradient is near 0, whose
 sign two orders of summation may decide) [≤ 3.3e-4, one element of olmoe
-B = 2's embedding; every other leaf ≤ 3.3e-5]; equal rows, and the dense
-dispatch, sharded against unsharded, 1e-5 relative [≤ 7.2e-8].  The launcher at a world of
-one: ``--mesh debug`` against no mesh, 1e-6 relative.
+B = 2's embedding; every other leaf ≤ 3.3e-5; 3.6e-6 / 2.7e-5]; equal rows,
+and the dense dispatch, sharded against unsharded, 1e-5 relative [≤ 7.6e-8].  The launcher at a world of
+one: ``--mesh debug`` against no mesh, 1e-6 relative (olmoe, mamba2, recurrentgemma).
 """
 
 import dataclasses
@@ -79,6 +83,8 @@ CASES = {                    # name: (arch, mesh (data, model), batch, sequence)
     "olmoe_2x4": ("olmoe-1b-7b", (2, 4), 4, SEQ),
     "olmoe_4x2_b2": ("olmoe-1b-7b", (4, 2), 2, SEQ),
     "mixtral_1x8": ("mixtral-8x7b", (1, 8), 4, SEQ),
+    "mamba2_2x4": ("mamba2-1.3b", (2, 4), 4, SEQ),
+    "recurrentgemma_4x2": ("recurrentgemma-9b", (4, 2), 4, SEQ),
 }
 LOSS_REL, GRAD_REL, PARAM_ABS = 1e-5, 1e-4, 5e-4
 
@@ -149,8 +155,8 @@ def runs(tmp_path_factory):
         pickle.dump(port, f)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     procs = []
-    for i, part in enumerate((["granite_4x2", "granite_2x4", "mixtral_1x8"],
-                              ["olmoe_4x2", "olmoe_2x4", "olmoe_4x2_b2"])):
+    for i, part in enumerate((["granite_4x2", "granite_2x4", "mixtral_1x8", "mamba2_2x4"],
+                              ["olmoe_4x2", "olmoe_2x4", "olmoe_4x2_b2", "recurrentgemma_4x2"])):
         with open(d / f"repro_in{i}.pkl", "wb") as f:
             pickle.dump({n: cases[n] for n in part}, f)
         argv = [sys.executable, "-c", REPRO, str(d / f"repro_in{i}.pkl"),
@@ -289,13 +295,24 @@ def test_launcher_mesh_debug_on_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("argv,error,match", [
     (["--mesh", "pod"], ValueError, "256 devices"),
     (["--mesh", "multipod"], ValueError, "512 devices"),
-    (["--arch", "mamba2-1.3b", "--mesh", "debug"], NotImplementedError, "Queue 1 item 2"),
-    (["--arch", "recurrentgemma-9b", "--mesh", "debug"], NotImplementedError, "Queue 1 item 2"),
     (["--arch", "qwen2-vl-72b", "--mesh", "debug"], SystemExit, "frontend stub"),
 ])
 def test_launcher_mesh_refusals(argv, error, match):
     with pytest.raises(error, match=match):
         train_launcher.main(["--smoke", "--device", "cpu", "--steps", "1"] + argv)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_launcher_mesh_debug_trains_recurrent_families(arch):
+    """``--mesh debug`` at a world of one trains the Mamba-2 and RG-LRU
+    families as the unsharded launcher does."""
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2", "--seq", "16",
+            "--batch", "2"]
+    plain = train_launcher.main(args)
+    meshed = train_launcher.main(args + ["--mesh", "debug"])
+    for key in ("loss", "grad_norm"):
+        assert abs(meshed[key] - plain[key]) <= 1e-6 * plain[key], key
+    assert meshed["step"] == 2
 
 
 def test_forward_on_a_mesh_of_one_is_unsharded():

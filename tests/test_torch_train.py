@@ -456,15 +456,17 @@ def test_train_launcher_on_cpu(tmp_path, capsys):
     again = train_launcher.main(args + ["--resume"])
     assert "resumed at step 2" in capsys.readouterr().out
     assert again["step"] == 3 and abs(again["loss"] - out["loss"]) <= 1e-6 * out["loss"]
-    # --mesh: debug trains (a mesh of 1 x 1 here), pod needs 256 ranks, and
-    # Mamba-2 under a mesh is not ported yet
+    # --mesh: debug trains (a mesh of 1 x 1 here), Mamba-2 included, and pod
+    # needs 256 ranks
     meshed = train_launcher.main(args[:-4] + ["--mesh", "debug"])
     assert abs(meshed["loss"] - out["loss"]) <= 1e-6 * out["loss"] and meshed["step"] == 3
     with pytest.raises(ValueError, match="256"):
         train_launcher.main(["--smoke", "--device", "cpu", "--mesh", "pod"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        train_launcher.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu", "--mesh",
-                             "debug"])
+    ssm = ["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu", "--steps", "1", "--seq", "8",
+           "--batch", "2"]
+    plain = train_launcher.main(ssm)
+    assert abs(train_launcher.main(ssm + ["--mesh", "debug"])["loss"] - plain["loss"]) <= (
+        1e-6 * plain["loss"])
     # mistral-large-123b trains in 8 microbatches (its config's train_microbatches)
     big = ["--arch", "mistral-large-123b", "--smoke", "--device", "cpu", "--steps", "1", "--seq",
            "8"]
