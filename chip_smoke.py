@@ -253,6 +253,16 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      mesh beside 2 unsharded steps (phase 23's ``mesh_train_part``).  Phase
      10 also checks row 10's partials mode (out and lse, both dtypes,
      valid_len 0, 1 and S) and times it beside the default mode.
+ 25. Whisper under a mesh and the dry run: (a) whisper-small at full width
+     and depth in bfloat16 at the same world of one and 1 x 1 mesh, beside
+     unsharded from the same parameters: one forward of 8 x 448 tokens
+     against 1,500 frames, then 8 greedy decode steps over the 1,500-slot
+     cross cache that the encoding fills (row 10 in its partials mode for
+     the self and the cross attention): logits bit-equal, ms, a profiled
+     step's busy ms and idle share, exact launches; (b) ``python -m
+     repro_torch.launch.dryrun --arch granite-3-2b --shape decode_32k`` in
+     a subprocess (a fake world of 256 ranks on the host), its record on
+     one line.
 
 Each phase prints its wall time.  The last lines are the card's
 ``nvidia-smi`` line, one JSON object with every kernel's numbers, and
@@ -263,6 +273,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -4430,6 +4441,188 @@ def mesh_serve_phase(dev) -> dict[str, int]:
           f"{ {k: round(v, 2) for k, v in walls.items()} }", flush=True)
     return total
 
+WHISPER_MESH_STEPS = 8        # phase 25 (a): decode steps against the 1,500-frame cross cache
+DRYRUN_CELL = ("granite-3-2b", "decode_32k")     # phase 25 (b)
+DRYRUN_TIMEOUT = 300          # s; the cell traces in ~10 s on a CPU core
+
+
+def whisper_mesh_part(dev, rules) -> tuple[dict, dict]:
+    """Phase 25 (a): whisper-small at full width and depth (bfloat16, seed 0),
+    unsharded and then placed by ``rules.place_params``: one forward of
+    ``P21_BATCH`` x ``TEXT_CTX`` tokens against ``AUDIO_FRAMES`` frames
+    (``make_prefill_step``), then ``WHISPER_MESH_STEPS`` greedy decode steps
+    (the mesh fed the unsharded run's tokens) over a cross cache that
+    ``fill_cross_cache`` fills from the encoding (``api.init_cache(...,
+    rules=rules)``: at 1 x 1 the cross slots lie on the one rank of the
+    tensor axis, so row 10 runs in its partials mode for the cross attention
+    too).  Logits bit-equal; the mesh's launches exact.  Returns (the mesh
+    run's launches, numbers)."""
+    from repro_torch import kernels as tk
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention, build_model
+    from repro_torch.models.whisper import fill_cross_cache, whisper_encode
+    from repro_torch.train.trainer import make_decode_step, make_prefill_step
+
+    cfg = get_config(WHISPER).replace(param_dtype=torch.bfloat16)
+    api = build_model(cfg)
+    B, steps, tag = P21_BATCH, WHISPER_MESH_STEPS, f"whisper mesh (a) {WHISPER}"
+    g = torch.Generator(device=dev).manual_seed(3)
+    frames = torch.randn(B, AUDIO_FRAMES, cfg.d_model, generator=g, device=dev).to(cfg.dtype)
+    batch = {"enc_frames": frames,
+             "dec_tokens": torch.randint(0, cfg.vocab_size, (B, TEXT_CTX), generator=g,
+                                         device=dev, dtype=torch.int32)}
+    params = api.init_params(0, device=dev)
+    pos = torch.zeros((B,), dtype=torch.int32, device=dev)
+    fed = [torch.zeros((B,), dtype=torch.int32, device=dev)]
+    merges = [0]
+    real = attention.decode_attention_seq_sharded
+
+    def spy(*args):
+        merges[0] += 1
+        return real(*args)
+
+    runs, total = {}, {}
+    for name in ("unsharded", "mesh"):
+        r = rules if name == "mesh" else None
+        if r is not None:
+            r.place_params(params)
+        pre = make_prefill_step(api, r)
+        pre(params, batch)
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = gathered(pre(params, batch))
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        fwd_counts = tk.launch_counts()
+        x = batch["enc_frames"] if r is None else r.place_batch(
+            {"enc_frames": frames}, dev)["enc_frames"]
+        step = make_decode_step(api, r)
+        with torch.no_grad():
+            tk.reset_launch_counts()
+            enc = whisper_encode(params, x, cfg, rules=r)
+            enc_counts = tk.launch_counts()
+            warm = api.init_cache(B, TEXT_CTX, AUDIO_FRAMES, device=dev, rules=r)
+            fill_cross_cache(params, warm, enc, cfg)
+            for i in range(2):
+                step(params, warm, {"tokens": fed[0], "pos": pos + i})
+            del warm
+            cache = api.init_cache(B, TEXT_CTX, AUDIO_FRAMES, device=dev, rules=r)
+            fill_cross_cache(params, cache, enc, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tk.reset_launch_counts()
+        merges[0] = 0
+        attention.decode_attention_seq_sharded = spy
+        try:
+            out = []
+            t0 = time.perf_counter()
+            for i in range(steps):
+                o, cache = step(params, cache, {"tokens": fed[i], "pos": pos + i})
+                out.append(gathered(o))
+                if r is None:
+                    fed.append(torch.argmax(out[-1], dim=-1).to(torch.int32))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            attention.decode_attention_seq_sharded = real
+        counts, seen, peak = tk.launch_counts(), merges[0], torch.cuda.max_memory_allocated() / 1e9
+        wall1, busy, split = profiled_split(
+            lambda: step(params, cache, {"tokens": fed[-1], "pos": pos + steps}))
+        idle = "not measured" if busy <= 0 else f"{1 - busy / wall1:.3f}"
+        finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(torch.stack(out)).all())
+        print(f"{tag} {name}: forward {B} x {TEXT_CTX} tokens against {AUDIO_FRAMES} frames "
+              f"{fwd_ms:.2f} ms; {B} seqs x {steps} decode steps over {AUDIO_FRAMES} cross slots "
+              f"{wall / steps * 1e3:.2f} ms/step, peak device memory {peak:.2f} GB; finite "
+              f"{finite}; profiled step {wall1 * 1e3:.2f} ms wall, device busy {busy * 1e3:.2f} ms, "
+              f"idle share {idle}; device ms by kind {split}", flush=True)
+        check(finite and logits.shape == (B, TEXT_CTX, cfg.padded_vocab)
+              and out[-1].shape == (B, cfg.padded_vocab), f"{tag} {name}: logits")
+        runs[name] = {"logits": logits, "decode": out, "ms_step": wall / steps * 1e3,
+                      "fwd_ms": fwd_ms, "busy_ms": busy * 1e3, "wall1_ms": wall1 * 1e3}
+        if r is not None:
+            want = {"forward": whisper_expect(cfg, 1, "forward"),
+                    "encode": whisper_expect(cfg, 1, "encode"),
+                    "decode": whisper_expect(cfg, steps, "decode")}
+            got = {"forward": fwd_counts, "encode": enc_counts, "decode": counts}
+            print(f"{tag} mesh: launches {got}, expected {want}; row 10 in its partials mode "
+                  f"(merged over the tensor axis) {seen} of its {counts['decode_attention']} "
+                  f"decode launches", flush=True)
+            check(got == want and seen == counts["decode_attention"] == 2 * cfg.num_layers * steps,
+                  f"{tag} mesh: launch counts")
+            for c in got.values():
+                add_counts(total, c)
+        del cache, step, enc
+    equal = {"forward": torch.equal(runs["mesh"]["logits"], runs["unsharded"]["logits"]),
+             "decode": all(torch.equal(a, b) for a, b in zip(runs["mesh"]["decode"],
+                                                           runs["unsharded"]["decode"]))}
+    ms = {k: round(v["ms_step"], 3) for k, v in runs.items()}
+    print(f"{tag}: mesh against unsharded, bit-equal {equal}; forward "
+          f"{runs['mesh']['fwd_ms']:.2f} against {runs['unsharded']['fwd_ms']:.2f} ms; decode "
+          f"{ms['mesh']} against {ms['unsharded']} ms/step "
+          f"({runs['mesh']['ms_step'] / runs['unsharded']['ms_step']:.3f}x)", flush=True)
+    check(all(equal.values()), f"{tag}: mesh logits not bit-equal to unsharded")
+    del params, batch, frames, runs
+    torch.cuda.empty_cache()
+    return total, {"ms_step": ms, "bit_equal": equal}
+
+
+def dryrun_part() -> None:
+    """Phase 25 (b): ``python -m repro_torch.launch.dryrun`` of ``DRYRUN_CELL``
+    in a subprocess (a fake world of 256 ranks on the host, no device), its
+    record's numbers on one line.  A non-zero exit, a timeout or a record
+    that is not ok fails the run."""
+    root = Path(__file__).resolve().parent
+    out = root / "build" / "dryrun"
+    arch, shape = DRYRUN_CELL
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                           "--shape", shape, "--out", str(out)],
+                          cwd=root, env=dict(os.environ, PYTHONPATH=str(root / "src")),
+                          capture_output=True, text=True, timeout=DRYRUN_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"dryrun: exit {proc.returncode}: {proc.stdout[-1500:]} "
+                                f"{proc.stderr[-1500:]}")
+    rec = json.loads((out / f"{arch}__{shape}__pod.json").read_text())
+    keys = ("mesh", "devices", "status", "trace_s", "la_flops_per_device", "la_bytes_per_device",
+            "la_link_bytes_per_device", "collectives", "model_flops_per_device",
+            "useful_flops_ratio", "compute_s", "memory_s", "collective_s", "dominant",
+            "argument_size_in_bytes")
+    print(f"dryrun {arch} {shape} ({wall:.2f} s wall with the interpreter): "
+          f"{json.dumps({k: rec.get(k) for k in keys})}", flush=True)
+    check(rec["status"] == "ok" and rec["la_flops_per_device"] > 0
+          and rec["dominant"] in ("compute_s", "memory_s", "collective_s"),
+          f"dryrun {arch} {shape}: {rec.get('error')}")
+
+
+def whisper_mesh_phase(dev) -> dict[str, int]:
+    """Phase 25: (a) whisper-small under a 1 x 1 mesh beside unsharded
+    (``whisper_mesh_part``); (b) the dry run of one cell (``dryrun_part``).
+    Returns the mesh run's launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_world, make_debug_mesh, mesh_summary
+    from repro_torch.launch.sharding import make_rules
+
+    started = init_world(dev)
+    try:
+        mesh = make_debug_mesh(device=dev)
+        print(f"whisper mesh: world {dist.get_world_size()} ({dist.get_backend()}), mesh: "
+              f"{mesh_summary(mesh)}", flush=True)
+        t0 = time.perf_counter()
+        counts, _ = whisper_mesh_part(dev, make_rules(get_config(WHISPER), mesh))
+        wall_a = time.perf_counter() - t0
+    finally:
+        if started:
+            dist.destroy_process_group()
+    t0 = time.perf_counter()
+    dryrun_part()
+    print(f"whisper mesh: launches over the mesh run {counts}; wall (a) {wall_a:.2f} s, (b) "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4483,6 +4676,7 @@ def main() -> int:
     p22_counts, p22_times = phase("22 LM family training", family_train_phase, dev, gen)
     p23_counts = phase("23 sharded LM training", mesh_train_phase, dev)
     p24_counts = phase("24 sharded LM serving", mesh_serve_phase, dev)
+    p25_counts = phase("25 Whisper under a mesh and the dry run", whisper_mesh_phase, dev)
 
     for r in rows:
         r["launches"] = counts[r["name"]]
@@ -4507,6 +4701,7 @@ def main() -> int:
             r.update(p22_times)                   # phase 22 (b), (1, 16, 1, 4096, 256)
         r["mesh_train_launches"] = p23_counts[r["name"]]     # phase 23 (a), 3 steps each
         r["mesh_serve_launches"] = p24_counts[r["name"]]     # phase 24, the mesh runs
+        r["whisper_mesh_launches"] = p25_counts[r["name"]]   # phase 25 (a), the mesh run
     rows += lm_rows
     for r in shard_rows:
         r["launches"] = (shard_counts if r["name"] == "gossip_mix_block" else ref_counts)[r["name"]]
@@ -4540,6 +4735,9 @@ def main() -> int:
             # rows 9–11 on the sharded serve and recurrent training paths at 1 x 1
             # (phase 24); row 10's partials mode at its phase 10 shape
             "mesh_serve_launches", "partials_ms",
+            # rows 9–11 on Whisper's forward, encode and decode under a 1 x 1 mesh
+            # (phase 25 (a))
+            "whisper_mesh_launches",
             # row 11: the host's µs a call at (8, 4096), not the row's shape, and
             # F.rms_norm's there (phase 10)
             "host_us_8x4096", "library_host_us_8x4096")

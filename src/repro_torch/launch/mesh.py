@@ -15,7 +15,10 @@ A world smaller than the mesh raises ``ValueError`` naming both sizes, as
 starts the process group these functions need: under ``torchrun``
 (``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` set) from the environment,
 otherwise a world of one over an in-process store (no network).  Each
-rank of a CUDA world takes card ``LOCAL_RANK``.
+rank of a CUDA world takes card ``LOCAL_RANK``.  ``init_fake_world(n)``
+starts a world of n ranks in this one process over torch's fake backend,
+for the dry run (``launch.dryrun``): the counterpart of ``repro``'s
+``--xla_force_host_platform_device_count``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,28 @@ def init_world(device: torch.device) -> bool:
         dist.init_process_group(backend)
     else:
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    return True
+
+
+def init_fake_world(n: int) -> bool:
+    """Start a default process group of ``n`` ranks in this process, this
+    process rank 0, over torch's fake backend: its collectives return at
+    once and move nothing, so a step on fake tensors (``FakeTensorMode``)
+    runs as rank 0 of the whole world would run it, with no memory and no
+    peer.  A running fake world of ``n`` ranks is kept; any other running
+    group raises ``RuntimeError``.  Returns whether this call started it.
+
+    The backend and its store come from ``torch.testing._internal.
+    distributed.fake_pg``, which PyTorch ships for its own tests: a
+    private module, imported here only."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != n:
+            raise RuntimeError(f"a {dist.get_backend()} world of {dist.get_world_size()} "
+                               f"ranks is running; a fake world of {n} was asked for")
+        return False
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
     return True
 
 

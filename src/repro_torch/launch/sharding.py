@@ -42,8 +42,8 @@ The decode cache: ``cache_specs(cache, rules)`` (``repro``'s
 ``repro`` lays out one layer's, behind a whole leading layer dim: the batch
 over the data axes where they divide it, the slots of the attention caches
 (``k``, ``v``, ``local_k``, ``local_v``; Whisper's ``enc_k``, ``enc_v``)
-over the tensor axis where it divides them, the Mamba-2 and RG-LRU states
-by batch alone.  ``MeshRules.place_cache`` places a cache so, and
+over the tensor axis where it divides them (and ``seq_shard_decode``),
+the Mamba-2 and RG-LRU states by batch alone.  ``MeshRules.place_cache`` places a cache so, and
 ``MeshRules.sharded_decode_attention`` is the decode attention over it
 (``models.attention.sharded_decode_attention``).
 """
@@ -256,13 +256,17 @@ def placements(spec: tuple, names: Sequence[str]) -> list:
 
 @dataclasses.dataclass
 class MeshRules:
-    """Activation layouts of the LM on a mesh (``repro``'s ``MeshRules`` at
-    its defaults: FSDP over ``data``, tensor parallelism over ``model``,
-    sequence parallelism and the sequence-split cache on)."""
+    """Activation layouts of the LM on a mesh (``repro``'s ``MeshRules``):
+    tensor parallelism over ``model``, and ``repro``'s three overrides at
+    their defaults: FSDP over ``fsdp_axis`` ("data"), the residual split by
+    sequence over the tensor axis (``sequence_parallel``) and the
+    attention caches split by slots over it (``seq_shard_decode``)."""
 
     mesh: Any                     # a DeviceMesh, or an AbstractMesh for specs alone
     cfg: ModelConfig
-    fsdp_axis: ClassVar[str] = "data"
+    fsdp_axis: str = "data"
+    sequence_parallel: bool = True
+    seq_shard_decode: bool = True
     tp_axis: ClassVar[str] = TP_AXIS
 
     @property
@@ -320,7 +324,7 @@ class MeshRules:
     def spec_for(self, kind: str, shape: tuple[int, ...]) -> tuple | None:
         dp, tp = self.dp, self.tp_axis
         if kind == "hidden":                      # (B, S, D)
-            if _divisible(shape[1], self.tp_size):
+            if self.sequence_parallel and _divisible(shape[1], self.tp_size):
                 return (dp, tp, None)
             return (dp, None, None)
         if kind == "hidden_decode":               # (B, 1, D)
@@ -339,7 +343,7 @@ class MeshRules:
             return (dp, tp)
         if kind == "cache":                       # (B, S, Hkv, hd) seq-sharded
             b_spec = dp if _divisible(shape[0], self.dp_size) else None
-            if _divisible(shape[1], self.tp_size):
+            if self.seq_shard_decode and _divisible(shape[1], self.tp_size):
                 return (b_spec, tp, None, None)
             return (b_spec, None, None, None)
         if kind == "moe_tokens":                  # (B, E, C, D)
@@ -491,11 +495,14 @@ def cache_specs(cache: dict, rules: MeshRules) -> dict[str, tuple]:
         spec = [None] * t.dim()
         if _divisible(t.shape[1], rules.dp_size):
             spec[1] = rules.dp
-        if key in KV_CACHE_KEYS and _divisible(t.shape[2], rules.tp_size):
+        if rules.seq_shard_decode and key in KV_CACHE_KEYS and _divisible(t.shape[2],
+                                                                         rules.tp_size):
             spec[2] = rules.tp_axis
         out[key] = tuple(spec)
     return out
 
 
-def make_rules(cfg: ModelConfig, mesh) -> MeshRules:
-    return MeshRules(mesh=mesh, cfg=cfg)
+def make_rules(cfg: ModelConfig, mesh, **kw) -> MeshRules:
+    """``MeshRules`` of ``cfg`` on ``mesh``; ``kw`` sets ``repro``'s overrides
+    (``fsdp_axis``, ``sequence_parallel``, ``seq_shard_decode``)."""
+    return MeshRules(mesh=mesh, cfg=cfg, **kw)

@@ -38,9 +38,10 @@ on each axis), as ``repro``'s ``input_specs`` lay the batch out.
 Whisper (``family == "encdec"``) takes ``repro``'s batch keys:
 ``enc_frames`` (B, S_enc, D) and ``dec_tokens`` (B, S_dec) for ``forward``,
 plus ``labels`` for ``loss_fn``, and ``tokens`` and ``pos`` for
-``decode_step``; ``init_cache(batch, seq_len, enc_len=None, device=None)``
-holds ``enc_len`` (default max(seq_len // 4, 64)) cross-attention slots,
-zeros until ``whisper.fill_cross_cache`` writes an encoding's.  Its
+``decode_step``; ``init_cache(batch, seq_len, enc_len=None, device=None,
+rules=None)`` holds ``enc_len`` (default max(seq_len // 4, 64))
+cross-attention slots, zeros until ``whisper.fill_cross_cache`` writes an
+encoding's.  Every Whisper entry takes ``rules`` as the LMs' do.  Its
 ``input_specs`` give the encoder ``seq_len`` frames and the decoder
 max(seq_len // 4, 64) tokens (``_whisper_seqs``); its ``cache_specs`` hold
 a self cache of ``seq_len`` and max(seq_len // 16, 64) cross slots.
@@ -165,36 +166,29 @@ def _build_lm(cfg: ModelConfig) -> ModelAPI:
                     cache_specs=cache_specs)
 
 
-def _no_mesh(rules) -> None:
-    if getattr(rules, "mesh", None) is not None:
-        raise NotImplementedError("Whisper under a mesh is not ported")
-
-
 def _build_whisper(cfg: ModelConfig) -> ModelAPI:
     def init_params(seed: int = 0, device=None, rules=None) -> wh.Whisper:
-        _no_mesh(rules)
         dev = resolve_device(device)
-        return wh.init_whisper_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+        return wh.init_whisper_params(cfg, torch.Generator(device=dev).manual_seed(seed), rules)
 
     def loss_fn(params, batch: dict, rules=None) -> torch.Tensor:
-        _no_mesh(rules)
-        return wh.whisper_loss(params, batch, cfg)
+        return wh.whisper_loss(params, batch, cfg, rules)
 
     def forward(params: wh.Whisper, batch: dict, rules=None) -> torch.Tensor:
-        _no_mesh(rules)
+        batch = _placed(params, batch, rules)
         return wh.whisper_forward(params, _on(params, batch, "enc_frames"),
-                                  _on(params, batch, "dec_tokens"), cfg)
+                                  _on(params, batch, "dec_tokens"), cfg, rules)
 
     def init_cache(batch: int, seq_len: int, enc_len: int | None = None, device=None,
                    rules=None) -> dict:
-        _no_mesh(rules)
-        return wh.init_whisper_cache(cfg, batch, seq_len, enc_len or max(seq_len // 4, 64),
-                                     resolve_device(device))
+        cache = wh.init_whisper_cache(cfg, batch, seq_len, enc_len or max(seq_len // 4, 64),
+                                      resolve_device(device))
+        return cache if getattr(rules, "mesh", None) is None else rules.place_cache(cache)
 
     def decode_step(params: wh.Whisper, cache: dict, batch: dict, rules=None):
-        _no_mesh(rules)
+        batch = _placed(params, batch, rules)
         return wh.whisper_decode_step(params, cache, _on(params, batch, "tokens"),
-                                      _on(params, batch, "pos"), cfg)
+                                      _on(params, batch, "pos"), cfg, rules)
 
     def input_specs(spec: ShapeSpec) -> dict:
         b = spec.global_batch

@@ -1261,6 +1261,64 @@ def test_mesh_train_steps_on_card_match_unsharded(cuda, arch, mb):
     assert all(isinstance(t, DTensor) and t.to_local().is_cuda for t in leaves)
 
 
+def test_whisper_mesh_on_card_matches_unsharded(cuda):
+    """whisper-small's smoke config in float32 under a mesh of 1 x 1 (a nccl
+    world of one) and unsharded, from the same seed on the card: the loss and
+    every gradient, the teacher-forced logits, the cross cache that
+    ``fill_cross_cache`` writes and 6 decode steps over it bit-equal (the
+    same kernels on the same blocks; row 10 in its partials mode under the
+    mesh, merged over a group of one), and rows 9–11 launched as often."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import init_world, make_debug_mesh
+    from repro_torch.launch.sharding import make_rules
+    from repro_torch.models import whisper as wh
+    from repro_torch.models.transformer import bind
+
+    cfg = get_smoke_config("whisper-small").replace(dtype=torch.float32)
+    api = build_model(cfg)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    frames = torch.randn(4, 64, cfg.d_model, generator=g, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16), generator=g, device=cuda,
+                           dtype=torch.int32)
+    batch = {"enc_frames": frames, "dec_tokens": tokens, "labels": tokens.roll(-1, 1)}
+    full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t   # noqa: E731
+    started = init_world(cuda)
+    try:
+        runs = []
+        for rules in (None, make_rules(cfg, make_debug_mesh(device=cuda))):
+            params = api.init_params(0, device=cuda, rules=rules)
+            tk.reset_launch_counts()
+            copies = {n: p.detach().requires_grad_() for n, p in params.named_parameters()}
+            placed = batch if rules is None else rules.place_batch(batch, cuda)
+            loss = api.loss_fn(bind(params, copies), placed, rules)
+            grads = [full(x) for x in torch.autograd.grad(loss, list(copies.values()))]
+            out = [full(loss.detach()), full(api.forward(params, batch, rules))]
+            cache = api.init_cache(4, 16, 64, device=cuda, rules=rules)
+            x = placed["enc_frames"]
+            with torch.no_grad():
+                wh.fill_cross_cache(params, cache, wh.whisper_encode(params, x, cfg, rules=rules),
+                                    cfg)
+            step_tokens = tokens[:, 0]
+            for i in range(6):
+                logits, cache = api.decode_step(
+                    params, cache, {"tokens": step_tokens,
+                                    "pos": torch.full((4,), i, dtype=torch.int32, device=cuda)},
+                    rules)
+                out.append(full(logits))
+                step_tokens = out[-1].argmax(-1).to(torch.int32)
+            out += [full(t) for t in cache.values()]
+            runs.append((out, grads, tk.launch_counts()))
+    finally:
+        if started:
+            dist.destroy_process_group()
+    (o0, g0, c0), (o1, g1, c1) = runs
+    assert all(torch.equal(a, b) for a, b in zip(o1, o0))
+    assert all(torch.equal(a, b) for a, b in zip(g1, g0))
+    assert c1 == c0 and min(c1["flash_attention"], c1["decode_attention"], c1["rmsnorm"]) > 0
+
+
 # ---------------------------------------------------------------------------
 # the mixture-of-experts, Mamba-2 and VLM families
 # ---------------------------------------------------------------------------
