@@ -21,10 +21,13 @@ exits non-zero without one.  Phases, each of which fails the run on error:
   3. path: ``compare_methods`` on the paper's §4.1.2 instance (N_T = 104
      tasks, N_K = 16 machines, n = 1664) through the port's entry points,
      with the launch counters zeroed just before and read just after, and
-     the result checked against the host float64 Eq. 2;
+     the result checked against the host float64 Eq. 2; then one more
+     ``schedule(..., "sdp")``, bit-equal to the first (Y, iterations,
+     residual, projection counts, assignment, bottleneck);
   4. reference: the 6×3 instance solved on the card against the same solve
      on the CPU and against the exact optimum;
   5. host sync: the device's busy share of a short solve, from a profile;
+     the profiled solve bit-equal to the timed one (Y and iterations);
   6. FL kernels: the float32 exchange's tensor-core kernel's registers and
      spills (``ptxas -v``) and a check that its SASS holds wgmma (HGMMA);
      the exchange and the two compression kernels against their plain
@@ -108,8 +111,9 @@ exits non-zero without one.  Phases, each of which fails the run on error:
      lane's iterations, residual and projection counts, peak device memory,
      launch counts that do not depend on B, each lane's device Eq. 2 time
      against the host's, and the device's idle share of the DR loop (a
-     profiled 25-iteration batched solve); a 4-lane 6×3 batch against one
-     ``schedule`` a lane;
+     profiled 25-iteration batched solve), that solve bit-equal lane by lane
+     to an unprofiled rerun; a 4-lane 6×3 batch against one ``schedule`` a
+     lane;
  17. barrier-free FL and fig4: (a) ``run_fl_async`` on phase 7's instance
      and HEFT / SDP schedules (CIFAR-10 CNN, TopK(0.05), 4 rounds) under
      ``gossip_async_fl``'s execution (jitter 0.1, stragglers 0.15 × 3.0,
@@ -534,14 +538,15 @@ def kernel_phase(dev, gen) -> list[dict]:
 
 def path_phase(dev) -> dict[str, int]:
     from repro_torch import kernels as tk
-    from repro_torch.core import SDPOptions, bottleneck_time, compare_methods
+    from repro_torch.core import SDPOptions, bottleneck_time, compare_methods, schedule
 
     tg, cg = slice_instance()
     opts = SDPOptions(max_iters=MAX_ITERS)
     methods = ("heft", "tp_heft", "sdp_naive", "sdp")
     tk.reset_launch_counts()
     t0 = time.perf_counter()
-    out = compare_methods(tg, cg, methods, sdp_options=opts, device=dev)
+    cache: dict = {}
+    out = compare_methods(tg, cg, methods, cache, sdp_options=opts, device=dev)
     wall = time.perf_counter() - t0
     counts = tk.launch_counts()
 
@@ -580,6 +585,23 @@ def path_phase(dev) -> dict[str, int]:
     check(abs(info["rounding_bottleneck"] - host) <= 1e-5 * host,
           f"device Eq. 2 {info['rounding_bottleneck']} vs host {host}")
     check(0 <= info["num_feasible"] <= 4000, "num_feasible")
+
+    # the same schedule on a second run: the factored DR loop sums in a fixed order
+    t0 = time.perf_counter()
+    again: dict = {}
+    rerun = schedule(tg, cg, "sdp", sdp_options=opts, device=dev, _sdp_cache=again)
+    sol, sol2 = cache["sol"], again["sol"]
+    same = (torch.equal(sol.Y_device, sol2.Y_device) and sol.iterations == sol2.iterations
+            and sol.residual == sol2.residual
+            and (stats["eig_full"], stats["eig_partial"]) == (sol2.stats["eig_full"],
+                                                              sol2.stats["eig_partial"])
+            and np.array_equal(out["sdp"].assignment, rerun.assignment)
+            and out["sdp"].bottleneck == rerun.bottleneck)
+    print(f"path: sdp schedule again: bottleneck {rerun.bottleneck:.6f}, iterations "
+          f"{sol2.iterations}, residual {sol2.residual:.3e}; "
+          f"{'bit-equal' if same else 'DIFFERS'} (Y_device, iterations, residual, eig counts, "
+          f"assignment, bottleneck), {time.perf_counter() - t0:.3f} s", flush=True)
+    check(same, "the sdp schedule repeats bit for bit")
     return counts
 
 
@@ -622,7 +644,11 @@ def sync_phase(dev) -> None:
     opts = SDPOptions(max_iters=60, check_every=20)
     sol = solve_sdp(fb, opts, device=dev)       # timed without the profiler
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        solve_sdp(fb, opts, device=dev)
+        again = solve_sdp(fb, opts, device=dev)
+    same = torch.equal(sol.Y_device, again.Y_device) and sol.iterations == again.iterations
+    print(f"sync: the profiled solve against the first: Y_device and iterations "
+          f"{'bit-equal' if same else 'DIFFER'}", flush=True)
+    check(same, "a second n=1664 solve repeats the first bit for bit")
     events = prof.key_averages()
     busy_s = busy_seconds(prof)
     loop_s = sol.stats["loop_seconds"]
@@ -2018,6 +2044,16 @@ def batch_path_phase(dev) -> dict[str, int]:
     bqps = [build_factored_bqp(tg, cg) for cg in cgs]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sols = solve_sdp_batch(bqps, short, device=dev)
+    t0 = time.perf_counter()
+    rerun = solve_sdp_batch(bqps, short, device=dev)
+    same = [torch.equal(a.Y_device, b.Y_device) and torch.equal(a.state["w"], b.state["w"])
+            and a.residual == b.residual and a.stats["eig_full"] == b.stats["eig_full"]
+            for a, b in zip(sols, rerun)]
+    print(f"batch: the profiled 25-iteration solve against an unprofiled rerun: "
+          f"{sum(same)} of {B} lanes bit-equal (Y_device, iterate, residual, eig counts), "
+          f"rerun {time.perf_counter() - t0:.3f} s", flush=True)
+    check(all(same), "the batched factored solve repeats lane by lane")
+    del rerun
     spans = [e.time_range for e in prof.events() if e.name == "sdp: DR loop"]
     loop = sols[0].stats["loop_seconds"]
     busy = busy_seconds(prof, (spans[0].start, spans[0].end)) if spans else 0.0

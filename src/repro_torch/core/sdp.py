@@ -51,8 +51,12 @@ once by destination: each lane of a batch takes its lone solve's bits, and
 a solve on the card takes the same bits on every run.  The two kernels take
 every lane in one launch, each lane's arithmetic as it is alone.  The
 factored operator (the large instances) keeps one batched call a step for
-all lanes (``einsum``, ``scatter_add`` with atomics, batched QR and
-``eigh``): there a lane matches its lone solve to float32 noise only.
+all lanes (``einsum``, batched QR and ``eigh``): there a lane matches its
+lone solve to float32 noise only.  Its ``rmatvec`` sums the edge weights
+by source, by destination and by (source, destination) pair as segments
+of the edges sorted once when the closures are built (``_sorted_sums``),
+not with ``scatter_add``'s atomics, so a solve, lone or batched, takes the
+same bits on every run.
 
 ``SDPOptions(backend="numpy")`` runs ``repro``'s float64 host loop instead
 (``_solve_numpy``: the affine projection through a precomputed Gram
@@ -420,6 +424,28 @@ def _segment_sums(keys: torch.Tensor, n_out: int, vals: torch.Tensor, src: torch
     return vals.reshape(-1)[order], src.reshape(-1)[order], offsets
 
 
+def _sorted_sums(keys: torch.Tensor, terms: torch.Tensor, n_out: int):
+    """A function of a flat ``x`` that returns the ``n_out`` sums of
+    ``x[terms[i]]`` by ``keys[i]``, the same bits on every run: the terms
+    are sorted by key once, here (stable, so a key's terms keep their
+    order; one host read, the count of distinct keys), and each call
+    reduces every distinct key's segment on its own and writes it to its
+    key, a write that accumulates nothing.  Only the distinct keys get a
+    segment; a key without terms stays 0."""
+    order = torch.argsort(keys, stable=True)
+    heads, counts = torch.unique_consecutive(keys[order], return_counts=True)
+    offsets = torch.zeros(heads.numel() + 1, dtype=torch.int64, device=keys.device)
+    torch.cumsum(counts, 0, out=offsets[1:])
+    take = terms[order]
+
+    def sums(x: torch.Tensor) -> torch.Tensor:
+        out = x.new_zeros(n_out)
+        out[heads] = torch.segment_reduce(x[take], "sum", offsets=offsets)
+        return out
+
+    return sums
+
+
 def _make_device_ops(kind: str, operands, n1: int, dim: int, n_tasks: int, n_machines: int):
     """Constraint-operator closures (matvec, rmatvec, b) of B lanes on the
     operands' device; every operand carries one lane a row, and matvec /
@@ -463,9 +489,16 @@ def _make_device_ops(kind: str, operands, n1: int, dim: int, n_tasks: int, n_mac
         [torch.ones(B, n1, dtype=dt, device=dev), torch.zeros(B, T + n_e, dtype=dt, device=dev)],
         dim=1,
     )
-    pair = src * T + dst
     lane = torch.arange(B, device=dev)[:, None]
     Cu = C1 + P[:, None] * d                              # (B, K)
+    # the edge weights summed by source, by destination and by (src, dst)
+    # pair, as one flat vector [c_i (B·T) | c_j (B·T) | W2 (B·T·T)]; every
+    # edge of every lane is a term of each of the three
+    n_ct = B * T
+    by = torch.cat([(src + lane * T).reshape(-1), (dst + lane * T).reshape(-1) + n_ct,
+                    ((src * T + dst) + lane * T * T).reshape(-1) + 2 * n_ct])
+    edge_sums = _sorted_sums(by, torch.arange(B * n_e, device=dev).repeat(3),
+                             2 * n_ct + B * T * T)
 
     def matvec(v):
         F = v[:, :idx_t].view(B, n1, n1)
@@ -493,12 +526,10 @@ def _make_device_ops(kind: str, operands, n1: int, dim: int, n_tasks: int, n_mac
         y_raw = y[:, n1 + T:]
         y_q = y_raw / qs[:, None]
         S = torch.sum(y_q, dim=1)
-        zeros_t = torch.zeros(B, T, dtype=y.dtype, device=y.device)
-        c_i = zeros_t.scatter_add(1, src, y_q)
-        c_j = zeros_t.scatter_add(1, dst, y_q)
-        W2 = torch.zeros(B, T * T, dtype=y.dtype, device=y.device).scatter_add_(
-            1, pair, y_q
-        ).view(B, T, T)
+        sy = edge_sums(y_q.reshape(-1))
+        c_i = sy[:n_ct].view(B, T)
+        c_j = sy[n_ct: 2 * n_ct].view(B, T)
+        W2 = sy[2 * n_ct:].view(B, T, T)
         # X-X block: Σ_e y_e · sym(D ⊗ (p δ_iᵀ) + C ⊗ (δ_i δ_jᵀ))
         M = 0.5 * (p[:, :, None] * c_i[:, None, :] + c_i[:, :, None] * p[:, None, :])
         Z = torch.einsum("kl,bk,bts->bktls", eyeK, d, M)

@@ -1093,6 +1093,57 @@ def test_dense_batch_lanes_are_their_lone_solves_on_card(cuda):
         assert lane.stats["constraint_kind"] == "csr" and lane.stats["batch"] == 4
 
 
+def _same_solve(a, b):
+    """Two solves bit-equal: Y on the card, the iterate, iterations,
+    residual and projection counts."""
+    assert torch.equal(a.Y_device, b.Y_device)
+    assert torch.equal(a.state["w"], b.state["w"])
+    assert a.iterations == b.iterations and a.residual == b.residual
+    assert (a.stats["eig_full"], a.stats["eig_partial"]) == (
+        b.stats["eig_full"], b.stats["eig_partial"])
+
+
+def test_factored_schedule_same_on_every_run(cuda):
+    """The paper's §4.1.2 instance (N_T = 104, N_K = 16, n = 1,664: the
+    factored operator), solved and rounded twice through ``schedule(...,
+    "sdp")`` at chip_smoke.py phase 3's budget: the two runs are bit-equal
+    (the factored ``rmatvec`` sums as sorted segments, not by atomics)."""
+    rng = np.random.default_rng(0)
+    tg = P.random_task_graph(rng, 104, degree_low=2, degree_high=4)
+    cg = P.random_compute_graph(rng, 16)
+    opts = SDPOptions(max_iters=300)
+    runs = []
+    for _ in range(2):
+        cache = {}
+        s = P.schedule(tg, cg, "sdp", sdp_options=opts, device=cuda, _sdp_cache=cache)
+        runs.append((s, cache["sol"]))
+    (s1, sol1), (s2, sol2) = runs
+    assert s1.info["representation"] == "factored"
+    assert sol1.stats["eig_partial"] > 0
+    _same_solve(sol1, sol2)
+    assert np.array_equal(s1.assignment, s2.assignment)
+    assert s1.bottleneck == s2.bottleneck
+    assert s1.info["rounding_bottleneck"] == s2.info["rounding_bottleneck"]
+
+
+def test_factored_batch_same_on_every_run(cuda):
+    """4 factored lanes at N_T = 128, N_K = 8 (one §4.1.2 task graph, compute
+    graphs whose speeds and delays differ, as chip_smoke.py phase 16 draws
+    them), 50 DR iterations, twice: each lane is bit-equal to its rerun."""
+    rng = np.random.default_rng(0)
+    tg = P.random_task_graph(rng, 128, degree_low=2, degree_high=4)
+    cg = P.random_compute_graph(rng, 8)
+    rng = np.random.default_rng(1)
+    bqps = [P.build_factored_bqp(tg, P.ComputeGraph(
+        e=cg.e * rng.uniform(0.7, 1.4, size=cg.e.shape), C=cg.C * rng.uniform(0.7, 1.4)))
+        for _ in range(4)]
+    opts = SDPOptions(max_iters=50, check_every=25, tol=0.0)
+    first, again = (P.solve_sdp_batch(bqps, opts, device=cuda) for _ in range(2))
+    for lane, rerun in zip(first, again):
+        assert lane.stats["constraint_kind"] == "factored" and lane.stats["batch"] == 4
+        _same_solve(lane, rerun)
+
+
 # ---------------------------------------------------------------------------
 # dense-LM training: the flash kernel's logsumexp, the autograd Functions,
 # train steps on the card against the CPU
